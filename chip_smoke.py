@@ -22,7 +22,24 @@ prints no result):
    launch counts zeroed just before and read just after;
 5. one step of the flash model against the same step with plain dense
    attention, same weights and batch;
-6. the ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` last.
+6. the ring-flash kernels against their plain versions over a virtual ring
+   of 4 ranks on the card, in lockstep, rotation being list indexing, at
+   every step (with the carries the ring has built): the layer of the sp
+   path, (1, 4096, 8, 128) bf16 per rank, a GQA shape (8 q heads over 2,
+   D 64, T 1024) in float32 and a ragged T = 96 in float32, each contiguous
+   and zigzag; then the whole virtual ring (4 x 1024, bf16) against the
+   dense reference on the full sequence, forward and gradients;
+7. time each ring kernel at the layer's shape for a diagonal ring step
+   (causal half of the pairs live) and a past step (all pairs live);
+8. train the same model through the sequence-parallel path,
+   ``TrainConfig(sp=1)`` (a ring of one: every layer runs the ring-flash
+   kernels once per pass), 5 steps, counts zeroed just before;
+9. one ring-flash step against one slice-1 flash step, same weights and
+   batch;
+10. the ``{"kernels": [...]}`` line (all six kernels), then
+    ``{"ok": true, ...}`` last.
+
+Both CUDA sources build at once, one nvcc each, at the start.
 """
 
 from __future__ import annotations
@@ -34,6 +51,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 STEPS = 5
 SLICE_SHAPE = (1, 4096, 8, 8, 128)       # (B, T, H, Hkv, D)
@@ -66,7 +84,20 @@ KERNELS = {
     "flash_bwd_dq": ("horovod_tpu/ops/flash_attention.py:96", 3),
     "flash_bwd_dkv": ("horovod_tpu/ops/flash_attention.py:131", 4),
 }
-SOURCE = "horovod_tpu_torch/csrc/flash_attention.cu"
+RING_KERNELS = {
+    "ring_flash_fwd": ("horovod_tpu/ops/ring_flash.py:65", 2),
+    "ring_flash_bwd_dq": ("horovod_tpu/ops/ring_flash.py:106", 3),
+    "ring_flash_bwd_dkv": ("horovod_tpu/ops/ring_flash.py:137", 4),
+}
+SOURCES = {"flash_attention.cu": list(KERNELS), "ring_flash.cu": list(RING_KERNELS)}
+RING_N = 4
+RING_SHAPES = [
+    # (B, T per rank, H, Hkv, D, dtype name)
+    (1, 4096, 8, 8, 128, "bfloat16"),
+    (1, 1024, 8, 2, 64, "float32"),
+    (2, 96, 4, 2, 32, "float32"),
+]
+WHOLE_RING = (1, 1024, 8, 8, 128, "bfloat16")
 
 
 def log(msg: str) -> None:
@@ -114,9 +145,10 @@ def bound(name, b, t, h, hkv, d, causal, dtype_name, itemsize):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def check(torch, label, got, want, autograd=False) -> float:
+def check(torch, label, got, want, autograd=False, quiet=False) -> float:
     """Hold ``got`` to ``want`` (both in their own dtype) by the tolerances
-    above; log and return the max abs error, raise past a limit."""
+    above; log (unless ``quiet``) and return the max abs error, raise past a
+    limit."""
     bf16 = want.dtype == torch.bfloat16
     g, w = got.float(), want.float()
     err = (g - w).abs()
@@ -136,8 +168,9 @@ def check(torch, label, got, want, autograd=False) -> float:
                     relnorm / BF16_RELNORM)
         rule = (f"|err| <= 2^-7 |ref| + {BF16_ROW_ATOL:g} row rms, relnorm "
                 f"<= {BF16_RELNORM:g}")
-    log(f"  {label:20s} max_abs_err {max_abs:.3e} relnorm {relnorm:.3e} "
-        f"worst/limit {worst:.3f} ({rule})")
+    if not quiet:
+        log(f"  {label:20s} max_abs_err {max_abs:.3e} relnorm {relnorm:.3e} "
+            f"worst/limit {worst:.3f} ({rule})")
     if not worst <= 1.0:
         raise AssertionError(f"{label}: {worst:.3f} of its limit ({rule})")
     return max_abs
@@ -243,35 +276,275 @@ def time_kernels(torch, fa, inputs, shape):
     return rows
 
 
-def step_against_plain(torch, train_mod, config, dev):
-    """One step's loss and gradients, flash kernels vs dense plain attention."""
+def one_step(torch, model, tokens, positions=None):
+    """Loss and gradients of one forward/backward, no optimizer step."""
     from horovod_tpu_torch.models.transformer import lm_loss
 
+    loss = lm_loss(model(tokens, positions), tokens)
+    loss.backward()
+    return loss.item(), {n: p.grad.float() for n, p in model.named_parameters()}
+
+
+def hold_step(label, a, b, loss_limit, grad_limit=3e-2):
+    """Hold step ``a`` (loss, grads) to step ``b``."""
+    (la, ga), (lb, gb) = a, b
+    rel = abs(la - lb) / abs(lb)
+    log(f"  loss {label} {la:.6f} vs {lb:.6f} rel {rel:.3e} (limit {loss_limit:g})")
+    if not (math.isfinite(la) and rel <= loss_limit):
+        raise AssertionError(f"{label}: loss {la} vs {lb}")
+    worst = ("", 0.0)
+    for name, g in gb.items():
+        err = (ga[name] - g).norm().item() / max(g.norm().item(), 1e-30)
+        if not math.isfinite(err) or err > grad_limit:
+            raise AssertionError(f"grad {name}: relative norm error {err}")
+        worst = max(worst, (name, err), key=lambda x: x[1])
+    log(f"  every gradient within {grad_limit:g} relative norm error; worst "
+        f"{worst[0]} {worst[1]:.3e}")
+
+
+def step_against_plain(torch, train_mod, config, dev):
+    """One step's loss and gradients, flash kernels vs dense plain attention."""
     tokens = train_mod.make_batch(config, 0, dev)
     results = {}
     for attention in ("flash", "dense"):
         model = train_mod.build_model(
             dataclasses.replace(config, attention=attention), dev)
-        loss = lm_loss(model(tokens), tokens)
-        loss.backward()
-        results[attention] = (loss.item(), {n: p.grad.float() for n, p in
-                                            model.named_parameters()})
-        del model, loss
+        results[attention] = one_step(torch, model, tokens)
+        del model
         torch.cuda.empty_cache()
-    (lf, gf), (ld, gd) = results["flash"], results["dense"]
-    rel = abs(lf - ld) / abs(ld)
-    log(f"  loss flash {lf:.6f} dense {ld:.6f} rel {rel:.3e} (limit 1e-2)")
-    if not (math.isfinite(lf) and rel <= 1e-2):
-        raise AssertionError(f"flash loss {lf} vs dense {ld}")
-    worst = ("", 0.0)
-    for name, g in gd.items():
-        norm = g.norm().item()
-        err = (gf[name] - g).norm().item() / max(norm, 1e-30)
-        if not math.isfinite(err) or err > 3e-2:
-            raise AssertionError(f"grad {name}: relative norm error {err}")
-        worst = max(worst, (name, err), key=lambda x: x[1])
-    log(f"  every gradient within 3e-2 relative norm error; worst "
-        f"{worst[0]} {worst[1]:.3e}")
+    hold_step("flash vs dense", results["flash"], results["dense"], 1e-2)
+
+
+def ring_rows(torch, dev, shape, seed):
+    """Per virtual rank: q, k, v, dO in the rows layout, random in the
+    shape's dtype."""
+    b, t, h, hkv, d, dtype_name = shape
+    dtype = getattr(torch, dtype_name)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rand(*s):
+        return torch.randn(*s, generator=gen, device=dev).to(dtype)
+
+    return [[rand(b * h, t, d), rand(b * hkv, t, d), rand(b * hkv, t, d),
+             rand(b * h, t, d)] for _ in range(RING_N)]
+
+
+def ring_steps(ra, t, zigzag):
+    """(rank, source rank) of every ring step that runs a block product, in
+    lockstep order: step by step, rank by rank."""
+    return [(r, (r - s) % RING_N) for s in range(RING_N) for r in range(RING_N)
+            if not ra.fully_masked(r, (r - s) % RING_N, t, RING_N, zigzag)]
+
+
+def check_ring_shape(torch, rf, ra, dev, shape, zigzag):
+    """Each ring kernel against its plain version at every step of a
+    virtual ring, on the same inputs and the same carries (the ones the ring
+    has built so far, carried on from the plain version). Returns the max
+    abs error per kernel."""
+    b, t, h, hkv, d, dtype_name = shape
+    ranks = ring_rows(torch, dev, shape, seed=99)
+    pos = [rf.ring_positions(r, t, RING_N, zigzag, dev) for r in range(RING_N)]
+    steps = ring_steps(ra, t, zigzag)
+    errs = dict.fromkeys(RING_KERNELS, 0.0)
+
+    def hold(name, label, got, want):
+        errs[name] = max(errs[name], check(torch, f"{name} {label}", got, want,
+                                           quiet=True))
+
+    carries = [list(rf.init_carries(b * h, t, d, dev)) for _ in range(RING_N)]
+    for r, src in steps:
+        (qr, *_), (_, kr, vr, _) = ranks[r], ranks[src]
+        want = [c.clone() for c in carries[r]]
+        got = [c.clone() for c in carries[r]]
+        rf.rf_fwd_plain(qr, kr, vr, *want, pos[r], pos[src], h, hkv)
+        rf.rf_fwd(qr, kr, vr, *got, pos[r], pos[src], h, hkv)
+        for label, g, w in zip(("acc", "m", "l"), got, want):
+            hold("ring_flash_fwd", label, g, w)
+        carries[r] = want
+    fin = [rf.finalize(*c, getattr(torch, dtype_name)) for c in carries]
+    delta = [(ranks[r][3].float() * fin[r][0].float()).sum(-1) for r in range(RING_N)]
+    dq = [torch.zeros(b * h, t, d, device=dev) for _ in range(RING_N)]
+    dkv = [[torch.zeros(b * hkv, t, d, device=dev) for _ in range(2)]
+           for _ in range(RING_N)]
+    for r, src in steps:
+        (qr, _, _, dor), (_, kr, vr, _) = ranks[r], ranks[src]
+        args = (qr, kr, vr, dor, fin[r][1], delta[r], pos[r], pos[src])
+        want, got = dq[r].clone(), dq[r].clone()
+        rf.rf_dq_plain(*args, want, h, hkv)
+        rf.rf_bwd_dq(*args, got, h, hkv)
+        hold("ring_flash_bwd_dq", "dQ", got, want)
+        dq[r] = want
+        want = [c.clone() for c in dkv[src]]
+        got = [c.clone() for c in dkv[src]]
+        rf.rf_dkv_plain(*args, *want, h, hkv)
+        rf.rf_bwd_dkv(*args, *got, h, hkv)
+        for label, g, w in zip(("dK", "dV"), got, want):
+            hold("ring_flash_bwd_dkv", label, g, w)
+        dkv[src] = want
+    torch.cuda.synchronize()
+    log(f"  {len(steps)} ring steps, every kernel within its limit; max abs "
+        f"err {errs}")
+    return errs
+
+
+def virtual_ring(torch, fa, rf, ra, q, k, v, g, zigzag):
+    """The schedule of ring_flash_attention over RING_N virtual ranks on one
+    card, in lockstep, with the kernels: (out, dq, dk, dv) of the full
+    sequence. Rotation is list indexing: the (dK, dV) carry of block j
+    gathers the share of every rank that holds block j."""
+    b, tt, h, d = q.shape
+    hkv, t = k.shape[2], tt // RING_N
+
+    def shards(x):
+        x = ra.zigzag_shard(x, RING_N) if zigzag else x
+        return [fa._rows(c) for c in x.chunk(RING_N, dim=1)]
+
+    def whole(parts, dtype):
+        x = torch.cat([fa._unrows(p.to(dtype), b) for p in parts], dim=1)
+        return ra.zigzag_unshard(x, RING_N) if zigzag else x
+
+    qr, kr, vr, gr = (shards(x) for x in (q, k, v, g))
+    pos = [rf.ring_positions(r, t, RING_N, zigzag, q.device) for r in range(RING_N)]
+    steps = ring_steps(ra, t, zigzag)
+    carries = [rf.init_carries(b * h, t, d, q.device) for _ in range(RING_N)]
+    for r, src in steps:
+        rf.rf_fwd(qr[r], kr[src], vr[src], *carries[r], pos[r], pos[src], h, hkv)
+    fin = [rf.finalize(*c, q.dtype) for c in carries]
+    dq = [torch.zeros(b * h, t, d, device=q.device) for _ in range(RING_N)]
+    dk = [torch.zeros(b * hkv, t, d, device=q.device) for _ in range(RING_N)]
+    dv = [torch.zeros(b * hkv, t, d, device=q.device) for _ in range(RING_N)]
+    for r, src in steps:
+        delta = (gr[r].float() * fin[r][0].float()).sum(-1)
+        args = (qr[r], kr[src], vr[src], gr[r], fin[r][1], delta, pos[r], pos[src])
+        rf.rf_bwd_dq(*args, dq[r], h, hkv)
+        rf.rf_bwd_dkv(*args, dk[src], dv[src], h, hkv)
+    return (whole([f[0] for f in fin], q.dtype), whole(dq, q.dtype),
+            whole(dk, k.dtype), whole(dv, v.dtype))
+
+
+def check_whole_ring(torch, fa, rf, ra, dev, zigzag):
+    """The virtual ring's output and gradients against autograd through the
+    dense reference on the full sequence."""
+    b, t, h, hkv, d, dtype_name = WHOLE_RING
+    dtype = getattr(torch, dtype_name)
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    full = (b, t * RING_N)
+    q, k, v, g = (torch.randn(*full, hh, d, generator=gen, device=dev).to(dtype)
+                  for hh in (h, hkv, hkv, h))
+    out, dq, dk, dv = virtual_ring(torch, fa, rf, ra, q, k, v, g, zigzag)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    ref = fa.flash_attention_reference(*leaves, causal=True)
+    (ref.float() * g.float()).sum().backward()
+    check(torch, "ring out", out, ref)
+    for n, got, leaf in zip("qkv", (dq, dk, dv), leaves):
+        check(torch, f"ring d{n}", got, leaf.grad, autograd=True)
+
+
+def ring_bound(name, b, t, h, hkv, d, live_pairs, dtype_name, itemsize):
+    """(ms, 'bytes' | 'operations') of one ring step: operations over the
+    live pairs actually computed; bytes of q, k, v (and dO, L, delta), the
+    positions, and the float32 carries read and written back."""
+    flops = 2 * d * live_pairs * RING_KERNELS[name][1] * b * h
+    q_bytes, kv_bytes = b * h * t * d * itemsize, b * hkv * t * d * itemsize
+    row, pos = b * h * t * 4, 2 * t * 4
+    moved = pos + {
+        "ring_flash_fwd": q_bytes + 2 * kv_bytes + 2 * b * h * t * d * 4 + 4 * row,
+        "ring_flash_bwd_dq": 2 * q_bytes + 2 * kv_bytes + 2 * row + 2 * b * h * t * d * 4,
+        "ring_flash_bwd_dkv": 2 * q_bytes + 2 * kv_bytes + 2 * row + 4 * b * hkv * t * d * 4,
+    }[name]
+    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    t_bytes = moved / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def time_ring_kernels(torch, rf, dev):
+    """B4-B6 at the layer's shape for a diagonal and a past ring step."""
+    import torch.nn.functional as F
+
+    b, t, h, hkv, d, dtype_name = RING_SHAPES[0]
+    (qr, kr, vr, dor), = ring_rows(torch, dev, RING_SHAPES[0], seed=7)[:1]
+    lse = torch.rand(b * h, t, device=dev) + 5.0
+    delta = torch.randn(b * h, t, device=dev)
+    itemsize = qr.element_size()
+    rows = {}
+    for step, (my, src) in (("diagonal", (1, 1)), ("past", (1, 0))):
+        qpos = rf.ring_positions(my, t, RING_N, False, dev)
+        kpos = rf.ring_positions(src, t, RING_N, False, dev)
+        live = int((qpos[:, None] >= kpos[None, :]).sum().item())
+        acc, m, l = rf.init_carries(b * h, t, d, dev)
+        dq = torch.zeros(b * h, t, d, device=dev)
+        dk, dv = (torch.zeros(b * hkv, t, d, device=dev) for _ in range(2))
+        fwd = (qr, kr, vr, acc, m, l, qpos, kpos, h, hkv)
+        bwd = (qr, kr, vr, dor, lse, delta, qpos, kpos)
+        calls = {
+            "ring_flash_fwd": (lambda: rf.rf_fwd(*fwd), lambda: rf.rf_fwd_plain(*fwd)),
+            "ring_flash_bwd_dq": (lambda: rf.rf_bwd_dq(*bwd, dq, h, hkv),
+                                  lambda: rf.rf_dq_plain(*bwd, dq, h, hkv)),
+            "ring_flash_bwd_dkv": (lambda: rf.rf_bwd_dkv(*bwd, dk, dv, h, hkv),
+                                   lambda: rf.rf_dkv_plain(*bwd, dk, dv, h, hkv)),
+        }
+        for name, (kernel, plain) in calls.items():
+            ms, plain_ms = time_ms(torch, kernel), time_ms(torch, plain)
+            bound_ms, bound_by = ring_bound(name, b, t, h, hkv, d, live,
+                                            dtype_name, itemsize)
+            rows.setdefault(name, {})[step] = {
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "live_pairs": live}
+            log(f"  {step:8s} {name:18s} {ms:9.3f} ms  plain {plain_ms:9.3f} ms"
+                f"  bound {bound_ms:7.4f} ms ({bound_by}), {live} live pairs")
+    # Yardstick only: no PyTorch call takes an (acc, m, l) carry. SDPA
+    # computes a past step's block product alone, non-causal.
+    qs = qr.view(b, h, t, d)
+    ks, vs = kr.view(b, hkv, t, d), vr.view(b, hkv, t, d)
+    sdpa_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(qs, ks, vs))
+    qg, kg, vg = (x.clone().requires_grad_(True) for x in (qs, ks, vs))
+    out = F.scaled_dot_product_attention(qg, kg, vg)
+    sdpa_bwd = time_ms(torch, lambda: torch.autograd.grad(
+        out, (qg, kg, vg), dor.view(b, h, t, d), retain_graph=True))
+    log(f"  yardstick scaled_dot_product_attention on one {t}-token block, "
+        f"non-causal: fwd {sdpa_fwd:.3f} ms, bwd {sdpa_bwd:.3f} ms")
+    reason = "none: no PyTorch call takes an (acc, m, l) or gradient carry"
+    out_rows = {}
+    for name, by_step in rows.items():
+        # The main path (sp=1) runs the diagonal step: its numbers lead.
+        out_rows[name] = {**by_step["diagonal"], "library_ms": None,
+                          "library": reason, "past_step": by_step["past"],
+                          "sdpa_block_fwd_ms": sdpa_fwd,
+                          "sdpa_block_bwd_ms": sdpa_bwd}
+    return out_rows
+
+
+def ring_step_against_flash(torch, train_mod, config, dev):
+    """One step of the sp=1 ring-flash model against one step of slice 1's
+    flash model: same weights (same seed), same batch."""
+    from horovod_tpu_torch.parallel.mesh import dp_sp_groups
+
+    ring = dp_sp_groups(config.sp)
+    tokens, positions = train_mod.make_shard(config, ring, dev)
+    model = train_mod.build_model(config, dev, ring.group)
+    ring_res = one_step(torch, model, tokens, positions)
+    del model
+    model = train_mod.build_model(dataclasses.replace(config, sp=None), dev)
+    flash_res = one_step(torch, model, train_mod.make_batch(config, 0, dev))
+    del model
+    torch.cuda.empty_cache()
+    hold_step("ring-flash vs flash", ring_res, flash_res, 1e-3)
+
+
+def report_training(torch, dev, result) -> None:
+    """Log a training run; raise unless its loss is finite and falls."""
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    steady = result.step_s[1:] or result.step_s
+    step_s = statistics.median(steady)
+    log(f"  params {result.params}, buckets {result.num_buckets}, peak memory "
+        f"{peak_gb:.2f} GB")
+    log(f"  loss per step {result.losses}")
+    log(f"  step time per step (s) {result.step_s}; median after the first "
+        f"{step_s:.4f} s, {result.tokens_per_step / step_s:.1f} tokens/s")
+    if not all(math.isfinite(x) for x in result.losses):
+        raise AssertionError(f"non-finite loss {result.losses}")
+    if not result.losses[-1] < result.losses[0]:
+        raise AssertionError(f"loss did not fall: {result.losses}")
 
 
 def main() -> int:
@@ -283,6 +556,8 @@ def main() -> int:
     from horovod_tpu_torch.common import basics
     from horovod_tpu_torch.ops import _build
     from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.ops import ring_attention as ra
+    from horovod_tpu_torch.ops import ring_flash as rf
     from horovod_tpu_torch import train as train_mod
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -293,8 +568,10 @@ def main() -> int:
     log(f"[1] device: {card}")
 
     t0 = time.perf_counter()
-    _build.build("flash_attention.cu")
-    log(f"[2] kernels built in {time.perf_counter() - t0:.1f} s")
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        list(pool.map(_build.build, SOURCES))
+    log(f"[2] kernels built in {time.perf_counter() - t0:.1f} s "
+        f"({', '.join(SOURCES)}, one nvcc each, at once)")
     errs = None
     timing_inputs = None
     for shape in CHECK_SHAPES:
@@ -312,34 +589,71 @@ def main() -> int:
     log(f"[4] training {STEPS} steps: {config}")
     torch.cuda.reset_peak_memory_stats(dev)
     fa.reset_launches()
+    rf.reset_launches()
     result = train_mod.train(config, STEPS, device="cuda")
-    counts = dict(fa.launches)
-    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
-    steady = result.step_s[1:] or result.step_s
-    step_s = statistics.median(steady)
-    log(f"  params {result.params}, buckets {result.num_buckets}, peak memory "
-        f"{peak_gb:.2f} GB")
-    log(f"  loss per step {result.losses}")
-    log(f"  step time per step (s) {result.step_s}; median after the first "
-        f"{step_s:.4f} s, {result.tokens_per_step / step_s:.1f} tokens/s")
+    counts = {**fa.launches, **rf.launches}
+    report_training(torch, dev, result)
     log(f"  launches on the main path {counts}")
-    if not all(math.isfinite(x) for x in result.losses):
-        raise AssertionError(f"non-finite loss {result.losses}")
-    if not result.losses[-1] < result.losses[0]:
-        raise AssertionError(f"loss did not fall: {result.losses}")
     want = config.layers * STEPS
-    if any(counts[k] != want for k in KERNELS):
-        raise AssertionError(f"launch counts {counts}, expected {want} each")
+    if any(counts[k] != want for k in KERNELS) or any(counts[k] for k in RING_KERNELS):
+        raise AssertionError(f"launch counts {counts}, expected {want} of each "
+                             f"flash kernel and no ring kernel")
 
     log("[5] one step, flash kernels against plain dense attention")
     step_against_plain(torch, train_mod, config, dev)
     basics.shutdown()
 
+    log(f"[6] ring kernels against their plain versions over a virtual ring "
+        f"of {RING_N}")
+    for shape in RING_SHAPES:
+        for zigzag in (False, True):
+            log(f"  shape (B, T per rank, H, Hkv, D, dtype) = {shape}, "
+                f"{'zigzag' if zigzag else 'contiguous'}")
+            shape_errs = check_ring_shape(torch, rf, ra, dev, shape, zigzag)
+            if shape == RING_SHAPES[0]:
+                for k, e in shape_errs.items():
+                    errs[k] = max(errs.get(k, 0.0), e)
+            torch.cuda.empty_cache()
+    for zigzag in (False, True):
+        log(f"  the whole virtual ring, {RING_N} x {WHOLE_RING}, "
+            f"{'zigzag' if zigzag else 'contiguous'}, against the dense "
+            f"reference on the full sequence")
+        check_whole_ring(torch, fa, rf, ra, dev, zigzag)
+        torch.cuda.empty_cache()
+
+    log(f"[7] ring kernel timing at {RING_SHAPES[0]}")
+    timing.update(time_ring_kernels(torch, rf, dev))
+    torch.cuda.empty_cache()
+
+    sp_config = train_mod.TrainConfig(sp=1)
+    log(f"[8] training {STEPS} steps through the ring path: {sp_config}")
+    torch.cuda.reset_peak_memory_stats(dev)
+    fa.reset_launches()
+    rf.reset_launches()
+    sp_result = train_mod.train(sp_config, STEPS, device="cuda")
+    sp_counts = {**fa.launches, **rf.launches}
+    report_training(torch, dev, sp_result)
+    log(f"  launches on the ring path {sp_counts}")
+    want = sp_config.layers * STEPS
+    if any(sp_counts[k] != want for k in RING_KERNELS) or \
+            any(sp_counts[k] for k in KERNELS):
+        raise AssertionError(f"launch counts {sp_counts}, expected {want} of "
+                             f"each ring kernel and no flash kernel")
+    for k in RING_KERNELS:
+        counts[k] = sp_counts[k]
+
+    log("[9] one ring-flash step against one slice-1 flash step")
+    ring_step_against_flash(torch, train_mod, sp_config, dev)
+    basics.shutdown()
+
     kernels = []
-    for kname, (replaces, _) in KERNELS.items():
-        kernels.append({"name": kname, "route": "cuda", "source": SOURCE,
-                        "replaces": replaces, "launches": counts[kname],
-                        "max_abs_err": errs[kname], **timing[kname]})
+    for source, names in SOURCES.items():
+        for kname in names:
+            replaces = {**KERNELS, **RING_KERNELS}[kname][0]
+            kernels.append({"name": kname, "route": "cuda",
+                            "source": f"horovod_tpu_torch/csrc/{source}",
+                            "replaces": replaces, "launches": counts[kname],
+                            "max_abs_err": errs[kname], **timing[kname]})
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

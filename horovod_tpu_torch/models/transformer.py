@@ -8,6 +8,13 @@ the tanh approximation; rotary embedding rotates the two halves of each
 head; the LM head runs at ``logits_dtype`` (float32 by default).
 ``attention="flash"`` runs the flash kernels of ``ops/flash_attention.py``,
 ``attention="dense"`` the plain causal attention below.
+
+``sp_group`` (flax's ``sp_axis``) makes the model sequence-parallel: each
+rank of the group holds a shard of the sequence, the caller passes the
+shard's global positions (for the rotary embedding), and attention runs
+around the ring, ``ring_flash_attention`` for "flash" and
+``ring_attention`` for "dense". GQA k/v are not replicated before the ring,
+so it rotates the small blocks.
 """
 
 from __future__ import annotations
@@ -20,6 +27,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.flash_attention import flash_attention
+from ..ops.ring_attention import ring_attention
+from ..ops.ring_flash import ring_flash_attention
 
 
 def _rope(x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
@@ -75,7 +84,7 @@ class RMSNorm(nn.Module):
 class Block(nn.Module):
     def __init__(self, dim: int, heads: int, mlp_ratio: int = 4,
                  dtype: torch.dtype = torch.bfloat16, attention: str = "dense",
-                 kv_heads: Optional[int] = None):
+                 kv_heads: Optional[int] = None, sp_group=None):
         super().__init__()
         if attention not in ("dense", "flash"):
             raise ValueError(
@@ -86,6 +95,7 @@ class Block(nn.Module):
         self.dim, self.heads, self.kv_heads = dim, heads, kvh
         self.head_dim = dim // heads
         self.attention = attention
+        self.sp_group = sp_group
         self.norm1 = RMSNorm(dim, dtype)
         if kvh == heads:
             self.qkv = Dense(dim, 3 * dim, dtype)
@@ -109,7 +119,10 @@ class Block(nn.Module):
         q = _rope(q.reshape(b, t, self.heads, hd), positions)
         k = _rope(k.reshape(b, t, kvh, hd), positions)
         v = v.reshape(b, t, kvh, hd)
-        if self.attention == "flash":
+        if self.sp_group is not None:
+            ring = ring_flash_attention if self.attention == "flash" else ring_attention
+            attn = ring(q, k, v, self.sp_group)
+        elif self.attention == "flash":
             attn = flash_attention(q, k, v, causal=True)
         else:
             if kvh != self.heads:
@@ -126,12 +139,12 @@ class TransformerLM(nn.Module):
                  layers: int = 6, mlp_ratio: int = 4,
                  dtype: torch.dtype = torch.bfloat16, attention: str = "dense",
                  kv_heads: Optional[int] = None,
-                 logits_dtype: torch.dtype = torch.float32):
+                 logits_dtype: torch.dtype = torch.float32, sp_group=None):
         super().__init__()
         self.vocab, self.dim, self.dtype = vocab, dim, dtype
         self.embed = nn.Embedding(vocab, dim)
         self.blocks = nn.ModuleList(
-            Block(dim, heads, mlp_ratio, dtype, attention, kv_heads)
+            Block(dim, heads, mlp_ratio, dtype, attention, kv_heads, sp_group)
             for _ in range(layers))
         self.norm = RMSNorm(dim, dtype)
         self.lm_head = Dense(dim, vocab, logits_dtype)
@@ -163,7 +176,8 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
 
 
 def lm_loss(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    """Next-token cross entropy, targets = tokens rolled left by one."""
+    """Next-token cross entropy, targets = tokens rolled left by one (on a
+    sequence shard: within the shard, as the JAX dp×sp step does)."""
     targets = torch.roll(tokens, -1, dims=1)
     return F.cross_entropy(logits.float().reshape(-1, logits.shape[-1]),
                            targets.reshape(-1))

@@ -2,8 +2,9 @@
 
 Each source compiles with ``nvcc`` for ``sm_90a`` into a shared library with
 a plain C interface, cached under ``horovod_tpu_torch/_build/`` by a hash of
-the source, so an edited source rebuilds and an unchanged one loads at
-once. The library is loaded with ``ctypes``; the wrappers in ``ops/``
+the source and of every header in ``csrc/`` (the sources share
+``flash_kernels.cuh``), so an edited source or header rebuilds and an
+unchanged one loads at once. The library is loaded with ``ctypes``; the wrappers in ``ops/``
 declare each entry's argument types and keep the loaded library.
 """
 
@@ -35,8 +36,11 @@ def nvcc() -> str:
 
 
 def _library_path(source: str) -> str:
-    with open(os.path.join(CSRC, source), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for name in [source, *headers]:
+        with open(os.path.join(CSRC, name), "rb") as f:
+            digest.update(name.encode() + b"\0" + f.read())
     stem = os.path.splitext(source)[0]
     return os.path.join(BUILD_DIR, f"{stem}-{digest.hexdigest()[:16]}.so")
 

@@ -185,15 +185,15 @@ def _check_cuda(h: int, hkv: int, inputs, rows_f32=()) -> int:
     return _DTYPE_CODES[x.dtype]
 
 
-def _launch(fn, name: str, dev, *args) -> None:
+def _launch(fn, name: str, dev, *args, counts: dict = launches) -> None:
     """Launch on ``dev``'s current stream, with ``dev`` made the current
-    device only for the call."""
+    device only for the call, and count it in ``counts[name]``."""
     with torch.cuda.device(dev):
         stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
         err = fn(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error {err}")
-    launches[name] += 1
+    counts[name] += 1
 
 
 def _ptr(x: torch.Tensor):

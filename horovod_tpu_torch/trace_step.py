@@ -1,16 +1,19 @@
 """Where one training step's device time goes.
 
-    python -m horovod_tpu_torch.trace_step
+    python -m horovod_tpu_torch.trace_step [--sp N]
 
 Trains the full-width flash TransformerLM (``train.TrainConfig``) on one
 GPU through ``train.train`` for 3 warm-up steps, traces a fourth with
 ``torch.profiler`` and prints one JSON line: the step's wall time, the
 device's busy time (union of kernel intervals) and idle share, and the 15
-kernels with the most device time, by name.
+kernels with the most device time, by name. ``--sp N`` traces the
+sequence-parallel ring-flash path (``TrainConfig(sp=N)``; on one GPU,
+N = 1, a ring of one); without it, slice 1's flash path.
 """
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import json
 from collections import defaultdict
@@ -39,8 +42,11 @@ WARMUP_STEPS = 3
 TOP = 15
 
 
-def main() -> None:
-    config = TrainConfig()
+def main(argv=None) -> None:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--sp", type=int, default=None,
+                        help="ring size (TrainConfig.sp); default: no ring")
+    config = TrainConfig(sp=parser.parse_args(argv).sp)
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
 
     def around_step(i):
@@ -68,7 +74,8 @@ def main() -> None:
         top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:TOP]
         print(json.dumps({
             "device": torch.cuda.get_device_name(dev),
-            "layers": config.layers, "step_wall_ms": wall_us / 1e3,
+            "layers": config.layers, "sp": config.sp,
+            "step_wall_ms": wall_us / 1e3,
             "device_busy_ms": busy / 1e3,
             "idle_share": 1.0 - busy / wall_us if wall_us else None,
             "kernel_events": len(kernels),

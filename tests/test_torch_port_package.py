@@ -33,7 +33,10 @@ def test_import_pulls_in_no_jax():
     code = ("import json, sys\n"
             "before = set(sys.modules)\n"
             "import horovod_tpu_torch, horovod_tpu_torch.train, "
-            "horovod_tpu_torch.convert, horovod_tpu_torch.ops._build\n"
+            "horovod_tpu_torch.convert, horovod_tpu_torch.ops._build, "
+            "horovod_tpu_torch.ops.ring_flash, "
+            "horovod_tpu_torch.ops.ring_attention, "
+            "horovod_tpu_torch.parallel.mesh, horovod_tpu_torch.trace_step\n"
             "bad = [m for m in set(sys.modules) - before if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
             "print(json.dumps(sorted(bad)))\n")

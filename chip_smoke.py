@@ -7,15 +7,23 @@ Phases, each raising on failure (the script then exits non-zero and
 prints no result):
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build the CUDA kernels from ``horovod_tpu_torch/csrc`` and hold each
-   kernel against its plain PyTorch version on the card: the slice's shape
+2. build the CUDA kernels from ``horovod_tpu_torch/csrc``; log each
+   tensor-core kernel's registers and spill bytes (ptxas) and its count of
+   HGMMA (wgmma) and UTMALDG (TMA load) instructions (``cuobjdump``),
+   raising if either count is zero or a kernel spills; hold each kernel
+   against its plain PyTorch version on the card: the slice's shape
    (1, 4096, 8, 128) bf16 causal, the slice's head dim in float32 at
    T 1024, a GQA shape (8 q heads over 2 kv heads, D 64, T 1024) in
-   float32, and a ragged non-causal T = 96 in float32; each kernel alone,
-   and the autograd Function against the dense reference;
-3. time each kernel at the slice's shape (CUDA events, median of 30 after
-   warm-up) beside its plain version, its bound, and PyTorch's own
-   ``scaled_dot_product_attention`` forward and backward as a yardstick;
+   float32 and bf16, and a ragged non-causal T = 96 in float32 and bf16;
+   each kernel alone, and the autograd Function against the dense
+   reference;
+3. time each kernel at the slice's shape beside its plain version, its
+   bound (with the TFLOP/s reached and the share of the bound), and
+   PyTorch's own ``scaled_dot_product_attention`` forward and backward as
+   a yardstick: CUDA events around runs of 10 calls back to back (``ms``)
+   and around single calls (``single_ms``, which adds the host's cost of
+   a launch to a kernel of tens of microseconds), medians of 30 runs
+   after warm-up;
 4. train the full-width flash TransformerLM (vocab 32000, dim 1024, 8
    heads of 128, 12 layers, seq 4096, batch 1, Adam 1e-3 through
    DistributedOptimizer) for 5 steps on a world of one over NCCL, with the
@@ -47,6 +55,8 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
+import re
 import statistics
 import subprocess
 import sys
@@ -61,15 +71,22 @@ CHECK_SHAPES = [
     (1, 1024, 8, 8, 128, True, "float32"),
     (1, 1024, 8, 2, 64, True, "float32"),
     (2, 96, 4, 2, 32, False, "float32"),
+    # bf16 B1 and B3 run on the tensor cores (csrc/flash_tc.cuh): GQA, and
+    # a ragged T against their 128-row TMA tiles, non-causal.
+    (1, 1024, 8, 2, 64, True, "bfloat16"),
+    (2, 96, 4, 2, 32, False, "bfloat16"),
 ]
 # Tolerances, by the dtype of the output compared (in float32):
 # - float32 outputs, kernel vs plain or autograd vs dense: the same sums in
 #   another order, |err| <= 1e-4 * max(1, max|ref|);
-# - bf16 outputs, kernel vs its plain version fed the same inputs: both
-#   round to bf16 and may differ by one unit in the last place, at most
-#   2^-7 of the value, so |err| <= 2^-7 |ref| + 1e-2 * rms of the ref's
-#   row (its last dim, for values near 0), and the relative norm error
-#   ||got - ref|| / ||ref|| <= 1e-2 (the rounding alone gives < 1e-4);
+# - bf16 outputs, kernel vs its plain version fed the same inputs (the
+#   plain version is the float32 contract; the tensor-core kernels split
+#   P, P^T and dS^T into bf16 hi and lo terms and err by ~2^-16 of each
+#   term): both round to bf16 and may differ by one unit in the last
+#   place, at most 2^-7 of the value, so |err| <= 2^-7 |ref| + 1e-2 * rms
+#   of the ref's row (its last dim, for values near 0), and the relative
+#   norm error ||got - ref|| / ||ref|| <= 1e-2 (the rounding alone gives
+#   < 1e-4);
 # - bf16 outputs, the autograd Function vs the dense reference: relative
 #   norm error <= 1e-2. Not element-wise: the Function, as in the JAX
 #   package, takes delta = rowsum(dO * O) from O rounded to bf16, while the
@@ -104,6 +121,58 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+# The tensor-core kernels of csrc/flash_tc.cuh, by their template name.
+TC_KERNELS = {"fwd_tc_kernel": "flash_fwd", "dkv_tc_kernel": "flash_bwd_dkv"}
+
+
+def compiled_report(lib_path: str) -> dict:
+    """Per tensor-core kernel and head dim: registers and spill bytes
+    from the ptxas report beside the library, and the count of HGMMA
+    (wgmma), UTMALDG (TMA load) and USETMAXREG instructions in its SASS.
+    Raises if a kernel spills or either count is zero."""
+    from horovod_tpu_torch.ops import _build
+
+    name = re.compile(r"(" + "|".join(TC_KERNELS) + r")ILi(\d+)EE")
+    report, cur = {}, None
+    with open(lib_path + ".log") as f:
+        for line in f:
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                k = name.search(m.group(1))
+                cur = f"{k.group(1)}<{k.group(2)}>" if k else None
+                if cur:
+                    report[cur] = {}
+                continue
+            if cur is None:
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                report[cur]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                report[cur]["registers"] = int(m.group(1))
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    for chunk in sass.split("Function : ")[1:]:
+        k = name.search(chunk.split("\n", 1)[0])
+        if k:
+            entry = report.setdefault(f"{k.group(1)}<{k.group(2)}>", {})
+            for op in ("HGMMA", "UTMALDG", "USETMAXREG"):
+                entry[op] = len(re.findall(r"\b" + op + r"\b", chunk))
+    want = [f"{k}<{d}>" for k in TC_KERNELS for d in (32, 64, 128)]
+    for k in want:
+        e = report.get(k, {})
+        log(f"  {k:20s} registers {e.get('registers')} spill bytes "
+            f"{e.get('spill_bytes')} HGMMA {e.get('HGMMA')} UTMALDG "
+            f"{e.get('UTMALDG')} USETMAXREG {e.get('USETMAXREG')}")
+        if not e.get("HGMMA") or not e.get("UTMALDG"):
+            raise AssertionError(f"{k}: no wgmma or no TMA load in its SASS: {e}")
+        if e.get("spill_bytes") != 0:
+            raise AssertionError(f"{k}: spills {e.get('spill_bytes')} bytes")
+    return report
+
+
 def gpu_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -111,8 +180,12 @@ def gpu_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def time_ms(torch, fn, reps: int = 30, warmup: int = 3) -> float:
-    """Median CUDA-event time of ``fn`` over ``reps`` calls, after warm-up."""
+def time_ms(torch, fn, reps: int = 30, warmup: int = 3, inner: int = 10) -> float:
+    """Time of one call of ``fn``: the median over ``reps`` runs of
+    ``inner`` calls back to back, CUDA events around each run, after
+    warm-up. Back to back, as a training step queues them, the host's cost
+    of a launch overlaps the kernel before it; ``inner=1`` times single
+    calls, host cost included."""
     for _ in range(warmup):
         fn()
     times = []
@@ -120,19 +193,24 @@ def time_ms(torch, fn, reps: int = 30, warmup: int = 3) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(inner):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
+
+
+def flops(name, b, t, h, d, causal):
+    """2 flops per multiply-add over the live (q, k) pairs of each product."""
+    pairs = t * (t + 1) // 2 if causal else t * t
+    return 2 * d * pairs * KERNELS[name][1] * b * h
 
 
 def bound(name, b, t, h, hkv, d, causal, dtype_name, itemsize):
     """(ms, 'bytes' | 'operations'): the least time the card could take.
-    Operations: 2 flops per multiply-add over the live (q, k) pairs of each
-    product; bytes: each input read once, each output written once."""
-    pairs = t * (t + 1) // 2 if causal else t * t
-    flops = 2 * d * pairs * KERNELS[name][1] * b * h
+    Operations: the flops of ``flops``; bytes: each input read once, each
+    output written once."""
     q_bytes, kv_bytes, row_bytes = (b * h * t * d * itemsize,
                                     b * hkv * t * d * itemsize, b * h * t * 4)
     moved = {
@@ -140,7 +218,7 @@ def bound(name, b, t, h, hkv, d, causal, dtype_name, itemsize):
         "flash_bwd_dq": 3 * q_bytes + 2 * kv_bytes + 2 * row_bytes,
         "flash_bwd_dkv": 2 * q_bytes + 4 * kv_bytes + 2 * row_bytes,
     }[name]
-    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    t_ops = flops(name, b, t, h, d, causal) / PEAK_FLOPS[dtype_name] * 1e3
     t_bytes = moved / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -241,36 +319,48 @@ def time_kernels(torch, fa, inputs, shape):
     }
     # Yardstick only: PyTorch's own fused attention, (B, H, T, D) layout.
     qs, ks, vs = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    sdpa_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        qs, ks, vs, is_causal=causal))
+    def fwd_call():
+        F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal)
+
     qg, kg, vg = (x.clone().requires_grad_(True) for x in (qs, ks, vs))
     sdpa_out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
     go = dor.view(b, h, t, d)
-    # Its backward alone: one call that computes dQ, dK and dV together.
-    sdpa_bwd = time_ms(torch, lambda: torch.autograd.grad(
-        sdpa_out, (qg, kg, vg), go, retain_graph=True))
+
+    def bwd_call():   # its backward alone: dQ, dK and dV in one call
+        torch.autograd.grad(sdpa_out, (qg, kg, vg), go, retain_graph=True)
+
+    sdpa_fwd, sdpa_bwd = time_ms(torch, fwd_call), time_ms(torch, bwd_call)
+    single_fwd = time_ms(torch, fwd_call, inner=1)
+    single_bwd = time_ms(torch, bwd_call, inner=1)
     sdpa_both = time_ms(torch, lambda: torch.autograd.grad(
         F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal),
         (qg, kg, vg), go))
     library = {
-        "flash_fwd": (sdpa_fwd, "scaled_dot_product_attention forward"),
+        "flash_fwd": (sdpa_fwd, "scaled_dot_product_attention forward", single_fwd),
         "flash_bwd_dq": (None, "none alone: the backward that computes dQ "
-                               "also computes dK and dV; see flash_bwd_dkv"),
+                               "also computes dK and dV; see flash_bwd_dkv", None),
         "flash_bwd_dkv": (sdpa_bwd, "scaled_dot_product_attention backward, "
-                                    "dQ, dK and dV together"),
+                                    "dQ, dK and dV together", single_bwd),
     }
     rows = {}
     for name, (kernel, plain) in calls.items():
         ms, plain_ms = time_ms(torch, kernel), time_ms(torch, plain)
+        single_ms = time_ms(torch, kernel, inner=1)
         bound_ms, bound_by = bound(name, b, t, h, hkv, d, causal, dtype_name, itemsize)
-        rows[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                      "bound_by": bound_by, "library_ms": library[name][0],
-                      "library": library[name][1]}
-        log(f"  {name:14s} {ms:9.3f} ms  plain {plain_ms:9.3f} ms  bound "
-            f"{bound_ms:7.4f} ms ({bound_by})")
+        tflops = flops(name, b, t, h, d, causal) / ms / 1e9
+        rows[name] = {"ms": ms, "single_ms": single_ms, "plain_ms": plain_ms,
+                      "bound_ms": bound_ms, "bound_by": bound_by,
+                      "library_ms": library[name][0],
+                      "library_single_ms": library[name][2],
+                      "library": library[name][1], "tflops": tflops,
+                      "bound_share": bound_ms / ms}
+        log(f"  {name:14s} {ms:9.4f} ms (single {single_ms:.4f})  plain "
+            f"{plain_ms:9.3f} ms  bound {bound_ms:7.4f} ms ({bound_by}), "
+            f"{tflops:6.1f} TFLOP/s, {100 * bound_ms / ms:5.2f}% of the bound")
     kernel_bwd = rows["flash_bwd_dq"]["ms"] + rows["flash_bwd_dkv"]["ms"]
-    log(f"  yardstick scaled_dot_product_attention: fwd {sdpa_fwd:.3f} ms, "
-        f"bwd {sdpa_bwd:.3f} ms (dQ, dK, dV), fwd+bwd {sdpa_both:.3f} ms; "
+    log(f"  yardstick scaled_dot_product_attention: fwd {sdpa_fwd:.3f} ms "
+        f"(single {single_fwd:.3f}), bwd {sdpa_bwd:.3f} ms (single "
+        f"{single_bwd:.3f}; dQ, dK, dV), fwd+bwd {sdpa_both:.3f} ms; "
         f"the kernels: fwd {rows['flash_fwd']['ms']:.3f} ms, bwd "
         f"{kernel_bwd:.3f} ms, fwd+bwd {rows['flash_fwd']['ms'] + kernel_bwd:.3f} ms")
     return rows
@@ -440,11 +530,15 @@ def check_whole_ring(torch, fa, rf, ra, dev, zigzag):
         check(torch, f"ring d{n}", got, leaf.grad, autograd=True)
 
 
+def ring_flops(name, b, h, d, live_pairs):
+    return 2 * d * live_pairs * RING_KERNELS[name][1] * b * h
+
+
 def ring_bound(name, b, t, h, hkv, d, live_pairs, dtype_name, itemsize):
     """(ms, 'bytes' | 'operations') of one ring step: operations over the
     live pairs actually computed; bytes of q, k, v (and dO, L, delta), the
     positions, and the float32 carries read and written back."""
-    flops = 2 * d * live_pairs * RING_KERNELS[name][1] * b * h
+    flops = ring_flops(name, b, h, d, live_pairs)
     q_bytes, kv_bytes = b * h * t * d * itemsize, b * hkv * t * d * itemsize
     row, pos = b * h * t * 4, 2 * t * 4
     moved = pos + {
@@ -485,13 +579,18 @@ def time_ring_kernels(torch, rf, dev):
         }
         for name, (kernel, plain) in calls.items():
             ms, plain_ms = time_ms(torch, kernel), time_ms(torch, plain)
+            single_ms = time_ms(torch, kernel, inner=1)
             bound_ms, bound_by = ring_bound(name, b, t, h, hkv, d, live,
                                             dtype_name, itemsize)
+            tflops = ring_flops(name, b, h, d, live) / ms / 1e9
             rows.setdefault(name, {})[step] = {
-                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by, "live_pairs": live}
+                "ms": ms, "single_ms": single_ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms,
+                "bound_by": bound_by, "live_pairs": live, "tflops": tflops,
+                "bound_share": bound_ms / ms}
             log(f"  {step:8s} {name:18s} {ms:9.3f} ms  plain {plain_ms:9.3f} ms"
-                f"  bound {bound_ms:7.4f} ms ({bound_by}), {live} live pairs")
+                f"  bound {bound_ms:7.4f} ms ({bound_by}), {live} live pairs, "
+                f"{tflops:6.1f} TFLOP/s, {100 * bound_ms / ms:5.2f}% of the bound")
     # Yardstick only: no PyTorch call takes an (acc, m, l) carry. SDPA
     # computes a past step's block product alone, non-causal.
     qs = qr.view(b, h, t, d)
@@ -572,6 +671,7 @@ def main() -> int:
         list(pool.map(_build.build, SOURCES))
     log(f"[2] kernels built in {time.perf_counter() - t0:.1f} s "
         f"({', '.join(SOURCES)}, one nvcc each, at once)")
+    compiled = compiled_report(_build.build("flash_attention.cu"))
     errs = None
     timing_inputs = None
     for shape in CHECK_SHAPES:
@@ -650,10 +750,16 @@ def main() -> int:
     for source, names in SOURCES.items():
         for kname in names:
             replaces = {**KERNELS, **RING_KERNELS}[kname][0]
-            kernels.append({"name": kname, "route": "cuda",
-                            "source": f"horovod_tpu_torch/csrc/{source}",
-                            "replaces": replaces, "launches": counts[kname],
-                            "max_abs_err": errs[kname], **timing[kname]})
+            row = {"name": kname, "route": "cuda",
+                   "source": f"horovod_tpu_torch/csrc/{source}",
+                   "replaces": replaces, "launches": counts[kname],
+                   "max_abs_err": errs[kname], **timing[kname]}
+            tc = {k: v for k, v in compiled.items()
+                  if TC_KERNELS[k.split("<")[0]] == kname}
+            if tc:   # bf16 runs on flash_tc.cuh's tensor-core kernel
+                row["bf16_kernel"] = {"header": "horovod_tpu_torch/csrc/flash_tc.cuh",
+                                      "compiled": tc}
+            kernels.append(row)
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

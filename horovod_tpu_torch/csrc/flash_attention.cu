@@ -6,11 +6,15 @@
 //   hvd_flash_bwd_dkv <- _dkv_kernel  (dK and dV over every q tile of the
 //                                      GQA group; no atomics)
 //
-// The kernels are the kFlash variant of flash_kernels.cuh (no carries,
-// causal masking by index, k tiles past the diagonal never visited); the
-// header describes the layout, the arithmetic and what bounds them.
+// Each entry dispatches on the dtype. bfloat16 forward and dK/dV run the
+// tensor-core kernels of flash_tc.cuh (TMA, wgmma); float32, and dQ in
+// either type, run the kFlash variant of flash_kernels.cuh (float32 FMA).
+// Both families keep one contract: no carries, causal masking by index, k
+// tiles past the diagonal never visited; the headers describe the layout,
+// the arithmetic and what bounds each.
 
 #include "flash_kernels.cuh"
+#include "flash_tc.cuh"
 
 namespace {
 
@@ -64,13 +68,23 @@ extern "C" {
 // Each entry launches one kernel on `stream`, which belongs to the
 // calling thread's current device (the wrappers make the inputs' device
 // current around the call), and returns cudaGetLastError() (0 on
-// success), or 1000 for arguments no kernel takes.
+// success), 1000 for arguments no kernel takes, or 1001 when a tensor map
+// of the bf16 kernels does not encode. None of these falls back to
+// another kernel.
 int hvd_flash_fwd(const void* q, const void* k, const void* v, void* o,
                   void* lse, int rows, int h, int hkv, int t, int d,
                   int causal, int dtype, void* stream) {
   if (bad_shape(rows, h, hkv, t)) return kBadArgs;
   cudaStream_t st = (cudaStream_t)stream;
-  HVD_DISPATCH(launch_fwd, q, k, v, o, lse, rows, h, hkv, t, causal, st)
+  switch (dtype * 1000 + d) {
+    case 32: return launch_fwd<float, 32>(q, k, v, o, lse, rows, h, hkv, t, causal, st);
+    case 64: return launch_fwd<float, 64>(q, k, v, o, lse, rows, h, hkv, t, causal, st);
+    case 128: return launch_fwd<float, 128>(q, k, v, o, lse, rows, h, hkv, t, causal, st);
+    case 1032: return launch_fwd_tc<32>(q, k, v, o, lse, rows, h, hkv, t, causal, st);
+    case 1064: return launch_fwd_tc<64>(q, k, v, o, lse, rows, h, hkv, t, causal, st);
+    case 1128: return launch_fwd_tc<128>(q, k, v, o, lse, rows, h, hkv, t, causal, st);
+    default: return kBadArgs;
+  }
 }
 
 int hvd_flash_bwd_dq(const void* q, const void* k, const void* v,
@@ -89,8 +103,21 @@ int hvd_flash_bwd_dkv(const void* q, const void* k, const void* v,
                       int d, int causal, int dtype, void* stream) {
   if (bad_kv_shape(rows_kv, h, hkv, t)) return kBadArgs;
   cudaStream_t st = (cudaStream_t)stream;
-  HVD_DISPATCH(launch_dkv, q, k, v, dout, lse, delta, dk, dv, rows_kv, h,
-               hkv, t, causal, st)
+  switch (dtype * 1000 + d) {
+    case 32: return launch_dkv<float, 32>(q, k, v, dout, lse, delta, dk, dv, rows_kv, h, hkv, t,
+                          causal, st);
+    case 64: return launch_dkv<float, 64>(q, k, v, dout, lse, delta, dk, dv, rows_kv, h, hkv, t,
+                          causal, st);
+    case 128: return launch_dkv<float, 128>(q, k, v, dout, lse, delta, dk, dv, rows_kv, h, hkv, t,
+                          causal, st);
+    case 1032: return launch_dkv_tc<32>(q, k, v, dout, lse, delta, dk, dv, rows_kv, h, hkv, t,
+                          causal, st);
+    case 1064: return launch_dkv_tc<64>(q, k, v, dout, lse, delta, dk, dv, rows_kv, h, hkv, t,
+                          causal, st);
+    case 1128: return launch_dkv_tc<128>(q, k, v, dout, lse, delta, dk, dv, rows_kv, h, hkv, t,
+                          causal, st);
+    default: return kBadArgs;
+  }
 }
 
 }  // extern "C"

@@ -47,17 +47,26 @@
 // scale D^-0.5. Finished outputs are written in the input type, carries in
 // float32.
 //
+// Which inputs come here: every float32 launch, dQ (B2) in both types, and
+// the ring kernels (B4-B6) in both types. The bf16 forward (B1) and dK/dV
+// (B3) of kFlash run on the tensor cores instead (flash_tc.cuh: TMA tiles,
+// wgmma; flash_attention.cu dispatches on the dtype). Float32 stays here:
+// Hopper's tensor cores have no float32 product, and TF32 keeps 10
+// mantissa bits, which would break the 1e-4 float32 checks that the JAX
+// kernels' float32 arithmetic sets.
+//
 // What bounds these kernels: at the training shape (T = 4096, D = 128)
 // attention does ~T/2 multiply-adds per byte it must move, far above the
 // card's ~295 bf16 operations per byte, so the work is compute-bound and
-// the bound is the tensor cores' 989 TFLOP/s. This first version computes
-// on the float32 CUDA cores with FMA from shared-memory tiles (register
-// tiles of 4 x 4 logits and 4 x D/16 outputs per thread), so it reaches a
-// fraction of that bound; moving the three products onto wgmma is the
-// next step. What the design does keep from the TPU kernels is what
-// matters for memory: the (T, T) logits never reach device memory, each
-// block streams K/V (or Q/dO) tiles through shared memory, and masked
-// tiles are skipped, with the heaviest causal tiles scheduled first.
+// the bound is the tensor cores' 989 TFLOP/s. These kernels compute on the
+// float32 CUDA cores with FMA from shared-memory tiles (register tiles of
+// 4 x 4 logits and 4 x D/16 outputs per thread, bf16 widened to float32
+// with a row stride of D + 1), so they reach 1.5-2.5% of that bound; B2
+// and the ring kernels move onto wgmma next, on hopper.cuh's building
+// blocks. What the design does keep from the TPU kernels is what matters
+// for memory: the (T, T) logits never reach device memory, each block
+// streams K/V (or Q/dO) tiles through shared memory, and masked tiles are
+// skipped, with the heaviest causal tiles scheduled first.
 
 #pragma once
 

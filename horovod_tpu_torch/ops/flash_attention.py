@@ -15,8 +15,11 @@ the rows layout ``(B*H, T, D)``:
 with delta = rowsum(dO * O) computed here, outside the kernels. On a CUDA
 tensor each wrapper launches its kernel (``csrc/flash_attention.cu``) and
 counts the launch in ``launches``; on a CPU tensor it runs its plain
-version, which does the same arithmetic densely in float32. There is no
-other fallback: a CUDA tensor the kernel does not take raises.
+version, which does the same arithmetic densely in float32: the contract
+every kernel is held to. In bfloat16 the forward and dK/dV kernels run on
+the tensor cores (``csrc/flash_tc.cuh``: TMA loads, wgmma) and need
+16-byte aligned inputs. There is no other fallback: a CUDA tensor the
+kernel does not take raises.
 """
 
 from __future__ import annotations
@@ -185,6 +188,21 @@ def _check_cuda(h: int, hkv: int, inputs, rows_f32=()) -> int:
     return _DTYPE_CODES[x.dtype]
 
 
+def _check_tma(*inputs) -> None:
+    """The tensor-core kernels load bf16 inputs by TMA, which needs
+    16-byte aligned base addresses."""
+    if inputs[0].dtype != torch.bfloat16:
+        return
+    for x in inputs:
+        if x.data_ptr() % 16:
+            raise ValueError("bf16 flash kernel inputs must start on a 16-byte "
+                             f"boundary (storage offset {x.storage_offset()})")
+
+
+_ERRORS = {1000: "arguments no kernel takes",
+           1001: "a TMA tensor map did not encode"}
+
+
 def _launch(fn, name: str, dev, *args, counts: dict = launches) -> None:
     """Launch on ``dev``'s current stream, with ``dev`` made the current
     device only for the call, and count it in ``counts[name]``."""
@@ -192,7 +210,8 @@ def _launch(fn, name: str, dev, *args, counts: dict = launches) -> None:
         stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
         err = fn(*args, stream)
     if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed with CUDA error {err}")
+        why = _ERRORS.get(err, "CUDA error")
+        raise RuntimeError(f"{name} kernel launch failed: {why} ({err})")
     counts[name] += 1
 
 
@@ -205,6 +224,7 @@ def flash_fwd(qr, kr, vr, h: int, hkv: int, causal: bool):
     if not qr.is_cuda:
         return fwd_plain(qr, kr, vr, h, hkv, causal)
     code = _check_cuda(h, hkv, (qr, kr, vr))
+    _check_tma(qr, kr, vr)
     rows, t, d = qr.shape
     out = torch.empty_like(qr)
     lse = torch.empty(rows, t, device=qr.device, dtype=torch.float32)
@@ -232,7 +252,14 @@ def flash_bwd_dkv(qr, kr, vr, dor, lse, delta, h: int, hkv: int, causal: bool):
     if not qr.is_cuda:
         return dkv_plain(qr, kr, vr, dor, lse, delta, h, hkv, causal)
     code = _check_cuda(h, hkv, (qr, kr, vr, dor), (lse, delta))
+    _check_tma(qr, kr, vr, dor, lse, delta)
     rows_kv, t, d = kr.shape
+    if qr.dtype == torch.bfloat16 and t % 4:
+        # TMA reads L and delta by rows that start on 16 bytes: rows of
+        # t rounded up to 4 values.
+        pad = 4 - t % 4
+        lse = torch.nn.functional.pad(lse, (0, pad))
+        delta = torch.nn.functional.pad(delta, (0, pad))
     dk, dv = torch.empty_like(kr), torch.empty_like(vr)
     _launch(_library().hvd_flash_bwd_dkv, "flash_bwd_dkv", qr.device,
             _ptr(qr), _ptr(kr), _ptr(vr), _ptr(dor), _ptr(lse), _ptr(delta),

@@ -56,7 +56,10 @@ def _assert_close(name, got, want):
     assert (g - w).norm().item() <= 1e-2 * w.norm().item(), name
 
 
-def _check(cuda, b, t, h, hkv, d, causal, dtype, seed=0):
+def _check(cuda, b, t, h, hkv, d, causal, dtype, seed=0, zero=()):
+    """The kernels against their plain versions; outputs named in ``zero``
+    are 0 in exact arithmetic, and both sides must come out as float32
+    noise (|x| <= 1e-4), which no relative rule can compare."""
     gen = torch.Generator(device=cuda).manual_seed(seed)
 
     def rand(*shape):
@@ -75,7 +78,11 @@ def _check(cuda, b, t, h, hkv, d, causal, dtype, seed=0):
     got["dk"], got["dv"] = fa.flash_bwd_dkv(qr, kr, vr, dor, lse_p, delta, h, hkv, causal)
     torch.cuda.synchronize()
     for name in want:
-        _assert_close(name, got[name], want[name])
+        if name in zero:
+            assert got[name].abs().max().item() <= 1e-4, name
+            assert want[name].abs().max().item() <= 1e-4, name
+        else:
+            _assert_close(name, got[name], want[name])
 
 
 @pytest.mark.parametrize("d", [32, 64, 128])
@@ -88,6 +95,42 @@ def test_kernels_match_plain(cuda, d, dtype):
 def test_gqa_ragged(cuda, causal):
     _check(cuda, 2, 96, 8, 2, 64, causal, torch.float32, seed=1)
     _check(cuda, 1, 200, 4, 1, 128, causal, torch.bfloat16, seed=2)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("t", [1, 96, 200])
+def test_bf16_tensor_core_kernels_ragged(cuda, t, d, causal):
+    """The bf16 forward and dK/dV run on the tensor cores from TMA tiles
+    of 128 rows: a T that no tile divides zero-fills past T, and no row
+    reads its neighbour. At T = 1 each query sees one key, so p = 1 and
+    dS = dP - delta = 0: dQ and dK vanish."""
+    _check(cuda, 2, t, 4, 4, d, causal, torch.bfloat16, seed=t + d,
+           zero=("dq", "dk") if t == 1 else ())
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_bf16_tensor_core_kernels_gqa(cuda, d):
+    _check(cuda, 1, 256, 8, 2, d, True, torch.bfloat16, seed=5)
+    _check(cuda, 2, 200, 8, 2, d, False, torch.bfloat16, seed=6)
+
+
+def test_bf16_tensor_core_kernels_reject_unaligned_inputs(cuda):
+    """TMA needs 16-byte aligned bases: a bf16 tensor whose storage
+    offset breaks that raises, and nothing launches."""
+    b, t, h, d = 1, 64, 1, 64
+    flat = torch.randn(b * t * h * d + 1, device=cuda).to(torch.bfloat16)
+    q = flat[1:].view(b, t, h, d)
+    assert q.is_contiguous() and q.data_ptr() % 16
+    k = torch.randn(b, t, h, d, device=cuda).to(torch.bfloat16)
+    fa.reset_launches()
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_fwd(fa._rows(q), fa._rows(k), fa._rows(k), h, h, True)
+    lse = torch.zeros(b * h, t, device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_bwd_dkv(fa._rows(q), fa._rows(k), fa._rows(k), fa._rows(k), lse,
+                         lse, h, h, True)
+    assert fa.launches["flash_fwd"] == fa.launches["flash_bwd_dkv"] == 0
 
 
 def test_autograd_counts_launches(cuda):

@@ -6,9 +6,9 @@
 //   hvd_flash_bwd_dkv <- _dkv_kernel  (dK and dV over every q tile of the
 //                                      GQA group; no atomics)
 //
-// Each entry dispatches on the dtype. bfloat16 forward and dK/dV run the
-// tensor-core kernels of flash_tc.cuh (TMA, wgmma); float32, and dQ in
-// either type, run the kFlash variant of flash_kernels.cuh (float32 FMA).
+// Each entry dispatches on the dtype. bfloat16 runs the tensor-core kernels
+// of flash_tc.cuh (TMA, wgmma); float32 runs the kFlash variant of
+// flash_kernels.cuh (float32 FMA).
 // Both families keep one contract: no carries, causal masking by index, k
 // tiles past the diagonal never visited; the headers describe the layout,
 // the arithmetic and what bounds each.
@@ -93,8 +93,15 @@ int hvd_flash_bwd_dq(const void* q, const void* k, const void* v,
                      int causal, int dtype, void* stream) {
   if (bad_shape(rows, h, hkv, t)) return kBadArgs;
   cudaStream_t st = (cudaStream_t)stream;
-  HVD_DISPATCH(launch_dq, q, k, v, dout, lse, delta, dq, rows, h, hkv, t,
-               causal, st)
+  switch (dtype * 1000 + d) {
+    case 32: return launch_dq<float, 32>(q, k, v, dout, lse, delta, dq, rows, h, hkv, t, causal, st);
+    case 64: return launch_dq<float, 64>(q, k, v, dout, lse, delta, dq, rows, h, hkv, t, causal, st);
+    case 128: return launch_dq<float, 128>(q, k, v, dout, lse, delta, dq, rows, h, hkv, t, causal, st);
+    case 1032: return launch_dq_tc<32>(q, k, v, dout, lse, delta, dq, rows, h, hkv, t, causal, st);
+    case 1064: return launch_dq_tc<64>(q, k, v, dout, lse, delta, dq, rows, h, hkv, t, causal, st);
+    case 1128: return launch_dq_tc<128>(q, k, v, dout, lse, delta, dq, rows, h, hkv, t, causal, st);
+    default: return kBadArgs;
+  }
 }
 
 int hvd_flash_bwd_dkv(const void* q, const void* k, const void* v,
@@ -110,12 +117,12 @@ int hvd_flash_bwd_dkv(const void* q, const void* k, const void* v,
                           causal, st);
     case 128: return launch_dkv<float, 128>(q, k, v, dout, lse, delta, dk, dv, rows_kv, h, hkv, t,
                           causal, st);
-    case 1032: return launch_dkv_tc<32>(q, k, v, dout, lse, delta, dk, dv, rows_kv, h, hkv, t,
-                          causal, st);
-    case 1064: return launch_dkv_tc<64>(q, k, v, dout, lse, delta, dk, dv, rows_kv, h, hkv, t,
-                          causal, st);
-    case 1128: return launch_dkv_tc<128>(q, k, v, dout, lse, delta, dk, dv, rows_kv, h, hkv, t,
-                          causal, st);
+    case 1032: return launch_dkv_tc<32, kFlash>(q, k, v, dout, lse, delta, nullptr, nullptr,
+                                              dk, dv, rows_kv, h, hkv, t, causal, st);
+    case 1064: return launch_dkv_tc<64, kFlash>(q, k, v, dout, lse, delta, nullptr, nullptr,
+                                              dk, dv, rows_kv, h, hkv, t, causal, st);
+    case 1128: return launch_dkv_tc<128, kFlash>(q, k, v, dout, lse, delta, nullptr, nullptr,
+                                              dk, dv, rows_kv, h, hkv, t, causal, st);
     default: return kBadArgs;
   }
 }

@@ -1,9 +1,12 @@
-// Flash attention on Hopper's tensor cores: the bf16 forward (B1) and
-// dK/dV (B3) of the kFlash variant, built from hopper.cuh.
+// Flash attention on Hopper's tensor cores: the bf16 forward (B1), dQ (B2)
+// and dK/dV (B3) of the kFlash variant, and the dK/dV of one ring step
+// (B6, the kRing variant of the dK/dV kernel), built from hopper.cuh.
 //
 // Replace, for bf16 inputs, the FMA kernels of flash_kernels.cuh:
-//   fwd_tc_kernel <- horovod_tpu/ops/flash_attention.py _fwd_kernel
-//   dkv_tc_kernel <- horovod_tpu/ops/flash_attention.py _dkv_kernel
+//   fwd_tc_kernel            <- horovod_tpu/ops/flash_attention.py _fwd_kernel
+//   dq_tc_kernel             <- horovod_tpu/ops/flash_attention.py _dq_kernel
+//   dkv_tc_kernel<D, kFlash> <- horovod_tpu/ops/flash_attention.py _dkv_kernel
+//   dkv_tc_kernel<D, kRing>  <- horovod_tpu/ops/ring_flash.py _rf_dkv_kernel
 // with the same contract: the rows layout (B*H, T, D), GQA through the kv
 // row (r / H) * Hkv + (r % H) / group and its inverse, scale D^-0.5,
 // masked logits -1e30 with probabilities exactly 0, L = m + ln l in
@@ -14,19 +17,20 @@
 // compute-bound, and the bound is the tensor cores' 989 bf16 TFLOP/s. So
 // every product is a wgmma with float32 accumulators:
 //   forward  S = Q.K^T (SS), O += P.V (RS, V MN-major);
+//   dQ       S = Q.K^T and dP = dO.V^T (SS), dQ += dS.K (RS, K MN-major);
 //   dK/dV    S^T = K.Q^T and dP^T = V.dO^T (SS), dV += P^T.dO and
 //            dK += dS^T.Q (RS, dO and Q MN-major).
-// The RS products take P, P^T and dS^T straight from the accumulator
+// The RS products take P, dS, P^T and dS^T straight from the accumulator
 // registers of the product before: the float32 accumulator fragment of
 // m64nNk16, packed to bf16x2, is the A fragment of the next wgmma, so no
-// probability goes through shared memory. Each of the three is split into
-// a bf16 hi and a bf16 lo fragment (hopper::split_bf16), two RS wgmmas into
-// one accumulator: rounding them to bf16 alone errs by up to 2^-8 of each
+// probability goes through shared memory. Each is split into a bf16 hi
+// and a bf16 lo fragment (hopper::split_bf16), two RS wgmmas into one
+// accumulator: rounding them to bf16 alone errs by up to 2^-8 of each
 // term, which in a row of dK where a few large terms cancel breaks the
 // element-wise bf16 rule against the float32 contract; the split errs by
-// 2^-16. It costs the forward 3 products instead of 2 and dK/dV 6 instead
-// of 4. Everything else (the online softmax, l from the float32 P, L,
-// delta, the accumulators) stays float32.
+// 2^-16. It costs the forward 3 products instead of 2, dQ 4 instead of 3
+// and dK/dV 6 instead of 4. Everything else (the online softmax, l from
+// the float32 P, L, delta, the accumulators) stays float32.
 //
 // Each block runs a producer warpgroup and two consumer warpgroups of 64
 // rows each. One producer warp keeps TMA loads of the next tiles in flight
@@ -37,8 +41,21 @@
 // the other's products. A 3-D tensor map over (rows, T, D) zero-fills past T, so a
 // ragged tile never reads the next row; masks apply only on diagonal and
 // ragged tiles. Shared memory at D = 128: forward Q 32 KB + 2 x (K 32 KB +
-// V 32 KB), dK/dV K and V 64 KB + 2 x (Q 16 KB + dO 16 KB + L and delta),
-// one block per SM each.
+// V 32 KB), dQ Q and dO 64 KB + 2 x (K 16 KB + V 16 KB), dK/dV K and V
+// 64 KB + 2 x (Q 16 KB + dO 16 KB + L and delta), one block per SM each.
+//
+// The kRing dK/dV (B6) takes the two options of flash_kernels.cuh: its
+// epilogue adds dK * scale and dV into the float32 carries instead of
+// writing bf16 (kCarry), and its causal mask is qpos[q] >= kpos[k]
+// (kPositions). Each consumer thread keeps the positions of its two k rows
+// in registers; a q tile's positions come with the tile, by TMA beside L
+// and delta. A (q tile, k block) pair with max(qpos) < min(kpos) is
+// skipped by the producer (no load) and by the consumers (no wait) alike:
+// both decide from the same positions in device memory with the same warp
+// reductions, so the ring's phases stay in step. A warpgroup whose 64 rows
+// see none of a tile skips its products, and masks apply only where
+// min(qpos) < max(kpos) or a tile is ragged. A zigzag shard is not
+// contiguous in position, so none of this reads an index as a position.
 //
 // Float32 inputs keep the FMA kernels: Hopper's tensor cores have no
 // float32 product, and TF32 (10 mantissa bits) would break the 1e-4
@@ -67,6 +84,8 @@ constexpr int kConsumerRegs = 240;
 constexpr int kStages = 2;
 constexpr int kFwdQ = 128;         // forward: q rows per block (64 per warpgroup)
 constexpr int kFwdK = 128;         // forward: k rows per tile
+constexpr int kDqQ = 128;          // dQ: q rows per block (64 per warpgroup)
+constexpr int kDqK = 64;           // dQ: k rows per tile
 constexpr int kDkvK = 128;         // dK/dV: k rows per block (64 per warpgroup)
 constexpr int kDkvQ = 64;          // dK/dV: q rows per tile
 constexpr int kMapFailed = 1001;   // returned when a tensor map does not encode
@@ -84,6 +103,16 @@ struct FwdSmem {
 };
 
 template <int D>
+struct DqSmem {
+  alignas(1024) bf16 q[kDqQ * D];
+  alignas(1024) bf16 dout[kDqQ * D];
+  alignas(1024) bf16 k[kStages][kDqK * D];
+  alignas(1024) bf16 v[kStages][kDqK * D];
+  hopper::Ring<kStages> ring;      // full: K and V arrived; empty: both free
+  uint64_t qd_full;
+};
+
+template <int D>
 struct DkvSmem {
   alignas(1024) bf16 k[kDkvK * D];
   alignas(1024) bf16 v[kDkvK * D];
@@ -91,9 +120,19 @@ struct DkvSmem {
   alignas(1024) bf16 dout[kStages][kDkvQ * D];
   alignas(128) float lse[kStages][kDkvQ];    // 0 past t
   alignas(128) float delta[kStages][kDkvQ];
-  hopper::Ring<kStages> ring;      // full: Q, dO, L, delta arrived
+  hopper::Ring<kStages> ring;      // full: Q, dO, L, delta (and qpos) arrived
   uint64_t kv_full;
 };
+
+// kPositions: the q tile's positions arrive with the tile (0 past t). The
+// kFlash layout stays DkvSmem's own.
+template <int D>
+struct RingDkvSmem : DkvSmem<D> {
+  alignas(128) int qpos[kStages][kDkvQ];
+};
+
+template <int D, int V>
+using DkvSmemOf = std::conditional_t<(V & kPositions) != 0, RingDkvSmem<D>, DkvSmem<D>>;
 
 template <typename S>
 __device__ __forceinline__ S& smem_as(uint8_t* raw) {
@@ -296,30 +335,189 @@ fwd_tc_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
+// ------------------------------------------------------------- backward dQ
+// Grid (B*H, q tiles): block (r, y) owns q rows [q0, q0 + 128) of row r,
+// the heaviest causal tiles first, warpgroup w rows q0 + 64w + [0, 64), and
+// walks the k tiles of 64 rows of its kv row up to the diagonal, as
+// _dq_kernel's innermost grid dimension does. Q and dO are loaded once;
+// K and V pass through the ring. Per k tile: S = Q.K^T and dP = dO.V^T,
+// P = exp2(S * scale_log2 - L * log2e) (exactly 0 where masked), dS =
+// P * (dP - delta), dQ += dS.K. A warpgroup whose rows see none of a k tile
+// skips its products. Live registers per consumer thread at D = 128: the
+// dQ accumulator 64, S 32, dP 32, dS's hi and lo fragments 32. Unlike the
+// forward's, dQ's warpgroups do not take turns on the tensor cores: a
+// trial with turns gave bit-identical outputs and no gain at the causal
+// training shape, where dS is a small share of each tile's work.
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 1)
+dq_tc_kernel(const __grid_constant__ CUtensorMap qmap,
+             const __grid_constant__ CUtensorMap kmap,
+             const __grid_constant__ CUtensorMap vmap,
+             const __grid_constant__ CUtensorMap dmap, const float* lse,
+             const float* delta, bf16* dq, int h, int hkv, int t, int causal,
+             float scale, float scale_log2) {
+  extern __shared__ uint8_t tc_smem[];
+  DqSmem<D>& sm = smem_as<DqSmem<D>>(tc_smem);
+  const int nt = (t + kDqQ - 1) / kDqQ;
+  const int q0 = (nt - 1 - (int)blockIdx.y) * kDqQ;
+  const int r = blockIdx.x;
+  const int rkv = (r / h) * hkv + (r % h) / (h / hkv);
+  // Causal by index: the last live key of this tile is min(q0 + 128, t) - 1.
+  const int kend = causal ? (min(q0 + kDqQ, t) - 1) / kDqK + 1 : (t + kDqK - 1) / kDqK;
+  const int warp = warp_index(), lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    sm.ring.init(1, kConsumerWarps);
+    hopper::bar_init(&sm.qd_full, 1);
+    hopper::fence_bar_init();
+  }
+  __syncthreads();
+
+  if (warp >= kProducerWarp) {
+    hopper::regs_dec<kProducerRegs>();
+    if (warp == kProducerWarp && lane == 0) {
+      hopper::arrive_expect(&sm.qd_full, 2 * hopper::tile_bytes<kDqQ, D>());
+      hopper::load_tile<kDqQ, D>(sm.q, &qmap, &sm.qd_full, q0, r);
+      hopper::load_tile<kDqQ, D>(sm.dout, &dmap, &sm.qd_full, q0, r);
+      hopper::Cursor c;
+      bool ok = true;
+      for (int ki = 0; ki < kend; ++ki) {
+        const int s = c.stage;
+        ok &= hopper::wait(&sm.ring.empty[s], c.phase ^ 1);
+        hopper::arrive_expect(&sm.ring.full[s], 2 * hopper::tile_bytes<kDqK, D>());
+        hopper::load_tile<kDqK, D>(sm.k[s], &kmap, &sm.ring.full[s], ki * kDqK, rkv);
+        hopper::load_tile<kDqK, D>(sm.v[s], &vmap, &sm.ring.full[s], ki * kDqK, rkv);
+        c.next<kStages>();
+      }
+      hopper::trap_unless(ok);
+    }
+  } else {
+    hopper::regs_inc<kConsumerRegs>();
+    const int wg = warp / 4;
+    const int wq0 = q0 + 64 * wg;                       // first row of the warpgroup
+    const int row = wq0 + 16 * (warp % 4) + lane / 4;   // and row + 8
+    const int col = 2 * (lane % 4);
+    // L in log2 units and delta of the thread's two rows, read once (rows
+    // past t read 0 and are never written).
+    float lse2[2], dlt[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int qr = row + 8 * i;
+      lse2[i] = qr < t ? lse[(size_t)r * t + qr] * kLog2e : 0.f;
+      dlt[i] = qr < t ? delta[(size_t)r * t + qr] : 0.f;
+    }
+    float dqa[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dqa[i] = 0.f;
+
+    const uint64_t qd = hopper::desc_k<kDqQ, D>(sm.q, 64 * wg);
+    const uint64_t dd = hopper::desc_k<kDqQ, D>(sm.dout, 64 * wg);
+    bool ok = hopper::wait(&sm.qd_full, 0);
+    hopper::Cursor c;
+    for (int ki = 0; ki < kend; ++ki) {
+      const int s = c.stage, k0 = ki * kDqK;
+      ok &= hopper::wait(&sm.ring.full[s], c.phase);
+      if (!((causal && k0 > wq0 + 63) || wq0 >= t)) {
+        float sacc[kDqK / 2], dpa[kDqK / 2];   // S and dP: 64 q rows x kDqK k columns
+        const uint64_t kd = hopper::desc_k<kDqK, D>(sm.k[s], 0);
+        const uint64_t vd = hopper::desc_k<kDqK, D>(sm.v[s], 0);
+        hopper::wgmma_fence();
+        hopper::static_for<0, D / 16>([&](auto kk) {
+          constexpr int K = decltype(kk)::value;
+          constexpr int A = hopper::k_step<kDqQ, D>(K), B = hopper::k_step<kDqK, D>(K);
+          hopper::Wgmma<kDqK>::ss<0, A, B>(sacc, qd, kd, K > 0);
+          hopper::Wgmma<kDqK>::ss<0, A, B>(dpa, dd, vd, K > 0);
+        });
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(sacc);
+        hopper::fence_regs(dpa);
+
+        const bool mask = (causal && k0 + kDqK - 1 > wq0) || k0 + kDqK > t;
+        // dS, split into bf16 hi and lo A fragments (columns [16kk, 16kk +
+        // 16) are n-blocks 2kk and 2kk + 1).
+        uint32_t dhi[kDqK / 16][4], dlo[kDqK / 16][4];
+#pragma unroll
+        for (int j = 0; j < kDqK / 8; ++j) {
+          float ds[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int kc = k0 + 8 * j + col + (e & 1), qr = row + 8 * (e >> 1);
+            float p = exp2f(fmaf(sacc[4 * j + e], scale_log2, -lse2[e >> 1]));
+            if (mask && !(kc < t && (!causal || qr >= kc))) p = 0.f;
+            ds[e] = p * (dpa[4 * j + e] - dlt[e >> 1]);
+          }
+          const int f = j / 2, x = (j % 2) * 2;
+          hopper::split_bf16(ds[0], ds[1], dhi[f][x], dlo[f][x]);
+          hopper::split_bf16(ds[2], ds[3], dhi[f][x + 1], dlo[f][x + 1]);
+        }
+        // dQ += dS.K, the K tile as the MN-major B operand.
+        const uint64_t km = hopper::desc_mn<kDqK, D>(sm.k[s]);
+        hopper::wgmma_fence();
+        hopper::static_for<0, kDqK / 16>([&](auto kk) {
+          constexpr int K = decltype(kk)::value;
+          hopper::Wgmma<D>::template rs<1, hopper::mn_step<D>(K)>(dqa, dhi[K], km, 1);
+          hopper::Wgmma<D>::template rs<1, hopper::mn_step<D>(K)>(dqa, dlo[K], km, 1);
+        });
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(dqa);
+        hopper::fence_regs(dhi);
+        hopper::fence_regs(dlo);
+      }
+      if (lane == 0) hopper::arrive(&sm.ring.empty[s]);
+      c.next<kStages>();
+    }
+
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int qr = row + 8 * i;
+      if (qr < t) {
+        bf16* qrow = dq + ((size_t)r * t + qr) * D;
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j)
+          *reinterpret_cast<uint32_t*>(qrow + 8 * j + col) =
+              hopper::pack_bf16(dqa[4 * j + 2 * i] * scale, dqa[4 * j + 2 * i + 1] * scale);
+      }
+    }
+    hopper::trap_unless(ok);
+  }
+}
+
 // ------------------------------------------------------------ backward dK/dV
 // Grid (B*Hkv, k tiles): block (rk, ki) owns k rows [k0, k0 + 128) of kv
 // row rk, warpgroup w rows k0 + 64w + [0, 64), and walks (g, q tile of 64)
-// over the GQA group from the diagonal on, as _dkv_kernel's innermost grid
-// dimension does; k tile 0 sees every q tile, so it goes first. A
-// warpgroup whose rows see none of a q tile skips its products.
-template <int D>
+// over the GQA group, as _dkv_kernel's innermost grid dimension does:
+// kFlash from the diagonal on (k tile 0 sees every q tile, so it goes
+// first), kRing every tile whose max(qpos) reaches the block's min(kpos).
+// A warpgroup whose rows see none of a q tile skips its products. V is
+// kFlash (dK, dV written in bf16) or kRing (added into float32 carries).
+template <int D, int V>
 __global__ void __launch_bounds__(kTcThreads, 1)
 dkv_tc_kernel(const __grid_constant__ CUtensorMap qmap,
               const __grid_constant__ CUtensorMap kmap,
               const __grid_constant__ CUtensorMap vmap,
               const __grid_constant__ CUtensorMap dmap,
               const __grid_constant__ CUtensorMap lmap,
-              const __grid_constant__ CUtensorMap emap, bf16* dk, bf16* dv,
+              const __grid_constant__ CUtensorMap emap,
+              const __grid_constant__ CUtensorMap pmap,   // kPositions: qpos
+              const int* qpos, const int* kpos, void* dk, void* dv,
               int h, int hkv, int t, int causal, float scale, float scale_log2) {
+  constexpr bool CARRY = V & kCarry, POSITIONS = V & kPositions;
   extern __shared__ uint8_t tc_smem[];
-  DkvSmem<D>& sm = smem_as<DkvSmem<D>>(tc_smem);
+  DkvSmemOf<D, V>& sm = smem_as<DkvSmemOf<D, V>>(tc_smem);
   const int nq = (t + kDkvQ - 1) / kDkvQ;
   const int k0 = blockIdx.y * kDkvK;
   const int rk = blockIdx.x;
   const int group = h / hkv;
   // Causal by index: the first q tile whose rows can see this k tile.
-  const int qstart = causal ? k0 / kDkvQ : 0;
+  const int qstart = causal && !POSITIONS ? k0 / kDkvQ : 0;
   const int warp = warp_index(), lane = threadIdx.x % 32;
+  // kPositions: the least position of the block's 128 k rows, which every
+  // warp reduces itself; a q tile whose max(qpos) is below it is skipped.
+  int kmin = 0;
+  if constexpr (POSITIONS)
+    kmin = min(tile_extreme<false>(kpos, k0, t), tile_extreme<false>(kpos, k0 + 64, t));
 
   if (threadIdx.x == 0) {
     sm.ring.init(1, kConsumerWarps);
@@ -330,23 +528,36 @@ dkv_tc_kernel(const __grid_constant__ CUtensorMap qmap,
 
   if (warp >= kProducerWarp) {
     hopper::regs_dec<kProducerRegs>();
-    if (warp == kProducerWarp && lane == 0) {
-      hopper::arrive_expect(&sm.kv_full, 2 * hopper::tile_bytes<kDkvK, D>());
-      hopper::load_tile<kDkvK, D>(sm.k, &kmap, &sm.kv_full, k0, rk);
-      hopper::load_tile<kDkvK, D>(sm.v, &vmap, &sm.kv_full, k0, rk);
+    // kPositions: the whole warp reduces each tile's positions; lane 0
+    // issues the loads.
+    if (warp == kProducerWarp && (POSITIONS || lane == 0)) {
+      const bool issuer = !POSITIONS || lane == 0;
+      if (issuer) {
+        hopper::arrive_expect(&sm.kv_full, 2 * hopper::tile_bytes<kDkvK, D>());
+        hopper::load_tile<kDkvK, D>(sm.k, &kmap, &sm.kv_full, k0, rk);
+        hopper::load_tile<kDkvK, D>(sm.v, &vmap, &sm.kv_full, k0, rk);
+      }
       hopper::Cursor c;
       bool ok = true;
       for (int g = 0; g < group; ++g) {
         const int rq = (rk / hkv) * h + (rk % hkv) * group + g;
         for (int qi = qstart; qi < nq; ++qi) {
           const int s = c.stage, q0 = qi * kDkvQ;
-          ok &= hopper::wait(&sm.ring.empty[s], c.phase ^ 1);
-          hopper::arrive_expect(&sm.ring.full[s],
-                                2 * hopper::tile_bytes<kDkvQ, D>() + 2 * kDkvQ * 4);
-          hopper::load_tile<kDkvQ, D>(sm.q[s], &qmap, &sm.ring.full[s], q0, rq);
-          hopper::load_tile<kDkvQ, D>(sm.dout[s], &dmap, &sm.ring.full[s], q0, rq);
-          hopper::tma_load_2d(sm.lse[s], &lmap, &sm.ring.full[s], q0, rq);
-          hopper::tma_load_2d(sm.delta[s], &emap, &sm.ring.full[s], q0, rq);
+          if constexpr (POSITIONS) {
+            if (tile_extreme<true>(qpos, q0, t) < kmin) continue;   // all masked
+          }
+          if (issuer) {
+            constexpr uint32_t pos_bytes = POSITIONS ? kDkvQ * 4 : 0;
+            ok &= hopper::wait(&sm.ring.empty[s], c.phase ^ 1);
+            hopper::arrive_expect(&sm.ring.full[s],
+                                  2 * hopper::tile_bytes<kDkvQ, D>() + 2 * kDkvQ * 4 + pos_bytes);
+            hopper::load_tile<kDkvQ, D>(sm.q[s], &qmap, &sm.ring.full[s], q0, rq);
+            hopper::load_tile<kDkvQ, D>(sm.dout[s], &dmap, &sm.ring.full[s], q0, rq);
+            hopper::tma_load_2d(sm.lse[s], &lmap, &sm.ring.full[s], q0, rq);
+            hopper::tma_load_2d(sm.delta[s], &emap, &sm.ring.full[s], q0, rq);
+            if constexpr (POSITIONS)
+              hopper::tma_load_2d(sm.qpos[s], &pmap, &sm.ring.full[s], q0, 0);
+          }
           c.next<kStages>();
         }
       }
@@ -358,6 +569,15 @@ dkv_tc_kernel(const __grid_constant__ CUtensorMap qmap,
     const int wk0 = k0 + 64 * wg;                        // first k row of the warpgroup
     const int krow = wk0 + 16 * (warp % 4) + lane / 4;   // and krow + 8
     const int col = 2 * (lane % 4);
+    // kPositions: the positions of the thread's two k rows, and the least
+    // and greatest of the warpgroup's 64 (past t: INT_MAX, INT_MIN).
+    int kp[2] = {}, wkmin = 0, wkmax = 0;
+    if constexpr (POSITIONS) {
+      kp[0] = position<false>(kpos, krow, t);
+      kp[1] = position<false>(kpos, krow + 8, t);
+      wkmin = tile_extreme<false>(kpos, wk0, t);
+      wkmax = tile_extreme<true>(kpos, wk0, t);
+    }
     float dka[D / 2], dva[D / 2];
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
@@ -369,8 +589,16 @@ dkv_tc_kernel(const __grid_constant__ CUtensorMap qmap,
     for (int g = 0; g < group; ++g) {
       for (int qi = qstart; qi < nq; ++qi) {
         const int s = c.stage, q0 = qi * kDkvQ;
+        int qmax = 0, qmin = 0;
+        if constexpr (POSITIONS) {
+          qmax = tile_extreme<true>(qpos, q0, t);
+          if (qmax < kmin) continue;   // all masked: the producer skipped it too
+          qmin = tile_extreme<false>(qpos, q0, t);
+        }
         ok &= hopper::wait(&sm.ring.full[s], c.phase);
-        if (!((causal && q0 + kDkvQ - 1 < wk0) || wk0 >= t)) {
+        const bool idle = POSITIONS ? qmax < wkmin || wk0 >= t
+                                    : (causal && q0 + kDkvQ - 1 < wk0) || wk0 >= t;
+        if (!idle) {
           float st[kDkvQ / 2], dpt[kDkvQ / 2];   // S^T and dP^T: 64 k rows x kDkvQ q columns
           const uint64_t qd = hopper::desc_k<kDkvQ, D>(sm.q[s], 0);
           const uint64_t dd = hopper::desc_k<kDkvQ, D>(sm.dout[s], 0);
@@ -386,8 +614,12 @@ dkv_tc_kernel(const __grid_constant__ CUtensorMap qmap,
           hopper::fence_regs(st);
           hopper::fence_regs(dpt);
 
-          const bool mask = (causal && q0 < wk0 + 63) || q0 + kDkvQ > t || wk0 + 64 > t;
-          // P^T and dS^T, each split into bf16 hi and lo A fragments.
+          const bool ragged = q0 + kDkvQ > t || wk0 + 64 > t;
+          const bool mask = POSITIONS ? qmin < wkmax || ragged
+                                      : (causal && q0 < wk0 + 63) || ragged;
+          // P^T and dS^T, each split into bf16 hi and lo A fragments. A
+          // masked probability is set to 0, never multiplied by a mask: a
+          // row with no live key carries L = -1e30, and exp2 of it is inf.
           uint32_t phi[kDkvQ / 16][4], plo[kDkvQ / 16][4], dhi[kDkvQ / 16][4], dlo[kDkvQ / 16][4];
 #pragma unroll
           for (int j = 0; j < kDkvQ / 8; ++j) {
@@ -396,7 +628,10 @@ dkv_tc_kernel(const __grid_constant__ CUtensorMap qmap,
             for (int e = 0; e < 4; ++e) {
               const int qc = 8 * j + col + (e & 1), kr = krow + 8 * (e >> 1);
               float pe = exp2f(fmaf(st[4 * j + e], scale_log2, -sm.lse[s][qc] * kLog2e));
-              if (mask && !(q0 + qc < t && kr < t && (!causal || q0 + qc >= kr))) pe = 0.f;
+              bool live;
+              if constexpr (POSITIONS) live = q0 + qc < t && kr < t && sm.qpos[s][qc] >= kp[e >> 1];
+              else live = q0 + qc < t && kr < t && (!causal || q0 + qc >= kr);
+              if (mask && !live) pe = 0.f;
               p[e] = pe;
               ds[e] = pe * (dpt[4 * j + e] - sm.delta[s][qc]);
             }
@@ -438,10 +673,22 @@ dkv_tc_kernel(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
         for (int j = 0; j < D / 8; ++j) {
           const int e = 4 * j + 2 * i;
-          *reinterpret_cast<uint32_t*>(dk + at + 8 * j + col) =
-              hopper::pack_bf16(dka[e] * scale, dka[e + 1] * scale);
-          *reinterpret_cast<uint32_t*>(dv + at + 8 * j + col) =
-              hopper::pack_bf16(dva[e], dva[e + 1]);
+          if constexpr (CARRY) {   // one block owns each carry tile: no atomics
+            float2* kc = reinterpret_cast<float2*>((float*)dk + at + 8 * j + col);
+            float2* vc = reinterpret_cast<float2*>((float*)dv + at + 8 * j + col);
+            float2 x = *kc, y = *vc;
+            x.x += dka[e] * scale;
+            x.y += dka[e + 1] * scale;
+            y.x += dva[e];
+            y.y += dva[e + 1];
+            *kc = x;
+            *vc = y;
+          } else {
+            *reinterpret_cast<uint32_t*>((bf16*)dk + at + 8 * j + col) =
+                hopper::pack_bf16(dka[e] * scale, dka[e + 1] * scale);
+            *reinterpret_cast<uint32_t*>((bf16*)dv + at + 8 * j + col) =
+                hopper::pack_bf16(dva[e], dva[e + 1]);
+          }
         }
       }
     }
@@ -472,30 +719,58 @@ int launch_fwd_tc(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
-// lse and delta: (rows, t) float32 with rows ld = t rounded up to 4 apart,
-// which TMA needs (the wrapper pads them when t % 4).
+// lse and delta: (rows, t) float32, read by plain loads (no padding).
 template <int D>
+int launch_dq_tc(const void* q, const void* k, const void* v, const void* dout,
+                 const void* lse, const void* delta, void* dq, int rows, int h,
+                 int hkv, int t, int causal, cudaStream_t st) {
+  const int rows_kv = rows / h * hkv;
+  CUtensorMap qm, km, vm, dm;
+  if (hopper::make_map(&qm, q, rows, t, D, kDqQ) ||
+      hopper::make_map(&dm, dout, rows, t, D, kDqQ) ||
+      hopper::make_map(&km, k, rows_kv, t, D, kDqK) ||
+      hopper::make_map(&vm, v, rows_kv, t, D, kDqK))
+    return kMapFailed;
+  constexpr size_t smem = smem_bytes<DqSmem<D>>();
+  cudaError_t err = cudaFuncSetAttribute(
+      dq_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(rows, (t + kDqQ - 1) / kDqQ);
+  dq_tc_kernel<D><<<grid, kTcThreads, smem, st>>>(
+      qm, km, vm, dm, (const float*)lse, (const float*)delta, (bf16*)dq, h, hkv, t, causal,
+      1.0f / sqrtf((float)D), kLog2e / sqrtf((float)D));
+  return cudaGetLastError();
+}
+
+// lse and delta: (rows, t) float32 with rows ld = t rounded up to 4 apart,
+// which TMA needs (the wrapper pads them when t % 4). kFlash writes dK and
+// dV in bf16 and takes no positions (null); kRing adds into float32
+// carries dk and dv, masks by qpos and kpos (int32 (t,), qpos 16-byte
+// aligned for TMA) and ignores `causal`.
+template <int D, int V>
 int launch_dkv_tc(const void* q, const void* k, const void* v,
                   const void* dout, const void* lse, const void* delta,
-                  void* dk, void* dv, int rows_kv, int h, int hkv, int t,
-                  int causal, cudaStream_t st) {
+                  const void* qpos, const void* kpos, void* dk, void* dv,
+                  int rows_kv, int h, int hkv, int t, int causal, cudaStream_t st) {
   const int rows = rows_kv / hkv * h, ld = (t + 3) / 4 * 4;
-  CUtensorMap qm, km, vm, dm, lm, em;
+  CUtensorMap qm, km, vm, dm, lm, em, pm{};
   if (hopper::make_map(&qm, q, rows, t, D, kDkvQ) ||
       hopper::make_map(&dm, dout, rows, t, D, kDkvQ) ||
       hopper::make_map(&km, k, rows_kv, t, D, kDkvK) ||
       hopper::make_map(&vm, v, rows_kv, t, D, kDkvK) ||
       hopper::make_vec_map(&lm, lse, rows, t, ld, kDkvQ) ||
-      hopper::make_vec_map(&em, delta, rows, t, ld, kDkvQ))
+      hopper::make_vec_map(&em, delta, rows, t, ld, kDkvQ) ||
+      ((V & kPositions) &&
+       hopper::make_vec_map(&pm, qpos, 1, t, ld, kDkvQ, CU_TENSOR_MAP_DATA_TYPE_INT32)))
     return kMapFailed;
-  constexpr size_t smem = smem_bytes<DkvSmem<D>>();
+  constexpr size_t smem = smem_bytes<DkvSmemOf<D, V>>();
   cudaError_t err = cudaFuncSetAttribute(
-      dkv_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      dkv_tc_kernel<D, V>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(rows_kv, (t + kDkvK - 1) / kDkvK);
-  dkv_tc_kernel<D><<<grid, kTcThreads, smem, st>>>(
-      qm, km, vm, dm, lm, em, (bf16*)dk, (bf16*)dv, h, hkv, t, causal, 1.0f / sqrtf((float)D),
-      kLog2e / sqrtf((float)D));
+  dkv_tc_kernel<D, V><<<grid, kTcThreads, smem, st>>>(
+      qm, km, vm, dm, lm, em, pm, (const int*)qpos, (const int*)kpos, dk, dv, h, hkv, t,
+      causal, 1.0f / sqrtf((float)D), kLog2e / sqrtf((float)D));
   return cudaGetLastError();
 }
 

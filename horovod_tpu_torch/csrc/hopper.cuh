@@ -82,18 +82,20 @@ inline int make_map(CUtensorMap* map, const void* base, int rows, int t, int d,
                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
-// A 2-D map over a float32 matrix (rows, t) whose rows lie ld >= t apart
-// (ld a multiple of 4, so rows start on 16 bytes), boxes of (1, box):
-// one box is `box` values of one row; reads past t fill with zeros.
+// A 2-D map over a matrix (rows, t) of 4-byte values (float32, or int32
+// positions) whose rows lie ld >= t apart (ld a multiple of 4, so rows
+// start on 16 bytes), boxes of (1, box): one box is `box` values of one
+// row; reads past t fill with zeros.
 inline int make_vec_map(CUtensorMap* map, const void* base, int rows, int t,
-                        int ld, int box) {
+                        int ld, int box,
+                        CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_FLOAT32) {
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return 1;
   cuuint64_t dims[2] = {(cuuint64_t)t, (cuuint64_t)rows};
   cuuint64_t strides[1] = {(cuuint64_t)ld * 4};
   cuuint32_t boxes[2] = {(cuuint32_t)box, 1};
   cuuint32_t unit[2] = {1, 1};
-  return (int)encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
+  return (int)encode(map, type, 2,
                      const_cast<void*>(base), dims, strides, boxes, unit,
                      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
                      CU_TENSOR_MAP_L2_PROMOTION_NONE,

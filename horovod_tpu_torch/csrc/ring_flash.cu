@@ -14,13 +14,18 @@
 // kernel serves the contiguous and the zigzag layouts. Every tile pair is
 // visited and a pair with max(qpos) < min(kpos) is skipped; a ring step
 // with every pair masked is skipped by the caller before any launch. The
-// header describes the layout, the arithmetic and what bounds them.
+// headers describe the layout, the arithmetic and what bounds them.
+//
+// hvd_ring_flash_dkv in bfloat16 runs the kRing variant of flash_tc.cuh's
+// tensor-core dK/dV kernel (TMA, wgmma); float32, and the forward and dQ
+// in either type, run flash_kernels.cuh's float32 FMA kernels.
 //
 // Positions are one int32 vector (t,) each for q and k; m and l are
 // (B*H, t) float32 (the TPU's (B*H, 8, t), (8, t) and (t, 128) replicated
 // layouts are not kept).
 
 #include "flash_kernels.cuh"
+#include "flash_tc.cuh"
 
 namespace {
 
@@ -82,9 +87,12 @@ int ring_dkv(const void* q, const void* k, const void* v, const void* dout,
 extern "C" {
 
 // Each entry launches one kernel on `stream` (of the calling thread's
-// current device) and returns cudaGetLastError() (0 on success), or 1000
-// for arguments no kernel takes. Carries (acc, m, l, dq, dk, dv) are
-// float32 and updated in place; qpos and kpos are int32 (t,).
+// current device) and returns cudaGetLastError() (0 on success), 1000 for
+// arguments no kernel takes, or 1001 when a tensor map of the bf16 dK/dV
+// kernel does not encode. Carries (acc, m, l, dq, dk, dv) are float32 and
+// updated in place; qpos and kpos are int32 (t,). The bf16 dK/dV kernel
+// reads lse and delta with rows t rounded up to 4 apart (the wrapper pads
+// them) and needs 16-byte aligned q, k, v, dout, lse, delta and qpos.
 int hvd_ring_flash_fwd(const void* q, const void* k, const void* v, void* acc,
                        void* m, void* l, const void* qpos, const void* kpos,
                        int rows, int h, int hkv, int t, int d, int dtype,
@@ -111,8 +119,21 @@ int hvd_ring_flash_dkv(const void* q, const void* k, const void* v,
                        void* stream) {
   if (bad_kv_shape(rows_kv, h, hkv, t)) return kBadArgs;
   cudaStream_t st = (cudaStream_t)stream;
-  HVD_DISPATCH(ring_dkv, q, k, v, dout, lse, delta, qpos, kpos, dk, dv,
-               rows_kv, h, hkv, t, st)
+  switch (dtype * 1000 + d) {
+    case 32: return ring_dkv<float, 32>(q, k, v, dout, lse, delta, qpos, kpos, dk, dv, rows_kv,
+                                        h, hkv, t, st);
+    case 64: return ring_dkv<float, 64>(q, k, v, dout, lse, delta, qpos, kpos, dk, dv, rows_kv,
+                                        h, hkv, t, st);
+    case 128: return ring_dkv<float, 128>(q, k, v, dout, lse, delta, qpos, kpos, dk, dv, rows_kv,
+                                          h, hkv, t, st);
+    case 1032: return launch_dkv_tc<32, kRing>(q, k, v, dout, lse, delta, qpos, kpos, dk, dv,
+                                               rows_kv, h, hkv, t, 1, st);
+    case 1064: return launch_dkv_tc<64, kRing>(q, k, v, dout, lse, delta, qpos, kpos, dk, dv,
+                                               rows_kv, h, hkv, t, 1, st);
+    case 1128: return launch_dkv_tc<128, kRing>(q, k, v, dout, lse, delta, qpos, kpos, dk, dv,
+                                                rows_kv, h, hkv, t, 1, st);
+    default: return kBadArgs;
+  }
 }
 
 }  // extern "C"

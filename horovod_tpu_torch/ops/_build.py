@@ -3,11 +3,11 @@
 Each source compiles with ``nvcc`` for ``sm_90a`` into a shared library with
 a plain C interface, cached under ``horovod_tpu_torch/_build/`` by a hash of
 the source and of every header in ``csrc/`` (the sources share
-``flash_kernels.cuh``; ``flash_attention.cu`` also includes the
-tensor-core kernels of ``flash_tc.cuh`` and their building blocks,
-``hopper.cuh``), so an edited source or header rebuilds and an
-unchanged one loads at once. The library is loaded with ``ctypes``; the wrappers in ``ops/``
-declare each entry's argument types and keep the loaded library.
+``flash_kernels.cuh`` and the tensor-core kernels of ``flash_tc.cuh`` with
+their building blocks, ``hopper.cuh``), so an edited source or header
+rebuilds and an unchanged one loads at once. The library is loaded with
+``ctypes``; the wrappers in ``ops/`` declare each entry's argument types
+and keep the loaded library.
 """
 
 from __future__ import annotations

@@ -16,10 +16,10 @@ with delta = rowsum(dO * O) computed here, outside the kernels. On a CUDA
 tensor each wrapper launches its kernel (``csrc/flash_attention.cu``) and
 counts the launch in ``launches``; on a CPU tensor it runs its plain
 version, which does the same arithmetic densely in float32: the contract
-every kernel is held to. In bfloat16 the forward and dK/dV kernels run on
-the tensor cores (``csrc/flash_tc.cuh``: TMA loads, wgmma) and need
-16-byte aligned inputs. There is no other fallback: a CUDA tensor the
-kernel does not take raises.
+every kernel is held to. In bfloat16 the three kernels run on the tensor
+cores (``csrc/flash_tc.cuh``: TMA loads, wgmma) and need 16-byte aligned
+inputs. There is no other fallback: a CUDA tensor the kernel does not take
+raises.
 """
 
 from __future__ import annotations
@@ -199,6 +199,14 @@ def _check_tma(*inputs) -> None:
                              f"boundary (storage offset {x.storage_offset()})")
 
 
+def _tma_rows(t: int, *rows_f32):
+    """L and delta as the bf16 dK/dV kernels read them by TMA: rows that
+    start on 16 bytes, so t rounded up to 4 values, padded with zeros."""
+    if t % 4 == 0:
+        return rows_f32
+    return tuple(torch.nn.functional.pad(x, (0, 4 - t % 4)) for x in rows_f32)
+
+
 _ERRORS = {1000: "arguments no kernel takes",
            1001: "a TMA tensor map did not encode"}
 
@@ -239,6 +247,7 @@ def flash_bwd_dq(qr, kr, vr, dor, lse, delta, h: int, hkv: int, causal: bool):
     if not qr.is_cuda:
         return dq_plain(qr, kr, vr, dor, lse, delta, h, hkv, causal)
     code = _check_cuda(h, hkv, (qr, kr, vr, dor), (lse, delta))
+    _check_tma(qr, kr, vr, dor)
     rows, t, d = qr.shape
     dq = torch.empty_like(qr)
     _launch(_library().hvd_flash_bwd_dq, "flash_bwd_dq", qr.device,
@@ -254,12 +263,8 @@ def flash_bwd_dkv(qr, kr, vr, dor, lse, delta, h: int, hkv: int, causal: bool):
     code = _check_cuda(h, hkv, (qr, kr, vr, dor), (lse, delta))
     _check_tma(qr, kr, vr, dor, lse, delta)
     rows_kv, t, d = kr.shape
-    if qr.dtype == torch.bfloat16 and t % 4:
-        # TMA reads L and delta by rows that start on 16 bytes: rows of
-        # t rounded up to 4 values.
-        pad = 4 - t % 4
-        lse = torch.nn.functional.pad(lse, (0, pad))
-        delta = torch.nn.functional.pad(delta, (0, pad))
+    if qr.dtype == torch.bfloat16:
+        lse, delta = _tma_rows(t, lse, delta)
     dk, dv = torch.empty_like(kr), torch.empty_like(vr)
     _launch(_library().hvd_flash_bwd_dkv, "flash_bwd_dkv", qr.device,
             _ptr(qr), _ptr(kr), _ptr(vr), _ptr(dor), _ptr(lse), _ptr(delta),

@@ -18,8 +18,10 @@ each ring step calls one kernel per pass:
 
 Carries are updated in place, by the kernel on a CUDA tensor
 (``csrc/ring_flash.cu``, counted in ``launches``) and by its plain version,
-the same arithmetic densely in float32, on a CPU tensor. There is no other
-fallback: a CUDA tensor the kernel does not take raises.
+the same arithmetic densely in float32, on a CPU tensor. In bfloat16 the
+dK/dV kernel runs on the tensor cores (``csrc/flash_tc.cuh``: TMA loads,
+wgmma) and needs 16-byte aligned inputs, q positions included. There is no
+other fallback: a CUDA tensor the kernel does not take raises.
 
 The schedule is the JAX package's step for step: carries start as zeros,
 -1e30 and zeros; at step s a rank holds the block of rank (my - s) % n and
@@ -189,7 +191,10 @@ def rf_bwd_dkv(qr, kr, vr, dor, lse, delta, qpos, kpos, dk, dv, h: int,
                             h, hkv)
     code = _check_cuda(h, hkv, (qr, kr, vr, dor), (lse, delta), (dk, dv),
                        qpos, kpos)
+    fa._check_tma(qr, kr, vr, dor, lse, delta, qpos)
     rows_kv, t, d = kr.shape
+    if qr.dtype == torch.bfloat16:
+        lse, delta = fa._tma_rows(t, lse, delta)
     ptrs = [fa._ptr(x) for x in (qr, kr, vr, dor, lse, delta, qpos, kpos, dk, dv)]
     fa._launch(_library().hvd_ring_flash_dkv, "ring_flash_bwd_dkv", qr.device,
                *ptrs, rows_kv, h, hkv, t, d, code, counts=launches)

@@ -14,7 +14,10 @@ carries included, agree to 1e-4 times the largest reference magnitude (or
 held against the plain version fed the same bf16 inputs, may differ by one
 unit in the last place: |err| <= 2^-7 |ref| + 1e-2 times the rms of the
 reference's row (its last dim), and the relative norm error is at most
-1e-2. The NCCL world holds the sp step to slice 1's flash step on the whole
+1e-2. An output that is 0 in exact arithmetic (all of dQ and dK at T = 1,
+and causal dQ's first row, whose one key gives dS = dP - delta = 0) comes
+out as float32 noise on both sides, |x| <= 1e-4, which no relative rule
+can compare. The NCCL world holds the sp step to slice 1's flash step on the whole
 sequence: loss 1e-3 relative, every gradient 3e-2 relative norm error
 (bf16 activations summed in another order across the ring).
 """
@@ -43,9 +46,17 @@ def cuda():
     return torch.device("cuda")
 
 
-def _assert_close(name, got, want):
+def _assert_close(name, got, want, noise_rows=()):
+    """``noise_rows``: rows (dim 1) that are 0 in exact arithmetic, held
+    to float32 noise on both sides and left out of the relative rule."""
     assert got.dtype == want.dtype, name
     g, w = got.float(), want.float()
+    if noise_rows:
+        for x in (g, w):
+            assert x[:, noise_rows].abs().max().item() <= 1e-4, name
+        keep = torch.ones(g.shape[1], dtype=torch.bool, device=g.device)
+        keep[list(noise_rows)] = False
+        g, w = g[:, keep], w[:, keep]
     err = (g - w).abs()
     if want.dtype == torch.float32:
         assert err.max().item() <= 1e-4 * max(1.0, w.abs().max().item()), name
@@ -59,7 +70,8 @@ def _assert_close(name, got, want):
 def _check(cuda, b, t, h, hkv, d, causal, dtype, seed=0, zero=()):
     """The kernels against their plain versions; outputs named in ``zero``
     are 0 in exact arithmetic, and both sides must come out as float32
-    noise (|x| <= 1e-4), which no relative rule can compare."""
+    noise (|x| <= 1e-4), which no relative rule can compare; so must
+    causal dQ's first row."""
     gen = torch.Generator(device=cuda).manual_seed(seed)
 
     def rand(*shape):
@@ -82,7 +94,8 @@ def _check(cuda, b, t, h, hkv, d, causal, dtype, seed=0, zero=()):
             assert got[name].abs().max().item() <= 1e-4, name
             assert want[name].abs().max().item() <= 1e-4, name
         else:
-            _assert_close(name, got[name], want[name])
+            _assert_close(name, got[name], want[name],
+                          [0] if causal and name == "dq" else ())
 
 
 @pytest.mark.parametrize("d", [32, 64, 128])
@@ -117,7 +130,7 @@ def test_bf16_tensor_core_kernels_gqa(cuda, d):
 
 def test_bf16_tensor_core_kernels_reject_unaligned_inputs(cuda):
     """TMA needs 16-byte aligned bases: a bf16 tensor whose storage
-    offset breaks that raises, and nothing launches."""
+    offset breaks that raises, and nothing launches (B1, B2, B3 and B6)."""
     b, t, h, d = 1, 64, 1, 64
     flat = torch.randn(b * t * h * d + 1, device=cuda).to(torch.bfloat16)
     q = flat[1:].view(b, t, h, d)
@@ -130,7 +143,17 @@ def test_bf16_tensor_core_kernels_reject_unaligned_inputs(cuda):
     with pytest.raises(ValueError, match="16-byte"):
         fa.flash_bwd_dkv(fa._rows(q), fa._rows(k), fa._rows(k), fa._rows(k), lse,
                          lse, h, h, True)
-    assert fa.launches["flash_fwd"] == fa.launches["flash_bwd_dkv"] == 0
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_bwd_dq(fa._rows(q), fa._rows(k), fa._rows(k), fa._rows(k), lse,
+                        lse, h, h, True)
+    assert sum(fa.launches.values()) == 0
+    rf.reset_launches()
+    pos = rf.ring_positions(0, t, 1, False, cuda)
+    carry = torch.zeros(b * h, t, d, device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        rf.rf_bwd_dkv(fa._rows(q), fa._rows(k), fa._rows(k), fa._rows(k), lse, lse,
+                      pos, pos, carry, carry.clone(), h, h)
+    assert rf.launches["ring_flash_bwd_dkv"] == 0
 
 
 def test_autograd_counts_launches(cuda):
@@ -208,6 +231,29 @@ def test_ring_step_with_every_tile_skipped_keeps_the_carries(cuda):
     every tile pair is skipped inside the kernels and no carry moves."""
     assert ra.fully_masked(0, 3, 160, 4, False)
     before, got = _ring_check(cuda, 1, 160, 4, 2, 64, torch.float32, my=0,
+                              src=3, zigzag=False)
+    for name in before:
+        assert torch.equal(got[name], before[name]), name
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_bf16_dq_and_ring_dkv_at_t_not_a_multiple_of_4(cuda, d):
+    """B2 and B6 on the tensor cores at T = 90: their TMA tiles zero-fill
+    past T, and rf_bwd_dkv pads L and delta to rows of 92 values for their
+    TMA loads. Then a zigzag partial step at T = 96, where a 64-row q tile
+    straddles the two 48-row stripes of the rank, with GQA."""
+    _check(cuda, 2, 90, 4, 2, d, True, torch.bfloat16, seed=d)
+    _check(cuda, 1, 90, 4, 2, d, False, torch.bfloat16, seed=d + 1)
+    _ring_check(cuda, 1, 90, 4, 2, d, torch.bfloat16, my=2, src=2, zigzag=True, seed=d)
+    _ring_check(cuda, 2, 90, 4, 2, d, torch.bfloat16, my=1, src=0, zigzag=False, seed=d + 1)
+    _ring_check(cuda, 2, 96, 4, 2, d, torch.bfloat16, my=1, src=2, zigzag=True, seed=d + 2)
+
+
+def test_bf16_ring_dkv_with_every_tile_skipped_keeps_the_carries(cuda):
+    """B6 on the tensor cores at a fully masked step: its producer and
+    consumers skip every tile pair alike (no load, no wait), the launch
+    ends, and no carry moves."""
+    before, got = _ring_check(cuda, 1, 160, 4, 2, 64, torch.bfloat16, my=0,
                               src=3, zigzag=False)
     for name in before:
         assert torch.equal(got[name], before[name]), name

@@ -1,25 +1,39 @@
-"""The arithmetic of the bf16 tensor-core kernels (B1, the forward, and
-B3, dK/dV, in ``horovod_tpu_torch/csrc/flash_tc.cuh``) on the CPU, held to
-the JAX package's Pallas kernels in bf16 by the card's own rules.
+"""The arithmetic of the bf16 tensor-core kernels of
+``horovod_tpu_torch/csrc/flash_tc.cuh`` on the CPU, held to the JAX
+package's Pallas kernels by the card's own rules: B1 (the forward), B2
+(dQ) and B3 (dK/dV) against ``horovod_tpu.ops.flash_attention`` in bf16,
+and B6 (one ring step's dK/dV into float32 carries) against
+``horovod_tpu.ops.ring_flash``'s ``_rf_dkv_kernel``.
 
 The kernels cannot run here, so a plain-torch emulation of what they
-compute stands in for them: the same k tiles of 128 in the same order, the
-online softmax in log2 units, P (forward), P^T and dS^T (dK/dV) each split
-into a bf16 hi and a bf16 lo term for their products (``_split``; the
-kernels' ``hopper::split_bf16``), everything else float32, outputs rounded
-to bf16. The dK/dV emulation takes L from the emulated forward and delta =
-rowsum(dO * O) from the emulated bf16 O, as the training path does outside
-the kernels. The reference is ``horovod_tpu.ops.flash_attention`` fed the
-same bf16 inputs, in interpret mode under
-``jax.default_matmul_precision("highest")``: float32 arithmetic, O, dK
+compute stands in for them: the same tiles in the same order (the
+forward's k tiles of 128, dQ's k tiles of 64, dK/dV's blocks of 128 k rows
+walking q tiles of 64), the online softmax and P = exp2(S * scale * log2e
+- L * log2e) in log2 units, P (forward), dS (dQ), P^T and dS^T (dK/dV)
+each split into a bf16 hi and a bf16 lo term for their products
+(``_split``; the kernels' ``hopper::split_bf16``), everything else
+float32, outputs rounded to bf16 or added into float32 carries. The dQ and
+dK/dV emulations take L from the emulated forward and delta = rowsum(dO *
+O) from the emulated bf16 O, as the training path does outside the
+kernels. The flash reference is ``horovod_tpu.ops.flash_attention`` fed
+the same bf16 inputs, in interpret mode under
+``jax.default_matmul_precision("highest")``: float32 arithmetic, O, dQ, dK
 and dV in bf16, and its delta from its bf16 O as well; its L is the
 float64 logsumexp of the scaled logits. Inputs are made with numpy from a
-seed. Rules, as ``chip_smoke.py`` holds the kernels on the card: O, dK, dV
-element-wise |err| <= 2^-7 |ref| + 1e-2 x the rms of the reference's row,
-and relative norm error <= 1e-2; L |err| <= 1e-4 x max(1, max |L|). A
-negative case drops one k tile from the emulation and must fail the rule;
-another rounds the three operands to bf16 alone, without the lo term, and
-breaks the rule on dK.
+seed. Rules, as ``chip_smoke.py`` holds the kernels on the card: O, dQ,
+dK, dV element-wise |err| <= 2^-7 |ref| + 1e-2 x the rms of the
+reference's row, and relative norm error <= 1e-2; L |err| <= 1e-4 x max(1,
+max |L|). Negative cases drop one k tile from the forward and from dQ and
+must fail the rule; another rounds the three operands to bf16 alone,
+without the lo term, and breaks the rule on dK.
+
+The ring reference is the Pallas dK/dV block kernel in interpret mode on
+float32 arrays that hold the same bf16 values (it computes in float32
+whatever its input type), with nonzero carries, L and delta, at a diagonal
+step, a past step and a zigzag step where a 64-row q tile of the kernel
+straddles the rank's two stripes; the rule is the float32 carries' own,
+|err| <= 1e-4 x max(1, max |ref|). A negative case masks by index, as
+kFlash does, instead of by positions, and fails it.
 """
 
 import jax
@@ -28,10 +42,14 @@ import numpy as np
 import pytest
 import torch
 
+from horovod_tpu.ops import ring_flash as jrf
 from horovod_tpu.ops.flash_attention import flash_attention as jax_flash
 from horovod_tpu_torch.ops import flash_attention as fa
+from horovod_tpu_torch.ops import ring_flash as rf
 
 TILE_K = 128          # forward k tile (flash_tc.cuh kFwdK)
+DQ_TILE_K = 64        # dQ k tile (kDqK)
+DKV_BLOCK_K, DKV_TILE_Q = 128, 64   # dK/dV k rows per block, q rows per tile
 LOG2E = 1.4426950408889634
 NEG_INF = -1e30
 
@@ -97,6 +115,26 @@ def emulate_fwd(qr, kr, vr, h, hkv, causal, drop_tile=None, operand=_split):
     return _bf16(acc / l[..., None]), m * np.log(2.0) + torch.log(l)
 
 
+def emulate_dq(qr, kr, vr, dor, lse, delta, h, hkv, causal, drop_tile=None,
+               operand=_split):
+    """B2's arithmetic: dQ in bf16, from k tiles of 64 in order."""
+    rows, t, d = qr.shape
+    kq, vq = fa._expand_kv(kr, h, hkv), fa._expand_kv(vr, h, hkv)
+    scale = d ** -0.5
+    live = _live(t, causal)
+    dq = torch.zeros(rows, t, d)
+    for k0 in range(0, t, DQ_TILE_K):
+        if drop_tile == k0 // DQ_TILE_K:
+            continue
+        kt, vt = kq[:, k0:k0 + DQ_TILE_K], vq[:, k0:k0 + DQ_TILE_K]
+        p = torch.exp2(qr @ kt.transpose(1, 2) * (scale * LOG2E)
+                       - (lse * LOG2E)[..., None])
+        p = p.masked_fill(~live[:, k0:k0 + DQ_TILE_K], 0.0)
+        ds = p * (dor @ vt.transpose(1, 2) - delta[..., None])
+        dq = dq + operand(ds) @ kt
+    return _bf16(dq * scale)
+
+
 def emulate_dkv(qr, kr, vr, dor, lse, delta, h, hkv, causal, operand=_split):
     """B3's arithmetic: (dK, dV) in bf16, each summed over its group."""
     rows, t, d = qr.shape
@@ -116,17 +154,19 @@ def emulate_dkv(qr, kr, vr, dor, lse, delta, h, hkv, causal, operand=_split):
     return _bf16(fold(dk)), _bf16(fold(dv))
 
 
-def _emulate(q, k, v, g, causal, drop_tile=None, operand=_split):
-    """B1 and B3 on (B, T, H, D) numpy arrays: O and L from the forward,
-    then dK and dV from that L and the delta of its bf16 O."""
+def _emulate(q, k, v, g, causal, drop_tile=None, operand=_split, drop_dq_tile=None):
+    """B1, B2 and B3 on (B, T, H, D) numpy arrays: O and L from the
+    forward, then dQ, dK and dV from that L and the delta of its bf16 O."""
     b, t, h, _ = q.shape
     hkv = k.shape[2]
     qr, kr, vr, dor = (fa._rows(torch.from_numpy(x)) for x in (q, k, v, g))
     o, lse = emulate_fwd(qr, kr, vr, h, hkv, causal, drop_tile, operand)
     delta = (dor * o).sum(dim=-1)
+    dq = emulate_dq(qr, kr, vr, dor, lse, delta, h, hkv, causal, drop_dq_tile, operand)
     dk, dv = emulate_dkv(qr, kr, vr, dor, lse, delta, h, hkv, causal, operand)
     return {"O": fa._unrows(o, b).numpy(), "L": lse.numpy(),
-            "dK": fa._unrows(dk, b).numpy(), "dV": fa._unrows(dv, b).numpy()}
+            "dQ": fa._unrows(dq, b).numpy(), "dK": fa._unrows(dk, b).numpy(),
+            "dV": fa._unrows(dv, b).numpy()}
 
 
 def _reference(q, k, v, g, causal):
@@ -137,7 +177,7 @@ def _reference(q, k, v, g, causal):
         out = jax_flash(qb, kb, vb, causal, 64, 64)
         grads = jax.grad(lambda q, k, v: jnp.sum(
             jax_flash(q, k, v, causal, 64, 64).astype(jnp.float32) * g),
-            argnums=(1, 2))(qb, kb, vb)
+            argnums=(0, 1, 2))(qb, kb, vb)
     b, t, h, d = q.shape
     group = h // k.shape[2]
     q64 = q.astype(np.float64).transpose(0, 2, 1, 3)
@@ -147,12 +187,20 @@ def _reference(q, k, v, g, causal):
     mx = s.max(axis=-1, keepdims=True)
     lse = (mx[..., 0] + np.log(np.exp(s - mx).sum(axis=-1))).reshape(b * h, t)
     f32 = [np.asarray(x.astype(jnp.float32)) for x in (out, *grads)]
-    return {"O": f32[0], "L": lse, "dK": f32[1], "dV": f32[2]}
+    return {"O": f32[0], "L": lse, "dQ": f32[1], "dK": f32[2], "dV": f32[3]}
 
 
-def within_rule(name, got, ref) -> tuple[bool, str]:
-    """The card's rule for ``name``; (holds, description)."""
+def within_rule(name, got, ref, noise_rows=()) -> tuple[bool, str]:
+    """The card's rule for ``name``; (holds, description). ``noise_rows``:
+    positions (axis 1) that are 0 in exact arithmetic, held to float32
+    noise on both sides (|x| <= 1e-4) and left out of the relative rule."""
     got, ref = got.astype(np.float64), ref.astype(np.float64)
+    if noise_rows:
+        noise = max(np.abs(got[:, noise_rows]).max(), np.abs(ref[:, noise_rows]).max())
+        if not noise <= 1e-4:
+            return False, f"rows {list(noise_rows)} read {noise:.3e}, not noise"
+        keep = np.setdiff1d(np.arange(got.shape[1]), noise_rows)
+        got, ref = got[:, keep], ref[:, keep]
     err = np.abs(got - ref)
     if name == "L":
         limit = 1e-4 * max(1.0, np.abs(ref).max())
@@ -169,14 +217,20 @@ def within_rule(name, got, ref) -> tuple[bool, str]:
 def case(request):
     b, t, h, hkv, d, causal = request.param
     q, k, v, g = _inputs(SHAPES.index(request.param), b, t, h, hkv, d)
-    return _emulate(q, k, v, g, causal), _reference(q, k, v, g, causal)
+    return _emulate(q, k, v, g, causal), _reference(q, k, v, g, causal), causal
 
 
-@pytest.mark.parametrize("name", ["O", "L", "dK", "dV"])
+def _noise_rows(name, causal):
+    """Causal dQ's first row is 0 in exact arithmetic: one key, so dS =
+    dP - delta = 0."""
+    return [0] if causal and name == "dQ" else ()
+
+
+@pytest.mark.parametrize("name", ["O", "L", "dQ", "dK", "dV"])
 def test_emulation_within_the_card_rule(case, name):
-    got, ref = case
+    got, ref, causal = case
     assert got[name].shape == ref[name].shape
-    ok, detail = within_rule(name, got[name], ref[name])
+    ok, detail = within_rule(name, got[name], ref[name], _noise_rows(name, causal))
     assert ok, f"{name}: {detail}"
 
 
@@ -195,6 +249,18 @@ def test_dropped_k_tile_fails_the_rule():
     assert not within_rule("O", np.nan_to_num(bad), ref_o)[0]
 
 
+def test_dropped_dq_k_tile_fails_the_rule():
+    """dQ's rule has teeth: B2's emulation without its first k tile of 64
+    (keys 0-63, every row's first keys at T = 200) breaks it."""
+    b, t, h, hkv, d, causal = 1, 200, 4, 2, 64, True
+    q, k, v, g = _inputs(98, b, t, h, hkv, d)
+    ref = _reference(q, k, v, g, causal)["dQ"]
+    rows = _noise_rows("dQ", causal)
+    assert within_rule("dQ", _emulate(q, k, v, g, causal)["dQ"], ref, rows)[0]
+    bad = _emulate(q, k, v, g, causal, drop_dq_tile=0)["dQ"]
+    assert not within_rule("dQ", bad, ref, rows)[0]
+
+
 def test_bf16_operands_alone_fail_the_rule():
     """Why the kernels split P, P^T and dS^T: rounded to bf16 alone, each
     term of a product errs by up to 2^-8, and in a row of dK where a few
@@ -205,3 +271,130 @@ def test_bf16_operands_alone_fail_the_rule():
     assert within_rule("dK", _emulate(q, k, v, g, causal)["dK"], ref["dK"])[0]
     rounded = _emulate(q, k, v, g, causal, operand=_bf16)["dK"]
     assert not within_rule("dK", rounded, ref["dK"])[0]
+
+
+# ------------------------------------------------- B6: one ring step's dK/dV
+
+RING_N = 4
+RING_STEPS = {
+    # name: (my rank, source rank of the K/V block, zigzag, T per rank)
+    "diagonal": (1, 1, False, 128),
+    "past": (2, 0, False, 128),       # every pair live
+    # Stripes of 48 rows: the kernel's q tile [0, 64) holds the low stripe
+    # (sees none of rank 2's block) and 16 rows of the high one (sees all).
+    "zigzag_partial": (1, 2, True, 96),
+}
+RING_B, RING_H, RING_HKV = 1, 4, 2   # GQA: 4 q heads over 2 kv heads
+RING_BLOCK = 32                      # the Pallas kernel's q and k blocks
+
+
+def emulate_rf_dkv(qr, kr, vr, dor, lse, delta, qpos, kpos, dk, dv, h, hkv,
+                   by_positions=True):
+    """B6's arithmetic: (dk, dv) + this block's dK, dV, float32 carries.
+    Blocks of 128 k rows walk (g, q tile of 64) over the GQA group; a pair
+    with max(qpos) < min(kpos) is skipped, the rest masked by qpos >= kpos
+    (or, ``by_positions=False``, by index as kFlash masks)."""
+    rows, t, d = qr.shape
+    rkv = kr.shape[0]
+    scale = d ** -0.5
+    group = h // hkv
+    dk, dv = dk.clone(), dv.clone()
+    for k0 in range(0, t, DKV_BLOCK_K):
+        kp = kpos[k0:k0 + DKV_BLOCK_K]
+        ks, vs = kr[:, k0:k0 + DKV_BLOCK_K], vr[:, k0:k0 + DKV_BLOCK_K]
+        dka = torch.zeros(ks.shape)
+        dva = torch.zeros(ks.shape)
+        for g in range(group):
+            rq = [(r // hkv) * h + (r % hkv) * group + g for r in range(rkv)]
+            for q0 in range(0, t, DKV_TILE_Q):
+                qp = qpos[q0:q0 + DKV_TILE_Q]
+                if qp.max() < kp.min():
+                    continue
+                qt, dt = qr[rq, q0:q0 + DKV_TILE_Q], dor[rq, q0:q0 + DKV_TILE_Q]
+                lt, et = lse[rq, q0:q0 + DKV_TILE_Q], delta[rq, q0:q0 + DKV_TILE_Q]
+                pt = torch.exp2(ks @ qt.transpose(1, 2) * (scale * LOG2E)
+                                - (lt * LOG2E)[:, None, :])      # (rkv, k, q)
+                if by_positions:
+                    live = qp[None, :] >= kp[:, None]
+                else:
+                    live = (torch.arange(q0, q0 + len(qp))[None, :]
+                            >= torch.arange(k0, k0 + len(kp))[:, None])
+                pt = torch.where(live, pt, torch.zeros(()))
+                dst = pt * (vs @ dt.transpose(1, 2) - et[:, None, :])
+                dva = dva + _split(pt) @ dt
+                dka = dka + _split(dst) @ qt
+        dk[:, k0:k0 + DKV_BLOCK_K] += dka * scale
+        dv[:, k0:k0 + DKV_BLOCK_K] += dva
+    return dk, dv
+
+
+def _ring_inputs(seed, t, d, my, src, zigzag):
+    rng = np.random.default_rng(seed)
+    r, rkv = RING_B * RING_H, RING_B * RING_HKV
+
+    def normal(*shape):
+        return rng.standard_normal(shape, dtype=np.float32)
+
+    x = {"q": normal(r, t, d), "k": normal(rkv, t, d), "v": normal(rkv, t, d),
+         "do": normal(r, t, d)}
+    x = {n: _bf16(torch.from_numpy(a)).numpy() for n, a in x.items()}   # bf16 values
+    x.update(lse=rng.uniform(1.0, 3.0, (r, t)).astype(np.float32),
+             delta=normal(r, t), dk=normal(rkv, t, d), dv=normal(rkv, t, d),
+             qpos=np.array(jrf._positions(my, t, RING_N, zigzag), np.int32),
+             kpos=np.array(jrf._positions(src, t, RING_N, zigzag), np.int32))
+    return x
+
+
+def _ring_reference(x, t):
+    """The Pallas dK/dV block kernel, interpret mode, float32 arithmetic."""
+    j = {n: jnp.asarray(a) for n, a in x.items()}
+
+    def rows8(a):
+        return jnp.broadcast_to(a[:, None, :], (a.shape[0], 8, a.shape[1]))
+
+    with jax.default_matmul_precision("highest"):
+        dk, dv = jrf._dkv_block_call(
+            j["q"], j["k"], j["v"], j["do"], rows8(j["lse"]), rows8(j["delta"]),
+            jrf._qpos_arr(j["qpos"], t), jrf._kpos_arr(j["kpos"], t), j["dk"],
+            j["dv"], RING_BLOCK, RING_BLOCK, RING_H, RING_HKV,
+            RING_H // RING_HKV, True)
+    return np.asarray(dk), np.asarray(dv)
+
+
+def _ring_emulate(x, by_positions=True):
+    t = {n: torch.from_numpy(a) for n, a in x.items()}
+    dk, dv = emulate_rf_dkv(t["q"], t["k"], t["v"], t["do"], t["lse"], t["delta"],
+                            t["qpos"], t["kpos"], t["dk"], t["dv"], RING_H,
+                            RING_HKV, by_positions)
+    return dk.numpy(), dv.numpy()
+
+
+def _carry_ok(got, ref) -> tuple[bool, float]:
+    """The float32 carries' rule; (holds, err / limit)."""
+    limit = 1e-4 * max(1.0, float(np.abs(ref).max()))
+    worst = float(np.abs(got.astype(np.float64) - ref).max()) / limit
+    return worst <= 1.0, worst
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("step", sorted(RING_STEPS))
+def test_ring_dkv_emulation_within_the_carry_rule(step, d):
+    my, src, zigzag, t = RING_STEPS[step]
+    x = _ring_inputs(sorted(RING_STEPS).index(step) * 10 + d, t, d, my, src, zigzag)
+    want = _ring_reference(x, t)
+    got = _ring_emulate(x)
+    for name, g, w in zip(("dK", "dV"), got, want):
+        assert g.shape == w.shape
+        ok, worst = _carry_ok(g, w)
+        assert ok, f"{step} d={d} {name}: {worst:.3f} of the limit"
+
+
+def test_ring_dkv_masked_by_index_fails_the_rule():
+    """The positions matter: at the zigzag step, masking by index (as the
+    kFlash kernel does) instead of by positions breaks the rule."""
+    my, src, zigzag, t = RING_STEPS["zigzag_partial"]
+    x = _ring_inputs(7, t, 64, my, src, zigzag)
+    want = _ring_reference(x, t)
+    assert all(_carry_ok(g, w)[0] for g, w in zip(_ring_emulate(x), want))
+    bad = _ring_emulate(x, by_positions=False)
+    assert not all(_carry_ok(g, w)[0] for g, w in zip(bad, want))

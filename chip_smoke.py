@@ -10,8 +10,9 @@ prints no result):
 2. build the CUDA kernels from ``horovod_tpu_torch/csrc``; log each
    tensor-core kernel's registers and spill bytes (ptxas) and its count of
    HGMMA (wgmma) and UTMALDG (TMA load) instructions (``cuobjdump``), from
-   both libraries (B1-B3 in ``flash_attention.cu``'s, B6's kRing dK/dV in
-   ``ring_flash.cu``'s), raising if either count is zero or a kernel
+   both libraries (the kFlash variants, B1-B3, in ``flash_attention.cu``'s;
+   the kRing variants, B4-B6, in ``ring_flash.cu``'s: every bf16 kernel
+   runs on the tensor cores), raising if either count is zero or a kernel
    spills; hold each kernel
    against its plain PyTorch version on the card: the slice's shape
    (1, 4096, 8, 128) bf16 causal, the slice's head dim in float32 at
@@ -36,10 +37,13 @@ prints no result):
    of 4 ranks on the card, in lockstep, rotation being list indexing, at
    every step (with the carries the ring has built): the layer of the sp
    path, (1, 4096, 8, 128) bf16 per rank, a GQA shape (8 q heads over 2,
-   D 64, T 1024) and a ragged T = 96 (D 32), each in float32 and in bf16
-   (B6's bf16 tensor-core path), each contiguous and zigzag; then the
-   whole virtual ring (4 x 1024, bf16) against the dense reference on the
-   full sequence, forward and gradients;
+   D 64, T 1024) and a ragged T = 96 (D 32), each in float32 (the FMA
+   kernels) and in bf16 (the tensor-core kernels), each contiguous and
+   zigzag; then, in bf16 at D 32, 64 and 128, a zigzag step from the
+   initial carries in which some q rows see no key of the block: B4 must
+   leave those rows' carries bit for bit (m -1e30, l 0, acc 0) and B5
+   their dQ carry; then the whole virtual ring (4 x 1024, bf16) against
+   the dense reference on the full sequence, forward and gradients;
 7. time each ring kernel at the layer's shape for a diagonal ring step
    (causal half of the pairs live) and a past step (all pairs live);
 8. train the same model through the sequence-parallel path,
@@ -121,36 +125,43 @@ RING_SHAPES = [
     (1, 4096, 8, 8, 128, "bfloat16"),
     (1, 1024, 8, 2, 64, "float32"),
     (2, 96, 4, 2, 32, "float32"),
-    # bf16 B6 runs on the tensor cores: GQA, and a ragged T whose 64-row
-    # q tile straddles the zigzag stripes (48 rows each).
+    # bf16 B4-B6 run on the tensor cores: GQA, and a ragged T whose
+    # 128-row q block (B4, B5) and 64-row q tile (B6) straddle the zigzag
+    # stripes (48 rows each).
     (1, 1024, 8, 2, 64, "bfloat16"),
     (2, 96, 4, 2, 32, "bfloat16"),
 ]
 WHOLE_RING = (1, 1024, 8, 8, 128, "bfloat16")
+# Rank 0 of a zigzag ring of 4 against rank 1's block, T 96 per rank in
+# stripes of 48: rank 0's low stripe (positions 0-47) sees none of rank 1's
+# keys (48-95 and 288-335). (B, T per rank, H, Hkv, my rank, source rank)
+NO_LIVE_KEY = (2, 96, 4, 2, 0, 1)
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-# The tensor-core kernels of csrc/flash_tc.cuh: (template, variant or
-# None, the kernel of the kernels line it runs for, the source whose
-# library holds it). The dK/dV template takes the variant of
-# csrc/flash_kernels.cuh: 0 kFlash (B3), 3 kRing (B6).
+# The tensor-core kernels of csrc/flash_tc.cuh: (template, variant, the
+# kernel of the kernels line it runs for, the source whose library holds
+# it). Each template takes the variant of csrc/flash_kernels.cuh: 0 kFlash
+# (B1-B3), 3 kRing (B4-B6).
 TC_KERNELS = [
-    ("fwd_tc_kernel", None, "flash_fwd", "flash_attention.cu"),
-    ("dq_tc_kernel", None, "flash_bwd_dq", "flash_attention.cu"),
+    ("fwd_tc_kernel", 0, "flash_fwd", "flash_attention.cu"),
+    ("dq_tc_kernel", 0, "flash_bwd_dq", "flash_attention.cu"),
     ("dkv_tc_kernel", 0, "flash_bwd_dkv", "flash_attention.cu"),
+    ("fwd_tc_kernel", 3, "ring_flash_fwd", "ring_flash.cu"),
+    ("dq_tc_kernel", 3, "ring_flash_bwd_dq", "ring_flash.cu"),
     ("dkv_tc_kernel", 3, "ring_flash_bwd_dkv", "ring_flash.cu"),
 ]
-# A mangled instance: the head dim, then the variant where there is one.
+# A mangled instance: the head dim, then the variant.
 TC_NAME = re.compile(r"(" + "|".join(sorted({k[0] for k in TC_KERNELS}))
-                     + r")ILi(\d+)E(?:Li(\d+)E)?E")
+                     + r")ILi(\d+)ELi(\d+)EE")
 
 
-def tc_label(template, d, variant=None) -> str:
+def tc_label(template, d, variant) -> str:
     """An instance's name, from TC_KERNELS or from TC_NAME's groups."""
-    return f"{template}<{d}>" if variant is None else f"{template}<{d}, {variant}>"
+    return f"{template}<{d}, {variant}>"
 
 
 def compiled_report(lib_path: str) -> dict:
@@ -581,6 +592,45 @@ def check_whole_ring(torch, fa, rf, ra, dev, zigzag):
         check(torch, f"ring d{n}", got, leaf.grad, autograd=True)
 
 
+def check_no_live_key(torch, rf, dev, d):
+    """B4 from the initial carries, then B5, at a step in which some q rows
+    see no key of the block (NO_LIVE_KEY), bf16 at head dim ``d``: those
+    rows' carries must come back bit for bit (m -1e30, l 0, acc 0; the dQ
+    carry as it was), the rest within the rules against the plain
+    versions."""
+    b, t, h, hkv, my, src = NO_LIVE_KEY
+    (qr, _, _, dor), (_, kr, vr, _) = ring_rows(
+        torch, dev, (b, t, h, hkv, d, "bfloat16"), seed=d)[:2]
+    qpos = rf.ring_positions(my, t, RING_N, True, dev)
+    kpos = rf.ring_positions(src, t, RING_N, True, dev)
+    dead = ~(qpos[:, None] >= kpos[None, :]).any(dim=1)
+    if not 0 < int(dead.sum()) < t:
+        raise AssertionError(f"expected some rows with no live key, got {int(dead.sum())}")
+    want = list(rf.init_carries(b * h, t, d, dev))
+    got = [c.clone() for c in want]
+    rf.rf_fwd_plain(qr, kr, vr, *want, qpos, kpos, h, hkv)
+    rf.rf_fwd(qr, kr, vr, *got, qpos, kpos, h, hkv)
+    torch.cuda.synchronize()
+    for label, g, w, init in zip(("acc", "m", "l"), got, want, (0.0, rf.NEG_INF, 0.0)):
+        if not bool((g[:, dead] == init).all()):
+            raise AssertionError(f"ring_flash_fwd {label}: rows with no live key moved")
+        # The other rows alone: m's -1e30 would set the limit to 1e26.
+        check(torch, f"ring_flash_fwd {label}", g[:, ~dead], w[:, ~dead], quiet=True)
+    out, lse = rf.finalize(*want, torch.bfloat16)
+    delta = (dor.float() * out.float()).sum(-1)
+    before = torch.randn(b * h, t, d, device=dev)
+    dq_want, dq_got = before.clone(), before.clone()
+    args = (qr, kr, vr, dor, lse, delta, qpos, kpos)
+    rf.rf_dq_plain(*args, dq_want, h, hkv)
+    rf.rf_bwd_dq(*args, dq_got, h, hkv)
+    torch.cuda.synchronize()
+    if not torch.equal(dq_got[:, dead], before[:, dead]):
+        raise AssertionError("ring_flash_bwd_dq: rows with no live key moved")
+    check(torch, "ring_flash_bwd_dq dQ", dq_got, dq_want, quiet=True)
+    log(f"  D {d}: {int(dead.sum())} of {t} rows with no live key kept bit for bit "
+        f"by B4 and B5; the rest within the rules")
+
+
 def ring_flops(name, b, h, d, live_pairs):
     return 2 * d * live_pairs * RING_KERNELS[name][1] * b * h
 
@@ -765,6 +815,10 @@ def main() -> int:
                 for k, e in shape_errs.items():
                     errs[k] = max(errs.get(k, 0.0), e)
             torch.cuda.empty_cache()
+    log(f"  rows with no live key, {NO_LIVE_KEY} (B, T per rank, H, Hkv, my "
+        f"rank, source rank), zigzag, bf16, from the initial carries")
+    for d in (32, 64, 128):
+        check_no_live_key(torch, rf, dev, d)
     for zigzag in (False, True):
         log(f"  the whole virtual ring, {RING_N} x {WHOLE_RING}, "
             f"{'zigzag' if zigzag else 'contiguous'}, against the dense "

@@ -18,47 +18,47 @@
 
 namespace {
 
-template <typename T, int D>
+template <int D>
 int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                int rows, int h, int hkv, int t, int causal, cudaStream_t st) {
-  Args<T> a = make_args<T, D>(h, hkv, t, causal);
-  a.q = (const T*)q;
-  a.k = (const T*)k;
-  a.v = (const T*)v;
-  a.o = (T*)o;
+  Args a = make_args<D>(h, hkv, t, causal);
+  a.q = (const float*)q;
+  a.k = (const float*)k;
+  a.v = (const float*)v;
+  a.o = (float*)o;
   a.lse_out = (float*)lse;
-  return launch<T>(fwd_kernel<T, D, kFlash>, a, rows, fwd_smem<D>(), st);
+  return launch(fwd_kernel<D, kFlash>, a, rows, fwd_smem<D>(), st);
 }
 
-template <typename T, int D>
+template <int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, void* dq, int rows, int h,
               int hkv, int t, int causal, cudaStream_t st) {
-  Args<T> a = make_args<T, D>(h, hkv, t, causal);
-  a.q = (const T*)q;
-  a.k = (const T*)k;
-  a.v = (const T*)v;
-  a.dout = (const T*)dout;
+  Args a = make_args<D>(h, hkv, t, causal);
+  a.q = (const float*)q;
+  a.k = (const float*)k;
+  a.v = (const float*)v;
+  a.dout = (const float*)dout;
   a.lse = (const float*)lse;
   a.delta = (const float*)delta;
-  a.dq = (T*)dq;
-  return launch<T>(dq_kernel<T, D, kFlash>, a, rows, bwd_smem<D>(), st);
+  a.dq = (float*)dq;
+  return launch(dq_kernel<D, kFlash>, a, rows, bwd_smem<D>(), st);
 }
 
-template <typename T, int D>
+template <int D>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dk, void* dv,
                int rows_kv, int h, int hkv, int t, int causal, cudaStream_t st) {
-  Args<T> a = make_args<T, D>(h, hkv, t, causal);
-  a.q = (const T*)q;
-  a.k = (const T*)k;
-  a.v = (const T*)v;
-  a.dout = (const T*)dout;
+  Args a = make_args<D>(h, hkv, t, causal);
+  a.q = (const float*)q;
+  a.k = (const float*)k;
+  a.v = (const float*)v;
+  a.dout = (const float*)dout;
   a.lse = (const float*)lse;
   a.delta = (const float*)delta;
-  a.dk = (T*)dk;
-  a.dv = (T*)dv;
-  return launch<T>(dkv_kernel<T, D, kFlash>, a, rows_kv, bwd_smem<D>(), st);
+  a.dk = (float*)dk;
+  a.dv = (float*)dv;
+  return launch(dkv_kernel<D, kFlash>, a, rows_kv, bwd_smem<D>(), st);
 }
 
 }  // namespace
@@ -77,12 +77,15 @@ int hvd_flash_fwd(const void* q, const void* k, const void* v, void* o,
   if (bad_shape(rows, h, hkv, t)) return kBadArgs;
   cudaStream_t st = (cudaStream_t)stream;
   switch (dtype * 1000 + d) {
-    case 32: return launch_fwd<float, 32>(q, k, v, o, lse, rows, h, hkv, t, causal, st);
-    case 64: return launch_fwd<float, 64>(q, k, v, o, lse, rows, h, hkv, t, causal, st);
-    case 128: return launch_fwd<float, 128>(q, k, v, o, lse, rows, h, hkv, t, causal, st);
-    case 1032: return launch_fwd_tc<32>(q, k, v, o, lse, rows, h, hkv, t, causal, st);
-    case 1064: return launch_fwd_tc<64>(q, k, v, o, lse, rows, h, hkv, t, causal, st);
-    case 1128: return launch_fwd_tc<128>(q, k, v, o, lse, rows, h, hkv, t, causal, st);
+    case 32: return launch_fwd<32>(q, k, v, o, lse, rows, h, hkv, t, causal, st);
+    case 64: return launch_fwd<64>(q, k, v, o, lse, rows, h, hkv, t, causal, st);
+    case 128: return launch_fwd<128>(q, k, v, o, lse, rows, h, hkv, t, causal, st);
+    case 1032: return launch_fwd_tc<32, kFlash>(q, k, v, o, lse, nullptr, nullptr, nullptr,
+                                                 nullptr, nullptr, rows, h, hkv, t, causal, st);
+    case 1064: return launch_fwd_tc<64, kFlash>(q, k, v, o, lse, nullptr, nullptr, nullptr,
+                                                 nullptr, nullptr, rows, h, hkv, t, causal, st);
+    case 1128: return launch_fwd_tc<128, kFlash>(q, k, v, o, lse, nullptr, nullptr, nullptr,
+                                                 nullptr, nullptr, rows, h, hkv, t, causal, st);
     default: return kBadArgs;
   }
 }
@@ -94,12 +97,15 @@ int hvd_flash_bwd_dq(const void* q, const void* k, const void* v,
   if (bad_shape(rows, h, hkv, t)) return kBadArgs;
   cudaStream_t st = (cudaStream_t)stream;
   switch (dtype * 1000 + d) {
-    case 32: return launch_dq<float, 32>(q, k, v, dout, lse, delta, dq, rows, h, hkv, t, causal, st);
-    case 64: return launch_dq<float, 64>(q, k, v, dout, lse, delta, dq, rows, h, hkv, t, causal, st);
-    case 128: return launch_dq<float, 128>(q, k, v, dout, lse, delta, dq, rows, h, hkv, t, causal, st);
-    case 1032: return launch_dq_tc<32>(q, k, v, dout, lse, delta, dq, rows, h, hkv, t, causal, st);
-    case 1064: return launch_dq_tc<64>(q, k, v, dout, lse, delta, dq, rows, h, hkv, t, causal, st);
-    case 1128: return launch_dq_tc<128>(q, k, v, dout, lse, delta, dq, rows, h, hkv, t, causal, st);
+    case 32: return launch_dq<32>(q, k, v, dout, lse, delta, dq, rows, h, hkv, t, causal, st);
+    case 64: return launch_dq<64>(q, k, v, dout, lse, delta, dq, rows, h, hkv, t, causal, st);
+    case 128: return launch_dq<128>(q, k, v, dout, lse, delta, dq, rows, h, hkv, t, causal, st);
+    case 1032: return launch_dq_tc<32, kFlash>(q, k, v, dout, lse, delta, nullptr, nullptr, dq,
+                                                rows, h, hkv, t, causal, st);
+    case 1064: return launch_dq_tc<64, kFlash>(q, k, v, dout, lse, delta, nullptr, nullptr, dq,
+                                                rows, h, hkv, t, causal, st);
+    case 1128: return launch_dq_tc<128, kFlash>(q, k, v, dout, lse, delta, nullptr, nullptr, dq,
+                                                rows, h, hkv, t, causal, st);
     default: return kBadArgs;
   }
 }
@@ -111,11 +117,11 @@ int hvd_flash_bwd_dkv(const void* q, const void* k, const void* v,
   if (bad_kv_shape(rows_kv, h, hkv, t)) return kBadArgs;
   cudaStream_t st = (cudaStream_t)stream;
   switch (dtype * 1000 + d) {
-    case 32: return launch_dkv<float, 32>(q, k, v, dout, lse, delta, dk, dv, rows_kv, h, hkv, t,
+    case 32: return launch_dkv<32>(q, k, v, dout, lse, delta, dk, dv, rows_kv, h, hkv, t,
                           causal, st);
-    case 64: return launch_dkv<float, 64>(q, k, v, dout, lse, delta, dk, dv, rows_kv, h, hkv, t,
+    case 64: return launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, rows_kv, h, hkv, t,
                           causal, st);
-    case 128: return launch_dkv<float, 128>(q, k, v, dout, lse, delta, dk, dv, rows_kv, h, hkv, t,
+    case 128: return launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, rows_kv, h, hkv, t,
                           causal, st);
     case 1032: return launch_dkv_tc<32, kFlash>(q, k, v, dout, lse, delta, nullptr, nullptr,
                                               dk, dv, rows_kv, h, hkv, t, causal, st);

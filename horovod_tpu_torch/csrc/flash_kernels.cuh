@@ -1,7 +1,7 @@
 // Flash attention kernels for Hopper (sm_90a), shared by flash_attention.cu
 // (B1-B3) and ring_flash.cu (B4-B6).
 //
-// Three kernels, each a template over the input type T, the head dim D and
+// Three kernels on float32 inputs, each a template over the head dim D and
 // a variant V made of two compile-time options:
 //
 //   kCarry     - the online-softmax state (acc, m, l) or the gradient
@@ -42,29 +42,24 @@
 // the kv row rk collects q rows (rk / Hkv) * H + (rk % Hkv) * group + g
 // (_kv_row and _q_row of the JAX package).
 //
-// Arithmetic: float32 throughout, whatever the input type (float32 or
-// bfloat16); masked logits are -1e30 and their probabilities exactly 0;
-// scale D^-0.5. Finished outputs are written in the input type, carries in
+// Arithmetic: float32 throughout; masked logits are -1e30 and their
+// probabilities exactly 0; scale D^-0.5. Finished outputs and carries are
 // float32.
 //
-// Which inputs come here: every float32 launch, and the ring forward and
-// dQ (B4, B5) in both types. The bf16 forward, dQ and dK/dV of kFlash (B1-
-// B3) and the bf16 ring dK/dV (B6) run on the tensor cores instead
+// Which inputs come here: every float32 launch, and only those. Every
+// bf16 kernel, of both variants (B1-B6), runs on the tensor cores instead
 // (flash_tc.cuh: TMA tiles, wgmma; the .cu files dispatch on the dtype).
-// Float32 stays here:
-// Hopper's tensor cores have no float32 product, and TF32 keeps 10
-// mantissa bits, which would break the 1e-4 float32 checks that the JAX
-// kernels' float32 arithmetic sets.
+// Float32 stays here: Hopper's tensor cores have no float32 product, and
+// TF32 keeps 10 mantissa bits, which would break the 1e-4 float32 checks
+// that the JAX kernels' float32 arithmetic sets.
 //
 // What bounds these kernels: at the training shape (T = 4096, D = 128)
-// attention does ~T/2 multiply-adds per byte it must move, far above the
-// card's ~295 bf16 operations per byte, so the work is compute-bound and
-// the bound is the tensor cores' 989 TFLOP/s. These kernels compute on the
-// float32 CUDA cores with FMA from shared-memory tiles (register tiles of
-// 4 x 4 logits and 4 x D/16 outputs per thread, bf16 widened to float32
-// with a row stride of D + 1), so they reach 1.5-2.5% of that bound; B4
-// and B5 move onto wgmma next, on hopper.cuh's building blocks. What the
-// design does keep from the TPU kernels is what matters
+// attention does ~T/2 multiply-adds per byte it must move, so the work is
+// compute-bound, and in float32 the bound is the CUDA cores' 67 TFLOP/s.
+// These kernels compute with FMA from shared-memory tiles (register tiles
+// of 4 x 4 logits and 4 x D/16 outputs per thread, a row stride of D + 1
+// against bank conflicts). What the design does keep from the TPU kernels
+// is what matters
 // for memory: the (T, T) logits never reach device memory, each block
 // streams K/V (or Q/dO) tiles through shared memory, and masked tiles are
 // skipped, with the heaviest causal tiles scheduled first.
@@ -72,7 +67,6 @@
 #pragma once
 
 #include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <limits.h>
 #include <math.h>
 #include <stdint.h>
@@ -92,26 +86,15 @@ constexpr int kRing = kCarry | kPositions;
 
 static_assert(kTile == 64, "tile_extreme covers a tile with two rows per lane");
 
-template <typename T> __device__ __forceinline__ float to_f32(T x);
-template <> __device__ __forceinline__ float to_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as torch's cast
-}
-
 // Copy rows [row0, row0 + kTile) of a (t, D) matrix into shared memory as
 // float32 with row stride D + 1 (no bank conflicts on column walks),
 // multiplied by `mul`; rows past t read as 0.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int row0,
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, const float* src, int row0,
                                           int t, float mul) {
   for (int i = threadIdx.x; i < kTile * D; i += kThreads) {
     const int r = i / D, c = i % D, gr = row0 + r;
-    dst[r * (D + 1) + c] = gr < t ? to_f32(src[(size_t)gr * D + c]) * mul : 0.f;
+    dst[r * (D + 1) + c] = gr < t ? src[(size_t)gr * D + c] * mul : 0.f;
   }
 }
 
@@ -164,19 +147,18 @@ __device__ __forceinline__ float row_sum(float x) {
 }
 
 // Everything a kernel may read or write; each variant uses its own subset.
-template <typename T>
 struct Args {
-  const T* q;
-  const T* k;
-  const T* v;
-  const T* dout;
+  const float* q;
+  const float* k;
+  const float* v;
+  const float* dout;
   const float* lse;
   const float* delta;
-  T* o;              // kFlash outputs, in the input type
+  float* o;          // kFlash outputs
   float* lse_out;
-  T* dq;
-  T* dk;
-  T* dv;
+  float* dq;
+  float* dk;
+  float* dv;
   float* acc;        // kCarry: forward (acc, m, l), updated in place
   float* m;
   float* l;
@@ -192,8 +174,8 @@ struct Args {
 // ------------------------------------------------------------------ forward
 // Grid (q tiles, B*H). Thread (ty, tx) owns q rows ty*4 + i of the tile, the
 // logits at k columns tx + 16*j, and the outputs at d columns tx + 16*c.
-template <typename T, int D, int V>
-__global__ void __launch_bounds__(kThreads) fwd_kernel(Args<T> a) {
+template <int D, int V>
+__global__ void __launch_bounds__(kThreads) fwd_kernel(Args a) {
   constexpr bool CARRY = V & kCarry, POSITIONS = V & kPositions;
   constexpr int S = D + 1, P = kTile + 1, CJ = D / 16;
   extern __shared__ float smem[];
@@ -209,10 +191,10 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(Args<T> a) {
   const int rkv = (r / a.h) * a.hkv + (r % a.h) / (a.h / a.hkv);
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   const int q0 = qi * kTile;
-  const T* kr = a.k + (size_t)rkv * t * D;
-  const T* vr = a.v + (size_t)rkv * t * D;
+  const float* kr = a.k + (size_t)rkv * t * D;
+  const float* vr = a.v + (size_t)rkv * t * D;
 
-  load_tile<T, D>(qs, a.q + (size_t)r * t * D, q0, t, a.scale);  // q * scale, as _fwd_kernel
+  load_tile<D>(qs, a.q + (size_t)r * t * D, q0, t, a.scale);  // q * scale, as _fwd_kernel
   int qmax = 0, qpos[4] = {}, kpos[4] = {};  // kPositions only
   if constexpr (POSITIONS) {
     qmax = tile_extreme<true>(a.qpos, q0, t);
@@ -247,8 +229,8 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(Args<T> a) {
       for (int j = 0; j < 4; ++j) kpos[j] = position<false>(a.kpos, k0 + tx + 16 * j, t);
     }
     __syncthreads();
-    load_tile<T, D>(ks, kr, k0, t, 1.f);
-    load_tile<T, D>(vs, vr, k0, t, 1.f);
+    load_tile<D>(ks, kr, k0, t, 1.f);
+    load_tile<D>(vs, vr, k0, t, 1.f);
     __syncthreads();
     float s[4][4];
 #pragma unroll
@@ -324,7 +306,7 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(Args<T> a) {
         }
       } else {
 #pragma unroll
-        for (int c = 0; c < CJ; ++c) a.o[row * D + tx + 16 * c] = from_f32<T>(acc[i][c] / l[i]);
+        for (int c = 0; c < CJ; ++c) a.o[row * D + tx + 16 * c] = acc[i][c] / l[i];
         if (tx == 0) a.lse_out[row] = m[i] + logf(l[i]);
       }
     }
@@ -335,8 +317,8 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(Args<T> a) {
 // Grid (q tiles, B*H), the thread map of the forward. Per k tile:
 // p = exp(s - L), ds = p * (dO.V^T - delta), dQ += ds.K; dQ *= scale at the
 // end (and, with kCarry, is added to the carry).
-template <typename T, int D, int V>
-__global__ void __launch_bounds__(kThreads) dq_kernel(Args<T> a) {
+template <int D, int V>
+__global__ void __launch_bounds__(kThreads) dq_kernel(Args a) {
   constexpr bool CARRY = V & kCarry, POSITIONS = V & kPositions;
   constexpr int S = D + 1, P = kTile + 1, CJ = D / 16;
   extern __shared__ float smem[];
@@ -356,11 +338,11 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(Args<T> a) {
   const int rkv = (r / a.h) * a.hkv + (r % a.h) / (a.h / a.hkv);
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   const int q0 = qi * kTile;
-  const T* kr = a.k + (size_t)rkv * t * D;
-  const T* vr = a.v + (size_t)rkv * t * D;
+  const float* kr = a.k + (size_t)rkv * t * D;
+  const float* vr = a.v + (size_t)rkv * t * D;
 
-  load_tile<T, D>(qs, a.q + (size_t)r * t * D, q0, t, 1.f);
-  load_tile<T, D>(dos, a.dout + (size_t)r * t * D, q0, t, 1.f);
+  load_tile<D>(qs, a.q + (size_t)r * t * D, q0, t, 1.f);
+  load_tile<D>(dos, a.dout + (size_t)r * t * D, q0, t, 1.f);
   load_vec(ls, a.lse + (size_t)r * t, q0, t);
   load_vec(dl, a.delta + (size_t)r * t, q0, t);
   int qmax = 0, qpos[4] = {}, kpos[4] = {};  // kPositions only
@@ -383,8 +365,8 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(Args<T> a) {
       for (int j = 0; j < 4; ++j) kpos[j] = position<false>(a.kpos, k0 + tx + 16 * j, t);
     }
     __syncthreads();
-    load_tile<T, D>(ks, kr, k0, t, 1.f);
-    load_tile<T, D>(vs, vr, k0, t, 1.f);
+    load_tile<D>(ks, kr, k0, t, 1.f);
+    load_tile<D>(vs, vr, k0, t, 1.f);
     __syncthreads();
     float s[4][4], dp[4][4];
 #pragma unroll
@@ -447,7 +429,7 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(Args<T> a) {
 #pragma unroll
       for (int c = 0; c < CJ; ++c) {
         if constexpr (CARRY) a.dq_c[row + tx + 16 * c] += acc[i][c] * scale;
-        else a.dq[row + tx + 16 * c] = from_f32<T>(acc[i][c] * scale);
+        else a.dq[row + tx + 16 * c] = acc[i][c] * scale;
       }
     }
   }
@@ -460,8 +442,8 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(Args<T> a) {
 // q columns tx + 16*j: pT = exp(s^T * scale - L), dsT = pT * (V.dO^T - delta);
 // dV += pT.dO, dK += dsT.Q; dK *= scale at the end (and, with kCarry, both
 // are added to their carries).
-template <typename T, int D, int V>
-__global__ void __launch_bounds__(kThreads) dkv_kernel(Args<T> a) {
+template <int D, int V>
+__global__ void __launch_bounds__(kThreads) dkv_kernel(Args a) {
   constexpr bool CARRY = V & kCarry, POSITIONS = V & kPositions;
   constexpr int S = D + 1, P = kTile + 1, CJ = D / 16;
   extern __shared__ float smem[];
@@ -482,8 +464,8 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(Args<T> a) {
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   const int k0 = ki * kTile;
 
-  load_tile<T, D>(ks, a.k + (size_t)rk * t * D, k0, t, 1.f);
-  load_tile<T, D>(vs, a.v + (size_t)rk * t * D, k0, t, 1.f);
+  load_tile<D>(ks, a.k + (size_t)rk * t * D, k0, t, 1.f);
+  load_tile<D>(vs, a.v + (size_t)rk * t * D, k0, t, 1.f);
   int kmin = 0, kpos[4] = {}, qpos[4] = {};  // kPositions only
   if constexpr (POSITIONS) {
     kmin = tile_extreme<false>(a.kpos, k0, t);
@@ -499,8 +481,8 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(Args<T> a) {
   const int qstart = a.causal && !POSITIONS ? k0 / kTile : 0;
   for (int g = 0; g < group; ++g) {
     const int rq = (rk / hkv) * h + (rk % hkv) * group + g;
-    const T* qr = a.q + (size_t)rq * t * D;
-    const T* dr = a.dout + (size_t)rq * t * D;
+    const float* qr = a.q + (size_t)rq * t * D;
+    const float* dr = a.dout + (size_t)rq * t * D;
     for (int qi = qstart; qi < nt; ++qi) {
       const int q0 = qi * kTile;
       if constexpr (POSITIONS) {
@@ -509,8 +491,8 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(Args<T> a) {
         for (int j = 0; j < 4; ++j) qpos[j] = position<true>(a.qpos, q0 + tx + 16 * j, t);
       }
       __syncthreads();
-      load_tile<T, D>(qs, qr, q0, t, 1.f);
-      load_tile<T, D>(dos, dr, q0, t, 1.f);
+      load_tile<D>(qs, qr, q0, t, 1.f);
+      load_tile<D>(dos, dr, q0, t, 1.f);
       load_vec(ls, a.lse + (size_t)rq * t, q0, t);
       load_vec(dl, a.delta + (size_t)rq * t, q0, t);
       __syncthreads();
@@ -600,8 +582,8 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(Args<T> a) {
           a.dk_c[at] += dka[i][c] * scale;
           a.dv_c[at] += dva[i][c];
         } else {
-          a.dk[at] = from_f32<T>(dka[i][c] * scale);
-          a.dv[at] = from_f32<T>(dva[i][c]);
+          a.dk[at] = dka[i][c] * scale;
+          a.dv[at] = dva[i][c];
         }
       }
     }
@@ -623,9 +605,9 @@ inline bool bad_kv_shape(int rows_kv, int h, int hkv, int t) {
   return rows_kv <= 0 || h <= 0 || hkv <= 0 || h % hkv || rows_kv % hkv || t <= 0;
 }
 
-template <typename T, int D>
-Args<T> make_args(int h, int hkv, int t, int causal) {
-  Args<T> a = {};
+template <int D>
+Args make_args(int h, int hkv, int t, int causal) {
+  Args a = {};
   a.h = h;
   a.hkv = hkv;
   a.t = t;
@@ -635,8 +617,7 @@ Args<T> make_args(int h, int hkv, int t, int causal) {
 }
 
 // Launch `kernel` on a grid of (tiles of t, rows) with `smem` bytes.
-template <typename T>
-int launch(void (*kernel)(Args<T>), const Args<T>& a, int rows, size_t smem,
+inline int launch(void (*kernel)(Args), const Args& a, int rows, size_t smem,
            cudaStream_t st) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -647,16 +628,3 @@ int launch(void (*kernel)(Args<T>), const Args<T>& a, int rows, size_t smem,
 }
 
 }  // namespace
-
-// Dispatch on (dtype, head dim): dtype 0 is float32, 1 is bfloat16. FN is a
-// function template <typename T, int D>.
-#define HVD_DISPATCH(FN, ...)                                              \
-  switch (dtype * 1000 + d) {                                             \
-    case 32: return FN<float, 32>(__VA_ARGS__);                           \
-    case 64: return FN<float, 64>(__VA_ARGS__);                           \
-    case 128: return FN<float, 128>(__VA_ARGS__);                         \
-    case 1032: return FN<__nv_bfloat16, 32>(__VA_ARGS__);                 \
-    case 1064: return FN<__nv_bfloat16, 64>(__VA_ARGS__);                 \
-    case 1128: return FN<__nv_bfloat16, 128>(__VA_ARGS__);                \
-    default: return kBadArgs;                                             \
-  }

@@ -8,7 +8,7 @@
 //   hvd_ring_flash_dkv <- _rf_dkv_kernel (dK, dV carries += this block's
 //                         share, over every q tile of the GQA group)
 //
-// The kernels are the kRing variant of flash_kernels.cuh: float32 carries
+// The kernels are the kRing variant of the flash kernels: float32 carries
 // read and written back in place (one block per carry tile, no atomics),
 // and causal masking by the global positions qpos[i] >= kpos[j], so one
 // kernel serves the contiguous and the zigzag layouts. Every tile pair is
@@ -16,9 +16,9 @@
 // with every pair masked is skipped by the caller before any launch. The
 // headers describe the layout, the arithmetic and what bounds them.
 //
-// hvd_ring_flash_dkv in bfloat16 runs the kRing variant of flash_tc.cuh's
-// tensor-core dK/dV kernel (TMA, wgmma); float32, and the forward and dQ
-// in either type, run flash_kernels.cuh's float32 FMA kernels.
+// In bfloat16 all three run the kRing variants of flash_tc.cuh's
+// tensor-core kernels (TMA, wgmma); in float32 they run flash_kernels.cuh's
+// float32 FMA kernels. Neither falls back to the other.
 //
 // Positions are one int32 vector (t,) each for q and k; m and l are
 // (B*H, t) float32 (the TPU's (B*H, 8, t), (8, t) and (t, 128) replicated
@@ -29,57 +29,57 @@
 
 namespace {
 
-template <typename T, int D>
+template <int D>
 int ring_fwd(const void* q, const void* k, const void* v, void* acc, void* m,
              void* l, const void* qpos, const void* kpos, int rows, int h,
              int hkv, int t, cudaStream_t st) {
-  Args<T> a = make_args<T, D>(h, hkv, t, 1);
-  a.q = (const T*)q;
-  a.k = (const T*)k;
-  a.v = (const T*)v;
+  Args a = make_args<D>(h, hkv, t, 1);
+  a.q = (const float*)q;
+  a.k = (const float*)k;
+  a.v = (const float*)v;
   a.acc = (float*)acc;
   a.m = (float*)m;
   a.l = (float*)l;
   a.qpos = (const int*)qpos;
   a.kpos = (const int*)kpos;
-  return launch<T>(fwd_kernel<T, D, kRing>, a, rows, fwd_smem<D>(), st);
+  return launch(fwd_kernel<D, kRing>, a, rows, fwd_smem<D>(), st);
 }
 
-template <typename T, int D>
+template <int D>
 int ring_dq(const void* q, const void* k, const void* v, const void* dout,
             const void* lse, const void* delta, const void* qpos,
             const void* kpos, void* dq, int rows, int h, int hkv, int t,
             cudaStream_t st) {
-  Args<T> a = make_args<T, D>(h, hkv, t, 1);
-  a.q = (const T*)q;
-  a.k = (const T*)k;
-  a.v = (const T*)v;
-  a.dout = (const T*)dout;
+  Args a = make_args<D>(h, hkv, t, 1);
+  a.q = (const float*)q;
+  a.k = (const float*)k;
+  a.v = (const float*)v;
+  a.dout = (const float*)dout;
   a.lse = (const float*)lse;
   a.delta = (const float*)delta;
   a.qpos = (const int*)qpos;
   a.kpos = (const int*)kpos;
   a.dq_c = (float*)dq;
-  return launch<T>(dq_kernel<T, D, kRing>, a, rows, bwd_smem<D>(), st);
+  return launch(dq_kernel<D, kRing>, a, rows, bwd_smem<D>(), st);
 }
 
-template <typename T, int D>
+template <int D>
 int ring_dkv(const void* q, const void* k, const void* v, const void* dout,
              const void* lse, const void* delta, const void* qpos,
              const void* kpos, void* dk, void* dv, int rows_kv, int h, int hkv,
              int t, cudaStream_t st) {
-  Args<T> a = make_args<T, D>(h, hkv, t, 1);
-  a.q = (const T*)q;
-  a.k = (const T*)k;
-  a.v = (const T*)v;
-  a.dout = (const T*)dout;
+  Args a = make_args<D>(h, hkv, t, 1);
+  a.q = (const float*)q;
+  a.k = (const float*)k;
+  a.v = (const float*)v;
+  a.dout = (const float*)dout;
   a.lse = (const float*)lse;
   a.delta = (const float*)delta;
   a.qpos = (const int*)qpos;
   a.kpos = (const int*)kpos;
   a.dk_c = (float*)dk;
   a.dv_c = (float*)dv;
-  return launch<T>(dkv_kernel<T, D, kRing>, a, rows_kv, bwd_smem<D>(), st);
+  return launch(dkv_kernel<D, kRing>, a, rows_kv, bwd_smem<D>(), st);
 }
 
 }  // namespace
@@ -88,18 +88,31 @@ extern "C" {
 
 // Each entry launches one kernel on `stream` (of the calling thread's
 // current device) and returns cudaGetLastError() (0 on success), 1000 for
-// arguments no kernel takes, or 1001 when a tensor map of the bf16 dK/dV
-// kernel does not encode. Carries (acc, m, l, dq, dk, dv) are float32 and
-// updated in place; qpos and kpos are int32 (t,). The bf16 dK/dV kernel
-// reads lse and delta with rows t rounded up to 4 apart (the wrapper pads
-// them) and needs 16-byte aligned q, k, v, dout, lse, delta and qpos.
+// arguments no kernel takes, or 1001 when a tensor map of a bf16 kernel
+// does not encode. Carries (acc, m, l, dq, dk, dv) are float32 and
+// updated in place; qpos and kpos are int32 (t,). The bf16 kernels load
+// their tiles and the positions of the tile in the ring by TMA: they need
+// 16-byte aligned q, k, v and dout, kpos (forward, dQ), and lse, delta and
+// qpos (dK/dV, which reads lse and delta with rows t rounded up to 4
+// apart; the wrapper pads them).
 int hvd_ring_flash_fwd(const void* q, const void* k, const void* v, void* acc,
                        void* m, void* l, const void* qpos, const void* kpos,
                        int rows, int h, int hkv, int t, int d, int dtype,
                        void* stream) {
   if (bad_shape(rows, h, hkv, t)) return kBadArgs;
   cudaStream_t st = (cudaStream_t)stream;
-  HVD_DISPATCH(ring_fwd, q, k, v, acc, m, l, qpos, kpos, rows, h, hkv, t, st)
+  switch (dtype * 1000 + d) {
+    case 32: return ring_fwd<32>(q, k, v, acc, m, l, qpos, kpos, rows, h, hkv, t, st);
+    case 64: return ring_fwd<64>(q, k, v, acc, m, l, qpos, kpos, rows, h, hkv, t, st);
+    case 128: return ring_fwd<128>(q, k, v, acc, m, l, qpos, kpos, rows, h, hkv, t, st);
+    case 1032: return launch_fwd_tc<32, kRing>(q, k, v, nullptr, nullptr, acc, m, l, qpos, kpos,
+                                               rows, h, hkv, t, 1, st);
+    case 1064: return launch_fwd_tc<64, kRing>(q, k, v, nullptr, nullptr, acc, m, l, qpos, kpos,
+                                               rows, h, hkv, t, 1, st);
+    case 1128: return launch_fwd_tc<128, kRing>(q, k, v, nullptr, nullptr, acc, m, l, qpos, kpos,
+                                                rows, h, hkv, t, 1, st);
+    default: return kBadArgs;
+  }
 }
 
 int hvd_ring_flash_dq(const void* q, const void* k, const void* v,
@@ -108,8 +121,21 @@ int hvd_ring_flash_dq(const void* q, const void* k, const void* v,
                       int h, int hkv, int t, int d, int dtype, void* stream) {
   if (bad_shape(rows, h, hkv, t)) return kBadArgs;
   cudaStream_t st = (cudaStream_t)stream;
-  HVD_DISPATCH(ring_dq, q, k, v, dout, lse, delta, qpos, kpos, dq, rows, h,
-               hkv, t, st)
+  switch (dtype * 1000 + d) {
+    case 32: return ring_dq<32>(q, k, v, dout, lse, delta, qpos, kpos, dq, rows, h, hkv,
+                                       t, st);
+    case 64: return ring_dq<64>(q, k, v, dout, lse, delta, qpos, kpos, dq, rows, h, hkv,
+                                       t, st);
+    case 128: return ring_dq<128>(q, k, v, dout, lse, delta, qpos, kpos, dq, rows, h, hkv,
+                                         t, st);
+    case 1032: return launch_dq_tc<32, kRing>(q, k, v, dout, lse, delta, qpos, kpos, dq, rows, h,
+                                              hkv, t, 1, st);
+    case 1064: return launch_dq_tc<64, kRing>(q, k, v, dout, lse, delta, qpos, kpos, dq, rows, h,
+                                              hkv, t, 1, st);
+    case 1128: return launch_dq_tc<128, kRing>(q, k, v, dout, lse, delta, qpos, kpos, dq, rows, h,
+                                               hkv, t, 1, st);
+    default: return kBadArgs;
+  }
 }
 
 int hvd_ring_flash_dkv(const void* q, const void* k, const void* v,
@@ -120,11 +146,11 @@ int hvd_ring_flash_dkv(const void* q, const void* k, const void* v,
   if (bad_kv_shape(rows_kv, h, hkv, t)) return kBadArgs;
   cudaStream_t st = (cudaStream_t)stream;
   switch (dtype * 1000 + d) {
-    case 32: return ring_dkv<float, 32>(q, k, v, dout, lse, delta, qpos, kpos, dk, dv, rows_kv,
+    case 32: return ring_dkv<32>(q, k, v, dout, lse, delta, qpos, kpos, dk, dv, rows_kv,
                                         h, hkv, t, st);
-    case 64: return ring_dkv<float, 64>(q, k, v, dout, lse, delta, qpos, kpos, dk, dv, rows_kv,
+    case 64: return ring_dkv<64>(q, k, v, dout, lse, delta, qpos, kpos, dk, dv, rows_kv,
                                         h, hkv, t, st);
-    case 128: return ring_dkv<float, 128>(q, k, v, dout, lse, delta, qpos, kpos, dk, dv, rows_kv,
+    case 128: return ring_dkv<128>(q, k, v, dout, lse, delta, qpos, kpos, dk, dv, rows_kv,
                                           h, hkv, t, st);
     case 1032: return launch_dkv_tc<32, kRing>(q, k, v, dout, lse, delta, qpos, kpos, dk, dv,
                                                rows_kv, h, hkv, t, 1, st);

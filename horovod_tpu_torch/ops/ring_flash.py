@@ -19,9 +19,10 @@ each ring step calls one kernel per pass:
 Carries are updated in place, by the kernel on a CUDA tensor
 (``csrc/ring_flash.cu``, counted in ``launches``) and by its plain version,
 the same arithmetic densely in float32, on a CPU tensor. In bfloat16 the
-dK/dV kernel runs on the tensor cores (``csrc/flash_tc.cuh``: TMA loads,
-wgmma) and needs 16-byte aligned inputs, q positions included. There is no
-other fallback: a CUDA tensor the kernel does not take raises.
+three kernels run on the tensor cores (``csrc/flash_tc.cuh``: TMA loads,
+wgmma) and need 16-byte aligned inputs, the positions they load by TMA
+included (k positions for the forward and dQ, q positions for dK/dV).
+There is no other fallback: a CUDA tensor the kernel does not take raises.
 
 The schedule is the JAX package's step for step: carries start as zeros,
 -1e30 and zeros; at step s a rank holds the block of rank (my - s) % n and
@@ -163,6 +164,7 @@ def rf_fwd(qr, kr, vr, acc, m, l, qpos, kpos, h: int, hkv: int):
     if not qr.is_cuda:
         return rf_fwd_plain(qr, kr, vr, acc, m, l, qpos, kpos, h, hkv)
     code = _check_cuda(h, hkv, (qr, kr, vr), (), (acc, m, l), qpos, kpos)
+    fa._check_tma(qr, kr, vr, kpos)
     rows, t, d = qr.shape
     ptrs = [fa._ptr(x) for x in (qr, kr, vr, acc, m, l, qpos, kpos)]
     fa._launch(_library().hvd_ring_flash_fwd, "ring_flash_fwd", qr.device,
@@ -175,6 +177,7 @@ def rf_bwd_dq(qr, kr, vr, dor, lse, delta, qpos, kpos, dq, h: int, hkv: int):
     if not qr.is_cuda:
         return rf_dq_plain(qr, kr, vr, dor, lse, delta, qpos, kpos, dq, h, hkv)
     code = _check_cuda(h, hkv, (qr, kr, vr, dor), (lse, delta), (dq,), qpos, kpos)
+    fa._check_tma(qr, kr, vr, dor, kpos)
     rows, t, d = qr.shape
     ptrs = [fa._ptr(x) for x in (qr, kr, vr, dor, lse, delta, qpos, kpos, dq)]
     fa._launch(_library().hvd_ring_flash_dq, "ring_flash_bwd_dq", qr.device,

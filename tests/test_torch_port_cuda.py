@@ -130,7 +130,9 @@ def test_bf16_tensor_core_kernels_gqa(cuda, d):
 
 def test_bf16_tensor_core_kernels_reject_unaligned_inputs(cuda):
     """TMA needs 16-byte aligned bases: a bf16 tensor whose storage
-    offset breaks that raises, and nothing launches (B1, B2, B3 and B6)."""
+    offset breaks that raises, and nothing launches (B1-B6; B4 and B5 also
+    for k positions, which they load by TMA). No FMA kernel and no plain
+    version runs in its place."""
     b, t, h, d = 1, 64, 1, 64
     flat = torch.randn(b * t * h * d + 1, device=cuda).to(torch.bfloat16)
     q = flat[1:].view(b, t, h, d)
@@ -153,7 +155,21 @@ def test_bf16_tensor_core_kernels_reject_unaligned_inputs(cuda):
     with pytest.raises(ValueError, match="16-byte"):
         rf.rf_bwd_dkv(fa._rows(q), fa._rows(k), fa._rows(k), fa._rows(k), lse, lse,
                       pos, pos, carry, carry.clone(), h, h)
-    assert rf.launches["ring_flash_bwd_dkv"] == 0
+    acc, m, l = rf.init_carries(b * h, t, d, cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        rf.rf_fwd(fa._rows(q), fa._rows(k), fa._rows(k), acc, m, l, pos, pos, h, h)
+    with pytest.raises(ValueError, match="16-byte"):
+        rf.rf_bwd_dq(fa._rows(q), fa._rows(k), fa._rows(k), fa._rows(k), lse, lse,
+                     pos, pos, carry, h, h)
+    kr = fa._rows(k)
+    flat_pos = torch.zeros(t + 1, dtype=torch.int32, device=cuda)
+    kpos = flat_pos[1:]
+    assert kpos.is_contiguous() and kpos.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte"):
+        rf.rf_fwd(kr, kr, kr, acc, m, l, pos, kpos, h, h)
+    with pytest.raises(ValueError, match="16-byte"):
+        rf.rf_bwd_dq(kr, kr, kr, kr, lse, lse, pos, kpos, carry, h, h)
+    assert sum(rf.launches.values()) == 0
 
 
 def test_autograd_counts_launches(cuda):
@@ -238,10 +254,12 @@ def test_ring_step_with_every_tile_skipped_keeps_the_carries(cuda):
 
 @pytest.mark.parametrize("d", [32, 64, 128])
 def test_bf16_dq_and_ring_dkv_at_t_not_a_multiple_of_4(cuda, d):
-    """B2 and B6 on the tensor cores at T = 90: their TMA tiles zero-fill
-    past T, and rf_bwd_dkv pads L and delta to rows of 92 values for their
-    TMA loads. Then a zigzag partial step at T = 96, where a 64-row q tile
-    straddles the two 48-row stripes of the rank, with GQA."""
+    """B2 and B4-B6 on the tensor cores at T = 90: their TMA tiles
+    zero-fill past T (k positions too, which B4 and B5 load by TMA), and
+    rf_bwd_dkv pads L and delta to rows of 92 values for their TMA loads.
+    Then a zigzag partial step at T = 96, where B4's and B5's 128-row q
+    block and B6's 64-row q tile straddle the two 48-row stripes of the
+    rank, with GQA."""
     _check(cuda, 2, 90, 4, 2, d, True, torch.bfloat16, seed=d)
     _check(cuda, 1, 90, 4, 2, d, False, torch.bfloat16, seed=d + 1)
     _ring_check(cuda, 1, 90, 4, 2, d, torch.bfloat16, my=2, src=2, zigzag=True, seed=d)
@@ -250,13 +268,77 @@ def test_bf16_dq_and_ring_dkv_at_t_not_a_multiple_of_4(cuda, d):
 
 
 def test_bf16_ring_dkv_with_every_tile_skipped_keeps_the_carries(cuda):
-    """B6 on the tensor cores at a fully masked step: its producer and
-    consumers skip every tile pair alike (no load, no wait), the launch
-    ends, and no carry moves."""
+    """B4, B5 and B6 on the tensor cores at a fully masked step: their
+    producers and consumers skip every tile alike (no load, no wait, no
+    turn in B4), each launch ends, and no carry moves."""
     before, got = _ring_check(cuda, 1, 160, 4, 2, 64, torch.bfloat16, my=0,
                               src=3, zigzag=False)
     for name in before:
         assert torch.equal(got[name], before[name]), name
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_bf16_ring_fwd_rows_with_no_live_key_keep_the_initial_carries(cuda, d):
+    """B4 from the initial carries at a zigzag step (rank 0 of 4 against
+    rank 1's block, T 96 in stripes of 48): rank 0's low stripe sees none
+    of the block's keys, so those rows come back bit for bit, m -1e30, l 0
+    and acc 0, while the high stripe's rows see every key. Then B5 on the
+    finalized carries leaves those rows' dQ carry as it was."""
+    b, t, h, hkv = 2, 96, 4, 2
+    gen = torch.Generator(device=cuda).manual_seed(d)
+
+    def rand(*shape, dt=torch.bfloat16):
+        return torch.randn(*shape, generator=gen, device=cuda).to(dt)
+
+    qr, kr, vr, dor = rand(b * h, t, d), rand(b * hkv, t, d), rand(b * hkv, t, d), rand(b * h, t, d)
+    qpos = rf.ring_positions(0, t, 4, True, cuda)
+    kpos = rf.ring_positions(1, t, 4, True, cuda)
+    dead = ~(qpos[:, None] >= kpos[None, :]).any(dim=1)
+    assert int(dead.sum()) == 48
+    want = list(rf.init_carries(b * h, t, d, cuda))
+    got = [c.clone() for c in want]
+    rf.rf_fwd_plain(qr, kr, vr, *want, qpos, kpos, h, hkv)
+    rf.rf_fwd(qr, kr, vr, *got, qpos, kpos, h, hkv)
+    torch.cuda.synchronize()
+    acc, m, l = got
+    assert bool((acc[:, dead] == 0).all())
+    assert bool((m[:, dead] == rf.NEG_INF).all())
+    assert bool((l[:, dead] == 0).all())
+    for name, g, w in zip(("acc", "m", "l"), got, want):   # m's -1e30 aside
+        _assert_close(name, g[:, ~dead], w[:, ~dead])
+    out, lse = rf.finalize(*want, torch.bfloat16)
+    delta = (dor.float() * out.float()).sum(-1)
+    before = rand(b * h, t, d, dt=torch.float32)
+    dq_got, dq_want = before.clone(), before.clone()
+    args = (qr, kr, vr, dor, lse, delta, qpos, kpos)
+    rf.rf_bwd_dq(*args, dq_got, h, hkv)
+    rf.rf_dq_plain(*args, dq_want, h, hkv)
+    torch.cuda.synchronize()
+    assert torch.equal(dq_got[:, dead], before[:, dead])
+    _assert_close("dq", dq_got, dq_want)
+
+
+def test_bf16_ring_kernels_are_the_tensor_core_instances(cuda):
+    """The ring library's bf16 entries reach the tensor-core kernels: its
+    build log compiles fwd_tc_kernel, dq_tc_kernel and dkv_tc_kernel of
+    variant 3 (kRing) at every head dim, and no FMA kernel in bf16 (the
+    FMA templates are instantiated for float32 alone), so a bf16 ring
+    launch has nowhere else to go."""
+    import re
+
+    from horovod_tpu_torch.ops import _build
+
+    with open(_build.build("ring_flash.cu") + ".log") as f:
+        entries = re.findall(r"Compiling entry function '(\S+)'", f.read())
+    for template in ("fwd_tc_kernel", "dq_tc_kernel", "dkv_tc_kernel"):
+        for d in (32, 64, 128):
+            assert any(f"{template}ILi{d}ELi3EE" in e for e in entries), (template, d)
+    fma = [e for e in entries if re.search(r"(fwd|dq|dkv)_kernelI", e)]
+    assert fma and not any("bfloat16" in e for e in fma), fma
+    rf.reset_launches()
+    _ring_check(cuda, 1, 128, 2, 2, 64, torch.bfloat16, my=0, src=0, zigzag=False)
+    assert rf.launches == {"ring_flash_fwd": 1, "ring_flash_bwd_dq": 1,
+                           "ring_flash_bwd_dkv": 1}
 
 
 def test_ring_autograd_counts_launches(cuda):

@@ -27,13 +27,18 @@ max |L|). Negative cases drop one k tile from the forward and from dQ and
 must fail the rule; another rounds the three operands to bf16 alone,
 without the lo term, and breaks the rule on dK.
 
-The ring reference is the Pallas dK/dV block kernel in interpret mode on
-float32 arrays that hold the same bf16 values (it computes in float32
-whatever its input type), with nonzero carries, L and delta, at a diagonal
-step, a past step and a zigzag step where a 64-row q tile of the kernel
-straddles the rank's two stripes; the rule is the float32 carries' own,
-|err| <= 1e-4 x max(1, max |ref|). A negative case masks by index, as
-kFlash does, instead of by positions, and fails it.
+The ring references are the Pallas block kernels of one ring step, the
+forward (B4), dQ (B5) and dK/dV (B6), in interpret mode on float32 arrays
+that hold the same bf16 values (they compute in float32 whatever their
+input type), with nonzero carries, L and delta, at a diagonal step, a past
+step and a zigzag step where a q block or tile of the kernels straddles
+the rank's two stripes; the rule is the float32 carries' own, |err| <=
+1e-4 x max(1, max |ref|). B4 and B5 also take a fourth step from the
+initial carries in which the rank's low stripe sees none of the block:
+those rows must come back bit for bit (m -1e30, l 0, acc 0, and the dQ
+carry as it was). Negative cases mask by index, as kFlash does, instead
+of by positions, and (B4) mask to the finite sentinel without the pivot;
+each fails the rule.
 """
 
 import jax
@@ -51,7 +56,9 @@ TILE_K = 128          # forward k tile (flash_tc.cuh kFwdK)
 DQ_TILE_K = 64        # dQ k tile (kDqK)
 DKV_BLOCK_K, DKV_TILE_Q = 128, 64   # dK/dV k rows per block, q rows per tile
 LOG2E = 1.4426950408889634
+LN2 = 0.6931471805599453
 NEG_INF = -1e30
+RING_BLOCK_Q = 128    # ring forward and dQ: q rows per block (kFwdQ, kDqQ)
 
 SHAPES = [
     # (b, t, h, hkv, d, causal): T = 96 and 200 are ragged against the
@@ -398,3 +405,187 @@ def test_ring_dkv_masked_by_index_fails_the_rule():
     assert all(_carry_ok(g, w)[0] for g, w in zip(_ring_emulate(x), want))
     bad = _ring_emulate(x, by_positions=False)
     assert not all(_carry_ok(g, w)[0] for g, w in zip(bad, want))
+
+
+# ------------------------------------------ B4 and B5: one ring step's forward and dQ
+
+# The three RING_STEPS, and a fourth from the initial carries: rank 0's low
+# stripe (positions 0-47) sees none of rank 1's block (48-95, 288-335).
+RF_STEPS = {**RING_STEPS, "no_live_key": (0, 1, True, 96)}
+MASKED_LOG2 = NEG_INF * LOG2E   # the sentinel, in the kernel's log2 units
+
+
+def _ring_live(qp, kp, q0, k0, by_positions):
+    if by_positions:
+        return qp[:, None] >= kp[None, :]
+    return torch.arange(q0, q0 + len(qp))[:, None] >= torch.arange(k0, k0 + len(kp))[None, :]
+
+
+def emulate_rf_fwd(qr, kr, vr, acc, m, l, qpos, kpos, h, hkv, by_positions=True,
+                   masked=-np.inf, pivot=True):
+    """B4's arithmetic: the carries (acc, m, l) after one ring step, in
+    float32. Blocks of 128 q rows walk k tiles of 128; a tile whose
+    min(kpos) is past the block's max(qpos) is skipped, the rest masked by
+    qpos >= kpos (or, ``by_positions=False``, by index). m runs in log2
+    units of the scaled logits: the carry is converted on entry and back
+    on exit, where a row whose max did not move keeps its carry's bits. A
+    masked scaled logit reads ``masked`` (the kernel's -inf, or the
+    sentinel), a row whose max is still the sentinel pivots on 0
+    (``pivot``), and P enters P.V split into bf16 hi + lo."""
+    rows, t, d = qr.shape
+    kq, vq = fa._expand_kv(kr, h, hkv), fa._expand_kv(vr, h, hkv)
+    scale_log2 = LOG2E / d ** 0.5
+    acc, l = acc.clone(), l.clone()
+    m2 = m * LOG2E
+    for q0 in range(0, t, RING_BLOCK_Q):
+        rs = slice(q0, q0 + RING_BLOCK_Q)
+        qp = qpos[rs]
+        for k0 in range(0, t, TILE_K):
+            kp = kpos[k0:k0 + TILE_K]
+            if kp.min() > qp.max():
+                continue
+            s = qr[:, rs] @ kq[:, k0:k0 + TILE_K].transpose(1, 2) * scale_log2
+            s = s.masked_fill(~_ring_live(qp, kp, q0, k0, by_positions), masked)
+            m_new = torch.maximum(m2[:, rs], s.max(dim=-1).values)
+            piv = torch.where(m_new <= NEG_INF * 0.5, 0.0, m_new) if pivot else m_new
+            alpha = torch.exp2(m2[:, rs] - piv)
+            p = torch.exp2(s - piv[..., None])
+            l[:, rs] = l[:, rs] * alpha + p.sum(dim=-1)
+            acc[:, rs] = acc[:, rs] * alpha[..., None] + _split(p) @ vq[:, k0:k0 + TILE_K]
+            m2[:, rs] = m_new
+    return acc, torch.where(m2 == m * LOG2E, m, m2 * LN2), l
+
+
+def emulate_rf_dq(qr, kr, vr, dor, lse, delta, qpos, kpos, dq, h, hkv,
+                  by_positions=True):
+    """B5's arithmetic: dq + this block's dQ, float32 carry. Blocks of 128
+    q rows walk k tiles of 64, skipped and masked as B4's; P is set to 0
+    where masked and dS enters dS.K split into bf16 hi + lo."""
+    rows, t, d = qr.shape
+    kq, vq = fa._expand_kv(kr, h, hkv), fa._expand_kv(vr, h, hkv)
+    scale = d ** -0.5
+    dq = dq.clone()
+    for q0 in range(0, t, RING_BLOCK_Q):
+        rs = slice(q0, q0 + RING_BLOCK_Q)
+        qp = qpos[rs]
+        dqa = torch.zeros(rows, len(qp), d)
+        for k0 in range(0, t, DQ_TILE_K):
+            kp = kpos[k0:k0 + DQ_TILE_K]
+            if kp.min() > qp.max():
+                continue
+            kt, vt = kq[:, k0:k0 + DQ_TILE_K], vq[:, k0:k0 + DQ_TILE_K]
+            p = torch.exp2(qr[:, rs] @ kt.transpose(1, 2) * (scale * LOG2E)
+                           - (lse[:, rs] * LOG2E)[..., None])
+            p = torch.where(_ring_live(qp, kp, q0, k0, by_positions), p, torch.zeros(()))
+            ds = p * (dor[:, rs] @ vt.transpose(1, 2) - delta[:, rs][..., None])
+            dqa = dqa + _split(ds) @ kt
+        dq[:, rs] += dqa * scale
+    return dq
+
+
+def _rf_inputs(step, d):
+    """_ring_inputs at ``step``, with forward carries (the initial ones at
+    no_live_key) and a dQ carry."""
+    my, src, zigzag, t = RF_STEPS[step]
+    seed = sorted(RF_STEPS).index(step) * 10 + d
+    x = _ring_inputs(seed, t, d, my, src, zigzag)
+    rng = np.random.default_rng(seed + 1000)
+    r = RING_B * RING_H
+    if step == "no_live_key":
+        x.update(acc=np.zeros((r, t, d), np.float32), m=np.full((r, t), NEG_INF, np.float32),
+                 l=np.zeros((r, t), np.float32))
+    else:
+        x.update(acc=rng.standard_normal((r, t, d), dtype=np.float32),
+                 m=rng.standard_normal((r, t), dtype=np.float32),
+                 l=rng.uniform(0.5, 1.5, (r, t)).astype(np.float32))
+    x["dq"] = rng.standard_normal((r, t, d), dtype=np.float32)
+    return x, t
+
+
+def _rf_reference(x, t):
+    """The Pallas forward and dQ block kernels, interpret mode, float32
+    arithmetic: ((acc, m, l), dq)."""
+    j = {n: jnp.asarray(a) for n, a in x.items()}
+
+    def rows8(a):
+        return jnp.broadcast_to(a[:, None, :], (a.shape[0], 8, a.shape[1]))
+
+    qp, kp = jrf._qpos_arr(j["qpos"], t), jrf._kpos_arr(j["kpos"], t)
+    group = RING_H // RING_HKV
+    with jax.default_matmul_precision("highest"):
+        acc, m, l = jrf._fwd_block_call(
+            j["q"], j["k"], j["v"], j["acc"], rows8(j["m"]), rows8(j["l"]), qp, kp,
+            RING_BLOCK, RING_BLOCK, RING_H, RING_HKV, group, True)
+        dq = jrf._dq_block_call(
+            j["q"], j["k"], j["v"], j["do"], rows8(j["lse"]), rows8(j["delta"]), qp, kp,
+            j["dq"], RING_BLOCK, RING_BLOCK, RING_H, RING_HKV, group, True)
+    return (np.asarray(acc), np.asarray(m)[:, 0], np.asarray(l)[:, 0]), np.asarray(dq)
+
+
+def _rf_emulate(x, by_positions=True, masked=-np.inf, pivot=True):
+    t = {n: torch.from_numpy(a) for n, a in x.items()}
+    carries = emulate_rf_fwd(t["q"], t["k"], t["v"], t["acc"], t["m"], t["l"], t["qpos"],
+                             t["kpos"], RING_H, RING_HKV, by_positions, masked, pivot)
+    dq = emulate_rf_dq(t["q"], t["k"], t["v"], t["do"], t["lse"], t["delta"], t["qpos"],
+                       t["kpos"], t["dq"], RING_H, RING_HKV, by_positions)
+    return tuple(c.numpy() for c in carries), dq.numpy()
+
+
+def _no_live_key_rows(x):
+    return ~(x["qpos"][:, None] >= x["kpos"][None, :]).any(axis=1)
+
+
+def _rf_hold(x, got, want):
+    """Each carry against the reference: rows with no live key keep the
+    carry they came with bit for bit on both sides, the other rows are held
+    by the carry rule. Returns the names that break it."""
+    dead = _no_live_key_rows(x)
+    (acc, m, l), dq = got
+    (acc_r, m_r, l_r), dq_r = want
+    bad = []
+    for name, g, w in (("acc", acc, acc_r), ("m", m, m_r), ("l", l, l_r), ("dQ", dq, dq_r)):
+        assert g.shape == w.shape, name
+        if dead.any():
+            before = x[name.lower()][:, dead]
+            assert np.array_equal(w[:, dead], before), f"reference {name}"
+            if not np.array_equal(g[:, dead], before):
+                bad.append(name)
+                continue
+        if not _carry_ok(g[:, ~dead], w[:, ~dead])[0]:
+            bad.append(name)
+    return bad
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("step", sorted(RF_STEPS))
+def test_ring_fwd_and_dq_emulation_within_the_carry_rule(step, d):
+    """B4's (acc, m, l) and B5's dQ carry against the Pallas kernels; at
+    the zigzag steps, the rows that see none of the block come back bit
+    for bit (from the initial carries at no_live_key)."""
+    x, t = _rf_inputs(step, d)
+    assert _no_live_key_rows(x).any() == RF_STEPS[step][2]
+    bad = _rf_hold(x, _rf_emulate(x), _rf_reference(x, t))
+    assert not bad, f"{step} d={d}: {bad} break the rule"
+
+
+def test_ring_fwd_and_dq_masked_by_index_fail_the_rule():
+    """The positions matter for B4 and B5 too: at the zigzag step, masking
+    by index instead of by positions breaks the rule on every carry."""
+    x, t = _rf_inputs("zigzag_partial", 64)
+    want = _rf_reference(x, t)
+    assert not _rf_hold(x, _rf_emulate(x), want)
+    assert set(_rf_hold(x, _rf_emulate(x, by_positions=False), want)) == {"acc", "m", "l", "dQ"}
+
+
+def test_ring_fwd_sentinel_mask_without_the_pivot_fails_the_rule():
+    """Why the pivot: a port that masks a scaled logit to the finite
+    sentinel (as the Pallas kernel masks to -1e30), as a row with no live
+    key yet also carries m, needs m_safe. With it the rows that see none
+    of the block come back bit for bit; without it their p = exp2(0) = 1,
+    so l counts the masked keys and acc sums their values. The kernel masks
+    to -inf, where those p are 0 either way."""
+    x, t = _rf_inputs("no_live_key", 64)
+    want = _rf_reference(x, t)
+    assert not _rf_hold(x, _rf_emulate(x, masked=MASKED_LOG2), want)
+    bad = _rf_hold(x, _rf_emulate(x, masked=MASKED_LOG2, pivot=False), want)
+    assert {"acc", "l"} <= set(bad)

@@ -51,8 +51,18 @@ prints no result):
    kernels once per pass), 5 steps, counts zeroed just before;
 9. one ring-flash step against one slice-1 flash step, same weights and
    batch;
-10. the ``{"kernels": [...]}`` line (all six kernels), then
-    ``{"ok": true, ...}`` last.
+10. ResNet-50 data parallelism (``train_cnn``): one float32 step on the
+    card (TF32 off, batch 4 at 224) against the same step on the CPU,
+    same weights (BatchNorm scales, biases and statistics drawn from a
+    seed) and images; one bf16 channels-last step against the float32 step
+    on the card; which BatchNorm kernel bf16 channels-last input takes;
+    then ``train_cnn(CNNConfig(), 5)`` at full width (batch 128, bf16,
+    channels-last, SGD with momentum through DistributedOptimizer): img/s,
+    step times, buckets per step (2), peak memory, the losses (finite and
+    falling) and the share of the bf16 dense peak that the FLOPs of the
+    model's own conv and Dense shapes reach;
+11. the ``{"kernels": [...]}`` line (all six kernels; phase 10 runs none
+    of them), then ``{"ok": true, ...}`` last.
 
 Both CUDA sources build at once, one nvcc each, at the start.
 """
@@ -747,6 +757,184 @@ def report_training(torch, dev, result) -> None:
         raise AssertionError(f"loss did not fall: {result.losses}")
 
 
+# Phase 10. The card's float32 step against the CPU's is held to the CPU
+# tests' limits (tests/test_torch_port_cnn.py): logits and loss
+# |err| <= 1e-4 * max(1, max|ref|), each BatchNorm statistic
+# |err| <= 1e-5 * max|ref|; the gradients by relative norm <= 1e-4, but in
+# float64 on both sides: in float32 an activation within rounding of 0
+# passes a ReLU on one side and not on the other, and the gradient below
+# moves by that pixel's share (at batch 4, ~2e-2 relative norm between
+# the CPU's own float32 and float64 steps on an x86 CPU), so the float32
+# gradients are printed, not held.
+CNN_CHECK_BATCH = 4
+CNN_F32_TOL, CNN_STATS_TOL, CNN_GRAD_TOL = 1e-4, 1e-5, 1e-4
+# The bf16 step against the float32 step, from the same weights (the
+# trainer's init: the last BatchNorm scale of each residual branch at 0)
+# and images, batch 32, by relative norm. bf16 keeps 8 significant bits
+# (2^-9 relative per rounding) and the step rounds every activation of 53
+# convolutions and their gradients: on the CPU at batch 16 the port's bf16
+# step read logits 4.6e-3, loss 2.3e-5, statistics 9.2e-5 and all
+# gradients 5.3e-2 from its float32 step on an x86 CPU. The limits are
+# about three times those; a cast in the wrong place (statistics or the
+# head in bf16) moves them by far more.
+CNN_BF16_BATCH = 32
+CNN_BF16_LIMITS = {"logits": 2e-2, "loss": 1e-2, "statistics": 1e-2,
+                   "gradients": 0.15}
+
+
+def randomize_batch_norms(torch, model, seed: int) -> None:
+    """BatchNorm scales from [0.5, 1.5], biases and running means from
+    N(0, 0.1^2), running variances from [0.5, 1.5]: with the trainer's
+    zero scales the residual branches' gradients are exactly 0 on both
+    sides of a comparison."""
+    from horovod_tpu_torch.models.cnn_layers import BatchNorm
+
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, BatchNorm):
+                n = m.weight.shape
+                m.weight.copy_(torch.rand(n, generator=gen) + 0.5)
+                m.bias.copy_(0.1 * torch.randn(n, generator=gen))
+                m.running_mean.copy_(0.1 * torch.randn(n, generator=gen))
+                m.running_var.copy_(torch.rand(n, generator=gen) + 0.5)
+
+
+def cnn_step(torch, model, images, labels) -> dict:
+    """One training-mode forward and backward, no optimizer step: logits,
+    loss, gradients and BatchNorm statistics after it, float64 on the CPU."""
+    import torch.nn.functional as F
+
+    logits = model(images)
+    loss = F.cross_entropy(logits, labels)
+    loss.backward()
+    return {"logits": logits.detach().double().cpu(), "loss": loss.item(),
+            "grads": {n: p.grad.double().cpu() for n, p in model.named_parameters()},
+            "stats": {n: t.double().cpu() for n, t in model.state_dict().items()
+                      if n.endswith(("running_mean", "running_var"))}}
+
+
+def relnorm(got, want) -> float:
+    return ((got - want).norm() / want.norm().clamp_min(1e-30)).item()
+
+
+def hold_cnn_step(label, got, want, hold_grads) -> None:
+    """Hold ``got`` to ``want`` (cnn_step results) at the CPU tests'
+    limits; the gradients too where ``hold_grads``."""
+    limit = CNN_F32_TOL * max(1.0, want["logits"].abs().max().item())
+    err = (got["logits"] - want["logits"]).abs().max().item()
+    loss_err = abs(got["loss"] - want["loss"])
+    stats = max(((got["stats"][n] - w).abs().max() / w.abs().max()).item()
+                for n, w in want["stats"].items())
+    grads = {n: relnorm(got["grads"][n], w) for n, w in want["grads"].items()}
+    worst = max(grads, key=grads.get)
+    log(f"  {label}: logits max_abs_err {err:.3e} (limit {limit:.3e}), loss "
+        f"{got['loss']:.6f} vs {want['loss']:.6f}, statistics worst "
+        f"{stats:.3e} of max|ref| (limit {CNN_STATS_TOL:g}), gradients worst "
+        f"relative norm {grads[worst]:.3e} ({worst})"
+        + (f" (limit {CNN_GRAD_TOL:g})" if hold_grads else
+           " (not held: ReLU flips)"))
+    loss_limit = CNN_F32_TOL * max(1.0, abs(want["loss"]))
+    if not (err <= limit and loss_err <= loss_limit and stats <= CNN_STATS_TOL):
+        raise AssertionError(f"{label}: logits {err}, loss {loss_err}, "
+                             f"statistics {stats}")
+    if hold_grads and not grads[worst] <= CNN_GRAD_TOL:
+        raise AssertionError(f"{label}: gradient {worst} {grads[worst]}")
+
+
+def cnn_card_against_cpu(torch, tc, dev) -> None:
+    """One step of ResNet-50 at 224, batch 4, on the card and on the CPU
+    from the same weights and images, in float32 and in float64."""
+    config = tc.CNNConfig(batch=CNN_CHECK_BATCH, dtype="float32")
+    base = tc.build_cnn(config, "cpu")
+    randomize_batch_norms(torch, base, seed=1)
+    images, labels = tc.make_images(config, 0, "cpu")
+    for dtype in ("float32", "float64"):
+        res = {}
+        for where in ("cpu", dev):
+            model = tc.build_cnn(dataclasses.replace(config, dtype=dtype), where)
+            model.load_state_dict(base.state_dict())
+            if dtype == "float64":
+                model = model.double()
+            res[where] = cnn_step(torch, model, images.to(where), labels.to(where))
+            del model
+        hold_cnn_step(f"card vs CPU, {dtype}", res[dev], res["cpu"],
+                      hold_grads=dtype == "float64")
+    torch.cuda.empty_cache()
+
+
+def cnn_bf16_against_f32(torch, tc, dev) -> None:
+    config = tc.CNNConfig(batch=CNN_BF16_BATCH)
+    images, labels = tc.make_images(config, 0, dev)
+    res = {}
+    for dtype in ("bfloat16", "float32"):
+        model = tc.build_cnn(dataclasses.replace(config, dtype=dtype), dev)
+        res[dtype] = cnn_step(torch, model, images, labels)
+        del model
+    torch.cuda.empty_cache()
+    got, want = res["bfloat16"], res["float32"]
+    names = list(want["grads"])
+    errs = {
+        "logits": relnorm(got["logits"], want["logits"]),
+        "loss": abs(got["loss"] - want["loss"]) / abs(want["loss"]),
+        "statistics": relnorm(torch.cat([got["stats"][n] for n in want["stats"]]),
+                              torch.cat(list(want["stats"].values()))),
+        "gradients": relnorm(torch.cat([got["grads"][n].reshape(-1) for n in names]),
+                             torch.cat([want["grads"][n].reshape(-1) for n in names])),
+    }
+    log("  bf16 channels-last vs float32, batch "
+        f"{CNN_BF16_BATCH}, relative norm: " + ", ".join(
+            f"{k} {v:.3e} (limit {CNN_BF16_LIMITS[k]:g})" for k, v in errs.items()))
+    bad = {k: v for k, v in errs.items() if not v <= CNN_BF16_LIMITS[k]}
+    if bad:
+        raise AssertionError(f"bf16 vs float32: {bad}")
+
+
+def batch_norm_kernel(torch, dev) -> str:
+    """Which implementation PyTorch picks for bf16 channels-last input with
+    float32 weight at the stem's shape (128, 64, 112, 112), in training
+    mode: the index ``torch._batch_norm_impl_index`` returns."""
+    x = torch.randn(128, 64, 112, 112, device=dev, dtype=torch.bfloat16)
+    x = x.contiguous(memory_format=torch.channels_last)
+    w = torch.ones(64, device=dev)
+    out = torch._batch_norm_impl_index(x, w, torch.zeros_like(w), None, None,
+                                       True, 0.0, 1e-5, True)
+    torch.cuda.synchronize(dev)
+    name = {0: "native (PyTorch's CUDA kernels)", 1: "cuDNN", 2: "MIOpen"}[out[4]]
+    fmt = out[0].is_contiguous(memory_format=torch.channels_last)
+    return f"{name}, output channels-last: {fmt}"
+
+
+def report_cnn_training(torch, tc, dev, config, result) -> None:
+    """Log the ResNet-50 run; raise unless its loss is finite and falls and
+    it ran 2 buckets per step."""
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    steady = result.step_s[1:]
+    step_s = statistics.median(steady)
+    img_s = result.images_per_step / step_s
+    model = tc.build_cnn(config, dev).eval()
+    one, _ = tc.make_images(dataclasses.replace(config, batch=1), 0, dev)
+    macs = tc.forward_macs(model, one)
+    del model
+    flops_per_image = 3 * 2 * macs      # forward, and twice it backward
+    share = flops_per_image * img_s / PEAK_FLOPS["bfloat16"]
+    log(f"  params {result.params}, buckets per step {result.num_buckets}, "
+        f"peak memory {peak_gb:.2f} GB")
+    log(f"  loss per step {result.losses}")
+    log(f"  step time per step (s) {result.step_s}; median of steps 1-4 "
+        f"{step_s:.4f} s, {img_s:.1f} img/s")
+    log(f"  {macs} conv and Dense multiply-adds per image forward, "
+        f"{flops_per_image:.4e} FLOPs per image per step (3 x 2 x MACs): "
+        f"{flops_per_image * img_s / 1e12:.1f} TFLOP/s, "
+        f"{100 * share:.1f}% of the bf16 dense peak (989 TFLOP/s)")
+    if result.num_buckets != 2:
+        raise AssertionError(f"{result.num_buckets} buckets, expected 2")
+    if not all(math.isfinite(x) for x in result.losses):
+        raise AssertionError(f"non-finite loss {result.losses}")
+    if not result.losses[-1] < result.losses[0]:
+        raise AssertionError(f"loss did not fall: {result.losses}")
+
+
 def main() -> int:
     import torch
 
@@ -759,6 +947,7 @@ def main() -> int:
     from horovod_tpu_torch.ops import ring_attention as ra
     from horovod_tpu_torch.ops import ring_flash as rf
     from horovod_tpu_torch import train as train_mod
+    from horovod_tpu_torch import train_cnn as tc
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -849,6 +1038,23 @@ def main() -> int:
 
     log("[9] one ring-flash step against one slice-1 flash step")
     ring_step_against_flash(torch, train_mod, sp_config, dev)
+    basics.shutdown()
+
+    cnn_config = tc.CNNConfig()
+    log(f"[10] ResNet-50 data parallel: {cnn_config}")
+    cnn_card_against_cpu(torch, tc, dev)
+    cnn_bf16_against_f32(torch, tc, dev)
+    log(f"  BatchNorm, bf16 channels-last input, float32 weight: "
+        f"{batch_norm_kernel(torch, dev)}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    fa.reset_launches()
+    rf.reset_launches()
+    cnn_result = tc.train_cnn(cnn_config, STEPS, device="cuda")
+    report_cnn_training(torch, tc, dev, cnn_config, cnn_result)
+    cnn_counts = {**fa.launches, **rf.launches}
+    if any(cnn_counts.values()):
+        raise AssertionError(f"the CNN path launched attention kernels: {cnn_counts}")
     basics.shutdown()
 
     kernels = []

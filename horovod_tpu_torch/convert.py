@@ -1,17 +1,26 @@
-"""Weights of the JAX package's TransformerLM in the port's TransformerLM.
+"""Weights of the JAX package's models in the port's models.
 
-``flax_path(name)`` maps a parameter name of the port's model to the path
-of the same parameter in the flax tree (``embed/embedding``,
-``block_3/qkv/kernel``, ...). A flax Dense kernel ``(in, out)`` is the
-transpose of the port's ``weight`` ``(out, in)``; every other parameter has
-the same shape in both. Sorting the port's parameters by their flax paths
-gives the order in which JAX flattens the tree (its dict keys sorted), the
-order the fusion plan needs to put the same leaves in the same buckets.
+``flax_path(name)`` maps a parameter name of the port's TransformerLM to
+the path of the same parameter in the flax tree (``embed/embedding``,
+``block_3/qkv/kernel``, ...). ``cnn_flax_path(name)`` does the same for the
+CNN zoo, whose submodules carry the flax scopes' names, so only the leaf
+is renamed: a conv or Dense ``weight`` is flax's ``kernel``, a BatchNorm
+``weight`` its ``scale``, and the buffers ``running_mean`` and
+``running_var`` are ``mean`` and ``var`` in the ``batch_stats`` tree.
+
+A flax Dense kernel ``(in, out)`` is the transpose of the port's
+``weight`` ``(out, in)``; a flax conv kernel HWIO is the port's OIHW
+``weight`` permuted; every other leaf has the same shape in both. Sorting
+the port's parameters by their flax paths gives the order in which JAX
+flattens the tree (its dict keys sorted, so ``BottleneckBlock_10`` comes
+before ``BottleneckBlock_2``), the order the fusion plan needs to put the
+same leaves in the same buckets.
 """
 
 from __future__ import annotations
 
-from typing import Iterable, Mapping
+import re
+from typing import Callable, Iterable, Mapping
 
 import numpy as np
 import torch
@@ -38,6 +47,48 @@ def flax_path(name: str) -> tuple[str, ...]:
     raise KeyError(f"no flax counterpart for parameter {name!r}")
 
 
+# The flax scopes of the CNN zoo's BatchNorms: BatchNorm_k, bn_init,
+# bn_{i} (VGG) and norm_proj (ResNet's projection shortcut).
+_NORM_SCOPE = re.compile(r"BatchNorm_\d+|bn_\w+|norm_proj")
+_STATS = {"running_mean": "mean", "running_var": "var"}
+
+
+def cnn_flax_path(name: str) -> tuple[str, tuple[str, ...]]:
+    """(collection, path) of the CNN zoo's parameter or buffer ``name``:
+    ``BottleneckBlock_3.Conv_1.weight`` is ``("params",
+    ("BottleneckBlock_3", "Conv_1", "kernel"))``."""
+    *scopes, leaf = name.split(".")
+    if not scopes:
+        raise KeyError(f"no flax counterpart for {name!r}")
+    if leaf in _STATS:
+        return "batch_stats", (*scopes, _STATS[leaf])
+    if leaf == "weight":
+        leaf = "scale" if _NORM_SCOPE.fullmatch(scopes[-1]) else "kernel"
+    elif leaf != "bias":
+        raise KeyError(f"no flax counterpart for {name!r}")
+    return "params", (*scopes, leaf)
+
+
+def cnn_param_path(name: str) -> tuple[str, ...]:
+    """Path of the CNN parameter ``name`` in the flax ``params`` tree."""
+    collection, path = cnn_flax_path(name)
+    if collection != "params":
+        raise KeyError(f"{name!r} is a batch statistic, not a parameter")
+    return path
+
+
+def _from_flax(arr: np.ndarray, kernel: bool) -> np.ndarray:
+    if not kernel:
+        return arr
+    return arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
+
+
+def _to_flax(arr: np.ndarray, kernel: bool) -> np.ndarray:
+    if not kernel:
+        return arr
+    return arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
+
+
 def _is_kernel(name: str) -> bool:
     return flax_path(name)[-1] == "kernel"
 
@@ -56,16 +107,37 @@ def transformer_state_dict_from_jax(params: Mapping,
     for name in names:
         arr = np.asarray(_lookup(params, flax_path(name)), dtype=np.float32)
         out[name] = torch.from_numpy(np.array(
-            arr.T if _is_kernel(name) else arr, order="C"))
+            _from_flax(arr, _is_kernel(name)), order="C"))
     return out
 
 
-def to_flax_layout(name: str, tensor: torch.Tensor) -> np.ndarray:
-    """A port parameter (or its gradient) as a numpy array in flax's layout."""
-    arr = tensor.detach().float().cpu().numpy()
-    return arr.T if _is_kernel(name) else arr
+def cnn_state_dict_from_jax(params: Mapping, batch_stats: Mapping,
+                            names: Iterable[str]) -> dict:
+    """The CNN's state dict for ``names`` (the keys of
+    ``model.state_dict()``: parameters and BatchNorm statistics) from flax
+    ``params`` and ``batch_stats`` trees of numpy arrays."""
+    trees = {"params": params, "batch_stats": batch_stats}
+    out = {}
+    for name in names:
+        collection, path = cnn_flax_path(name)
+        arr = np.asarray(_lookup(trees[collection], path), dtype=np.float32)
+        out[name] = torch.from_numpy(np.array(
+            _from_flax(arr, path[-1] == "kernel"), order="C"))
+    return out
 
 
-def jax_ordered(named_parameters: Iterable[tuple[str, torch.Tensor]]) -> list:
-    """``(name, parameter)`` pairs in the JAX tree's flatten order."""
-    return sorted(named_parameters, key=lambda kv: flax_path(kv[0]))
+def to_flax_layout(name: str, tensor: torch.Tensor,
+                   path: Callable[[str], tuple[str, ...]] = flax_path
+                   ) -> np.ndarray:
+    """A copy of a port parameter (or its gradient) as a float64 numpy
+    array (exact for every float dtype) in flax's layout; ``path`` maps
+    the name to its flax path (``cnn_param_path`` for the CNN zoo)."""
+    arr = tensor.detach().to("cpu", torch.float64, copy=True).numpy()
+    return _to_flax(arr, path(name)[-1] == "kernel")
+
+
+def jax_ordered(named_parameters: Iterable[tuple[str, torch.Tensor]],
+                path: Callable[[str], tuple[str, ...]] = flax_path) -> list:
+    """``(name, parameter)`` pairs in the JAX tree's flatten order;
+    ``path`` as in ``to_flax_layout``."""
+    return sorted(named_parameters, key=lambda kv: path(kv[0]))

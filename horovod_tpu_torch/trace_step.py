@@ -1,14 +1,19 @@
 """Where one training step's device time goes.
 
-    python -m horovod_tpu_torch.trace_step [--sp N]
+    python -m horovod_tpu_torch.trace_step [--sp N | --model resnet50]
 
-Trains the full-width flash TransformerLM (``train.TrainConfig``) on one
-GPU through ``train.train`` for 3 warm-up steps, traces a fourth with
-``torch.profiler`` and prints one JSON line: the step's wall time, the
-device's busy time (union of kernel intervals) and idle share, and the 15
-kernels with the most device time, by name. ``--sp N`` traces the
-sequence-parallel ring-flash path (``TrainConfig(sp=N)``; on one GPU,
-N = 1, a ring of one); without it, slice 1's flash path.
+Trains a full-width model on one GPU for 3 warm-up steps, traces a fourth
+with ``torch.profiler`` and prints one JSON line: the step's wall time,
+the device's busy time (union of kernel intervals) and idle share, the
+device time of each class of kernel (by name: convolution, batch norm,
+GEMM, pooling, NCCL, copy, elementwise, other) with the class's three
+largest kernels, and the 15 kernels with the most device time, by name.
+By default the model is the
+flash TransformerLM (``train.TrainConfig`` through ``train.train``);
+``--sp N`` traces its sequence-parallel ring-flash path
+(``TrainConfig(sp=N)``; on one GPU, N = 1, a ring of one). ``--model
+resnet50`` traces ResNet-50 data parallelism (``train_cnn.CNNConfig()``
+through ``train_cnn.train_cnn``: batch 128, bf16, channels-last).
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from .common import basics
 from .train import TrainConfig, train
+from .train_cnn import CNNConfig, train_cnn
 
 
 def _busy_us(intervals) -> float:
@@ -40,21 +46,50 @@ def _busy_us(intervals) -> float:
 
 WARMUP_STEPS = 3
 TOP = 15
+# (class, substrings of a kernel's name), first match wins.
+KERNEL_CLASSES = [
+    ("batch_norm", ("batch_norm",)),
+    ("pooling", ("pool",)),
+    ("nccl", ("nccl",)),
+    ("convolution", ("conv", "fprop", "dgrad", "wgrad", "nhwc", "implicit_gemm")),
+    ("gemm", ("gemm", "cublas", "cutlass", "nvjet")),
+    ("copy", ("copy", "catarray")),
+    ("elementwise", ("elementwise", "reduce")),
+]
+
+
+def kernel_class(name: str) -> str:
+    lowered = name.lower()
+    for cls, keys in KERNEL_CLASSES:
+        if any(k in lowered for k in keys):
+            return cls
+    return "other"
 
 
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--sp", type=int, default=None,
-                        help="ring size (TrainConfig.sp); default: no ring")
-    config = TrainConfig(sp=parser.parse_args(argv).sp)
+    which = parser.add_mutually_exclusive_group()
+    which.add_argument("--sp", type=int, default=None,
+                       help="ring size (TrainConfig.sp); default: no ring")
+    which.add_argument("--model", choices=["transformer", "resnet50"],
+                       default="transformer")
+    args = parser.parse_args(argv)
+    if args.model == "resnet50":
+        config, trainer = CNNConfig(), train_cnn
+        shape = {"model": config.model, "batch": config.batch,
+                 "image_size": config.image_size, "dtype": config.dtype}
+    else:
+        config, trainer = TrainConfig(sp=args.sp), train
+        shape = {"model": "TransformerLM", "layers": config.layers,
+                 "sp": config.sp}
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
 
     def around_step(i):
         return prof if i == WARMUP_STEPS else contextlib.nullcontext()
 
     try:
-        result = train(config, WARMUP_STEPS + 1, device="cuda",
-                       around_step=around_step)
+        result = trainer(config, WARMUP_STEPS + 1, device="cuda",
+                         around_step=around_step)
         dev = basics.device()
         wall_us = result.step_s[-1] * 1e6
         # Device-side events, without the ranges of user annotations (such
@@ -71,16 +106,22 @@ def main(argv=None) -> None:
             by_name[e.name][1] += 1
             intervals.append((start, end))
         busy = _busy_us(intervals)
-        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:TOP]
+        ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+        by_class: dict[str, dict] = defaultdict(lambda: {"ms": 0.0, "top": []})
+        for n, (t, _) in ranked:
+            entry = by_class[kernel_class(n)]
+            entry["ms"] += t / 1e3
+            if len(entry["top"]) < 3:
+                entry["top"].append(n[:100])
         print(json.dumps({
-            "device": torch.cuda.get_device_name(dev),
-            "layers": config.layers, "sp": config.sp,
+            "device": torch.cuda.get_device_name(dev), **shape,
             "step_wall_ms": wall_us / 1e3,
             "device_busy_ms": busy / 1e3,
             "idle_share": 1.0 - busy / wall_us if wall_us else None,
             "kernel_events": len(kernels),
+            "classes": dict(sorted(by_class.items(), key=lambda kv: -kv[1]["ms"])),
             "top": [{"name": n[:120], "ms": t / 1e3, "calls": c}
-                    for n, (t, c) in top],
+                    for n, (t, c) in ranked[:TOP]],
         }))
     finally:
         basics.shutdown()

@@ -1,6 +1,8 @@
 """The CUDA kernels against their plain versions, on the card: the flash
-kernels (B1-B3) and the ring-flash kernels (B4-B6); and the
-sequence-parallel training step over NCCL on every visible GPU.
+kernels (B1-B3) and the ring-flash kernels (B4-B6); the sequence-parallel
+training step over NCCL on every visible GPU; the CNN step on the card
+against the CPU's; and ResNet-50 data parallelism over NCCL on every
+visible GPU (tests/torch_port_cnn_worker.py).
 
 Needs an NVIDIA Hopper GPU and nvcc; elsewhere every test skips. Run on
 the card with (conftest.py imports jax, which the GPU machine need not
@@ -19,7 +21,13 @@ and causal dQ's first row, whose one key gives dS = dP - delta = 0) comes
 out as float32 noise on both sides, |x| <= 1e-4, which no relative rule
 can compare. The NCCL world holds the sp step to slice 1's flash step on the whole
 sequence: loss 1e-3 relative, every gradient 3e-2 relative norm error
-(bf16 activations summed in another order across the ring).
+(bf16 activations summed in another order across the ring). The CNN step
+on the card (cuDNN, TF32 off) is held to the CPU's at
+tests/test_torch_port_cnn.py's limits: logits and loss 1e-4 of
+max(1, max|ref|) and BatchNorm statistics 1e-5 of max|ref| in float32,
+and, in float64, every gradient to 1e-4 relative norm (in float32 a ReLU
+input within rounding of 0 flips between the two and moves the gradient
+below by far more).
 """
 
 import os
@@ -400,3 +408,84 @@ def test_sp_world_step_matches_whole_sequence_step(sp_world):
     n, out = sp_world
     print(out)
     assert f"ok sp world {n}" in out
+
+
+# ------------------------------------------------------------ the CNN zoo
+
+def _cnn_step(model, images, labels):
+    logits = model(images)
+    loss = torch.nn.functional.cross_entropy(logits, labels)
+    loss.backward()
+    return (logits.detach().double().cpu(), loss.item(),
+            {n: p.grad.double().cpu() for n, p in model.named_parameters()},
+            {n: t.double().cpu() for n, t in model.state_dict().items()
+             if "running" in n})
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_cnn_step_on_the_card_matches_the_cpu(cuda, dtype):
+    from horovod_tpu_torch.models.cnn_layers import BatchNorm
+    from horovod_tpu_torch.train_cnn import CNNConfig, build_cnn, make_images
+
+    config = CNNConfig(model="ResNet18", num_classes=10, image_size=64,
+                       batch=4, dtype=dtype)
+    base = build_cnn(config, "cpu")
+    gen = torch.Generator().manual_seed(2)
+    with torch.no_grad():     # nonzero residual branches: random BN scales
+        for m in base.modules():
+            if isinstance(m, BatchNorm):
+                m.weight.copy_(torch.rand(m.weight.shape, generator=gen) + 0.5)
+                m.bias.copy_(0.1 * torch.randn(m.bias.shape, generator=gen))
+    images, labels = make_images(config, 0, "cpu")
+    res = []
+    for where in ("cpu", cuda):
+        model = build_cnn(config, where)
+        model.load_state_dict(base.state_dict())
+        model = model.to(getattr(torch, dtype))
+        res.append(_cnn_step(model, images.to(where), labels.to(where)))
+    (want_logits, want_loss, want_grads, want_stats), \
+        (logits, loss, grads, stats) = res
+    limit = 1e-4 * max(1.0, want_logits.abs().max().item())
+    assert (logits - want_logits).abs().max().item() <= limit
+    assert abs(loss - want_loss) <= 1e-4 * max(1.0, abs(want_loss))
+    for n, w in want_stats.items():
+        assert (stats[n] - w).abs().max().item() <= 1e-5 * w.abs().max().item(), n
+    if dtype == "float64":
+        for n, w in want_grads.items():
+            assert (grads[n] - w).norm().item() <= 1e-4 * w.norm().item(), n
+
+
+@pytest.fixture(scope="module")
+def cnn_world():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA devices")
+    n = torch.cuda.device_count()
+    port = free_port()
+    procs = []
+    for rank in range(n):
+        env = dict(os.environ, HOROVOD_RANK=str(rank), HOROVOD_SIZE=str(n),
+                   HOROVOD_LOCAL_RANK=str(rank), HOROVOD_LOCAL_SIZE=str(n),
+                   HOROVOD_COORD_ADDR=f"127.0.0.1:{port}", CNN_DEVICE="cuda")
+        for var in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE"):
+            env.pop(var, None)
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.join(REPO, "tests", "torch_port_cnn_worker.py")],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    failures, outs = [], []
+    for rank, proc in enumerate(procs):
+        try:
+            out, err = proc.communicate(timeout=900)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+        outs.append(out)
+        if proc.returncode != 0:
+            failures.append(f"rank {rank} exit {proc.returncode}:\n{err[-3000:]}")
+    assert not failures, "\n".join(failures)
+    return n, outs[0]
+
+
+def test_cnn_world_resnet50_data_parallel(cnn_world):
+    n, out = cnn_world
+    print(out)
+    assert f"ok cnn world {n}" in out

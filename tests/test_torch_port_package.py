@@ -36,7 +36,10 @@ def test_import_pulls_in_no_jax():
             "horovod_tpu_torch.convert, horovod_tpu_torch.ops._build, "
             "horovod_tpu_torch.ops.ring_flash, "
             "horovod_tpu_torch.ops.ring_attention, "
-            "horovod_tpu_torch.parallel.mesh, horovod_tpu_torch.trace_step\n"
+            "horovod_tpu_torch.parallel.mesh, horovod_tpu_torch.trace_step, "
+            "horovod_tpu_torch.train_cnn, horovod_tpu_torch.models.resnet, "
+            "horovod_tpu_torch.models.vgg, horovod_tpu_torch.models.inception, "
+            "horovod_tpu_torch.models.mlp, horovod_tpu_torch.models.cnn_layers\n"
             "bad = [m for m in set(sys.modules) - before if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
             "print(json.dumps(sorted(bad)))\n")
@@ -85,6 +88,24 @@ def test_trace_busy_time_is_the_union_of_intervals():
     assert _busy_us([]) == 0.0
     assert _busy_us([(5, 7), (0, 2), (1, 3), (6, 10)]) == 3 + 5
     assert _busy_us([(0, 10), (2, 3)]) == 10
+
+
+@pytest.mark.parametrize("name,cls", [
+    ("void at::native::batch_norm_collect_statistics_channels_last_kernel<at::native::Var>", "batch_norm"),
+    ("sm90_xmma_wgrad_indexed_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nhwc", "convolution"),
+    ("void cutlass__5x_cudnn::Kernel<cutlass_tensorop_bf16_s16816fprop_optimized_bf16>", "convolution"),
+    ("void at::native::(anonymous namespace)::max_pool_backward_nhwc<c10::BFloat16>", "pooling"),
+    ("sm90_xmma_gemm_f32f32_tf32f32_f32_tn_n_tilesize128x128x32", "gemm"),
+    ("nvjet_tst_256x128_64x4_1x2_h_ssched_bz_coopA_TNT", "gemm"),
+    ("ncclDevKernel_AllReduce_Sum_f32_RING_LL", "nccl"),
+    ("void at::native::elementwise_kernel<128, 4, direct_copy_kernel_cuda>", "copy"),
+    ("void at::native::vectorized_elementwise_kernel<8, CUDAFunctor_add<c10::BFloat16>>", "elementwise"),
+    ("fwd_tc_kernel<128, 0>", "other"),
+])
+def test_trace_kernel_classes(name, cls):
+    from horovod_tpu_torch.trace_step import kernel_class
+
+    assert kernel_class(name) == cls
 
 
 def test_topology_from_horovod_env(monkeypatch):

@@ -9,6 +9,16 @@ head; the LM head runs at ``logits_dtype`` (float32 by default).
 ``attention="flash"`` runs the flash kernels of ``ops/flash_attention.py``,
 ``attention="dense"`` the plain causal attention below.
 
+``remat=True`` recomputes each block's forward in the backward pass
+(``torch.utils.checkpoint``, the counterpart of flax's ``nn.remat(Block)``):
+one more forward of work for activations kept only at block boundaries.
+It composes with both flash paths: the recompute runs the block's
+attention Function again, so the forward kernel launches twice per layer
+and step and the backward kernels once. ``forward(...,
+return_hidden=True)`` returns the normed hidden states and skips the head,
+for ``chunked_lm_loss``, which never holds the whole ``(B, T, vocab)``
+logits.
+
 ``sp_group`` (flax's ``sp_axis``) makes the model sequence-parallel: each
 rank of the group holds a shard of the sequence, the caller passes the
 shard's global positions (for the rotary embedding), and attention runs
@@ -25,6 +35,7 @@ from typing import Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.flash_attention import flash_attention
 from ..ops.ring_attention import ring_attention
@@ -139,9 +150,11 @@ class TransformerLM(nn.Module):
                  layers: int = 6, mlp_ratio: int = 4,
                  dtype: torch.dtype = torch.bfloat16, attention: str = "dense",
                  kv_heads: Optional[int] = None,
-                 logits_dtype: torch.dtype = torch.float32, sp_group=None):
+                 logits_dtype: torch.dtype = torch.float32, sp_group=None,
+                 remat: bool = False):
         super().__init__()
         self.vocab, self.dim, self.dtype = vocab, dim, dtype
+        self.remat = remat
         self.embed = nn.Embedding(vocab, dim)
         self.blocks = nn.ModuleList(
             Block(dim, heads, mlp_ratio, dtype, attention, kv_heads, sp_group)
@@ -149,13 +162,20 @@ class TransformerLM(nn.Module):
         self.norm = RMSNorm(dim, dtype)
         self.lm_head = Dense(dim, vocab, logits_dtype)
 
-    def forward(self, tokens, positions=None):
+    def forward(self, tokens, positions=None, return_hidden: bool = False):
         if positions is None:
             positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
         x = self.embed(tokens).to(self.dtype)
         for block in self.blocks:
-            x = block(x, positions)
-        return self.lm_head(self.norm(x))
+            if self.remat and torch.is_grad_enabled():
+                # No RNG state to keep (the model draws none), and reading
+                # it is not allowed while a CUDA graph captures the step.
+                x = checkpoint(block, x, positions, use_reentrant=False,
+                               preserve_rng_state=False)
+            else:
+                x = block(x, positions)
+        x = self.norm(x)
+        return x if return_hidden else self.lm_head(x)
 
 
 @torch.no_grad()
@@ -175,9 +195,51 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
                                   generator=generator)
 
 
-def lm_loss(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    """Next-token cross entropy, targets = tokens rolled left by one (on a
-    sequence shard: within the shard, as the JAX dp×sp step does)."""
-    targets = torch.roll(tokens, -1, dims=1)
+def next_tokens(tokens: torch.Tensor) -> torch.Tensor:
+    """The targets of next-token prediction: tokens rolled left by one (on
+    a sequence shard: within the shard, as the JAX dp×sp step does)."""
+    return torch.roll(tokens, -1, dims=1)
+
+
+def token_loss(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Mean cross entropy of ``(B, T, vocab)`` logits against ``(B, T)``
+    targets, upcast to float32 first (a bf16 head's logits too)."""
     return F.cross_entropy(logits.float().reshape(-1, logits.shape[-1]),
                            targets.reshape(-1))
+
+
+def lm_loss(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """Next-token cross entropy of the logits of ``tokens``."""
+    return token_loss(logits, next_tokens(tokens))
+
+
+def _chunk_loss(hidden, weight, targets):
+    return token_loss(hidden.float() @ weight.t(), targets)
+
+
+def chunked_lm_loss(hidden: torch.Tensor, head_weight: torch.Tensor,
+                    targets: torch.Tensor, chunk: int = 2048) -> torch.Tensor:
+    """Next-token cross entropy without the whole ``(B, T, vocab)`` logits,
+    the counterpart of ``horovod_tpu.models.transformer.chunked_lm_loss``:
+    the head and the cross entropy run over sequence chunks, each chunk
+    checkpointed so that the backward pass recomputes its logits instead of
+    keeping them. The result is the mean of the chunk means.
+
+    ``hidden`` is ``model(tokens, return_hidden=True)``; ``head_weight`` is
+    ``model.lm_head.weight`` in the port's layout, ``(vocab, dim)`` (the
+    flax kernel is its transpose, ``(dim, vocab)``). The head's product
+    runs in float32, the hidden states upcast, as the JAX function does.
+    Peak extra memory is one chunk's float32 logits, ``B * chunk * vocab``.
+    """
+    b, t, _ = hidden.shape
+    if chunk <= 0:
+        raise ValueError(f"loss chunk must be positive, got {chunk}")
+    chunk = min(chunk, t)
+    if t % chunk:
+        raise ValueError(f"sequence {t} not divisible by loss chunk {chunk}")
+    weight = head_weight.float()
+    losses = [checkpoint(_chunk_loss, hidden[:, i:i + chunk], weight,
+                         targets[:, i:i + chunk], use_reentrant=False,
+                         preserve_rng_state=False)
+              for i in range(0, t, chunk)]
+    return torch.stack(losses).mean()

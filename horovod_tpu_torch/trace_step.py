@@ -1,6 +1,7 @@
 """Where one training step's device time goes.
 
     python -m horovod_tpu_torch.trace_step [--sp N | --model resnet50]
+        [--remat] [--loss-chunk C] [--steps-per-dispatch K]
 
 Trains a full-width model on one GPU for 3 warm-up steps, traces a fourth
 with ``torch.profiler`` and prints one JSON line: the step's wall time,
@@ -14,6 +15,11 @@ flash TransformerLM (``train.TrainConfig`` through ``train.train``);
 (``TrainConfig(sp=N)``; on one GPU, N = 1, a ring of one). ``--model
 resnet50`` traces ResNet-50 data parallelism (``train_cnn.CNNConfig()``
 through ``train_cnn.train_cnn``: batch 128, bf16, channels-last).
+``--remat`` and ``--loss-chunk C`` set the transformer's long-context
+options. ``--steps-per-dispatch K`` trains through the graphed loop and
+traces its fourth dispatch, K steps replayed from one CUDA graph; the
+JSON line then says whether the profiler saw the kernels of the replays
+(``graph_kernels_seen``): a trace without them shows the device idle.
 """
 
 from __future__ import annotations
@@ -73,25 +79,35 @@ def main(argv=None) -> None:
                        help="ring size (TrainConfig.sp); default: no ring")
     which.add_argument("--model", choices=["transformer", "resnet50"],
                        default="transformer")
+    parser.add_argument("--remat", action="store_true")
+    parser.add_argument("--loss-chunk", type=int, default=0)
+    parser.add_argument("--steps-per-dispatch", type=int, default=None)
     args = parser.parse_args(argv)
+    k = args.steps_per_dispatch
     if args.model == "resnet50":
+        if args.remat or args.loss_chunk or k:
+            parser.error("--remat, --loss-chunk and --steps-per-dispatch "
+                         "are options of the transformer")
         config, trainer = CNNConfig(), train_cnn
         shape = {"model": config.model, "batch": config.batch,
                  "image_size": config.image_size, "dtype": config.dtype}
     else:
-        config, trainer = TrainConfig(sp=args.sp), train
+        config, trainer = TrainConfig(
+            sp=args.sp, remat=args.remat, loss_chunk=args.loss_chunk,
+            steps_per_dispatch=k), train
         shape = {"model": "TransformerLM", "layers": config.layers,
-                 "sp": config.sp}
+                 "sp": config.sp, "remat": config.remat,
+                 "loss_chunk": config.loss_chunk, "steps_per_dispatch": k}
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
 
     def around_step(i):
         return prof if i == WARMUP_STEPS else contextlib.nullcontext()
 
     try:
-        result = trainer(config, WARMUP_STEPS + 1, device="cuda",
+        result = trainer(config, (WARMUP_STEPS + 1) * (k or 1), device="cuda",
                          around_step=around_step)
         dev = basics.device()
-        wall_us = result.step_s[-1] * 1e6
+        wall_us = (result.dispatch_s if k else result.step_s)[-1] * 1e6
         # Device-side events, without the ranges of user annotations (such
         # as the optimizer's), which span kernels and the gaps between them.
         kernels = [e for e in prof.events()
@@ -113,8 +129,12 @@ def main(argv=None) -> None:
             entry["ms"] += t / 1e3
             if len(entry["top"]) < 3:
                 entry["top"].append(n[:100])
+        graphed = {}
+        if k:
+            graphed = {"capture_s": result.capture_s,
+                       "graph_kernels_seen": len(kernels) > 0}
         print(json.dumps({
-            "device": torch.cuda.get_device_name(dev), **shape,
+            "device": torch.cuda.get_device_name(dev), **shape, **graphed,
             "step_wall_ms": wall_us / 1e3,
             "device_busy_ms": busy / 1e3,
             "idle_share": 1.0 - busy / wall_us if wall_us else None,

@@ -14,6 +14,16 @@ one global batch, each rank a ``seq // k`` shard of it, with attention
 around the ring. The loss averages over the world and the gradients over
 the whole world, as the JAX dp×sp step's ``axis_name=("dp", "sp")``.
 ``sp = None`` is plain data parallelism with no ring.
+
+The long-context options are the JAX example's: ``remat`` recomputes each
+block in the backward pass, ``loss_chunk > 0`` computes the loss from the
+normed hidden states over sequence chunks (``chunked_lm_loss``), and
+``logits_dtype = "bfloat16"`` runs the LM head in bf16 (the loss upcasts
+before the cross entropy). ``steps_per_dispatch = K`` trains from a
+``data.DeviceCache`` of ``CACHE_ROWS`` sequences through
+``loop.make_scan_train_loop``: on the card one CUDA graph of the whole
+step, replayed K times per dispatch, with Adam built ``capturable``;
+``metric_average`` then runs once per dispatch, on the mean loss.
 """
 
 from __future__ import annotations
@@ -28,8 +38,15 @@ import torch
 from . import optimizer as hvd_opt
 from .common import basics
 from .convert import jax_ordered
-from .models.transformer import TransformerLM, init_weights, lm_loss
+from .data import DeviceCache
+from .loop import make_scan_train_loop
+from .models.transformer import (TransformerLM, chunked_lm_loss, init_weights,
+                                 next_tokens, token_loss)
 from .parallel.mesh import DpSp, dp_sp_groups
+
+# Sequences per rank in the DeviceCache of a graphed run (8 x 4096 int64
+# tokens and as many targets: 0.5 MB).
+CACHE_ROWS = 8
 
 
 @dataclass
@@ -50,6 +67,22 @@ class TrainConfig:
     dtype: str = "bfloat16"             # activations; params stay float32
     seed: int = 0
     sp: Optional[int] = None            # ring size; None: no ring
+    remat: bool = False                 # recompute each block in backward
+    loss_chunk: int = 0                 # > 0: chunked_lm_loss over chunks
+    logits_dtype: str = "float32"       # the LM head's
+    steps_per_dispatch: Optional[int] = None   # K steps per CUDA graph dispatch
+
+    def __post_init__(self):
+        if self.loss_chunk < 0:
+            raise ValueError(f"loss_chunk must be >= 0, got {self.loss_chunk}")
+        if self.loss_chunk and self.logits_dtype != "float32":
+            raise ValueError(
+                f"logits_dtype {self.logits_dtype} does not reach the "
+                "loss_chunk path (chunked_lm_loss does its own float32 head "
+                "product); drop one of the two")
+        if self.steps_per_dispatch is not None and self.steps_per_dispatch < 1:
+            raise ValueError(f"steps_per_dispatch must be >= 1, got "
+                             f"{self.steps_per_dispatch}")
 
 
 @dataclass
@@ -59,6 +92,10 @@ class TrainResult:
     tokens_per_step: int = 0                          # over all ranks
     num_buckets: int = 0
     params: int = 0
+    # With steps_per_dispatch: per dispatch of K steps instead of per step.
+    dispatch_losses: list = field(default_factory=list)   # mean, rank-averaged
+    dispatch_s: list = field(default_factory=list)        # host clock
+    capture_s: Optional[float] = None                     # warm-up + capture
 
 
 def build_model(config: TrainConfig, device, sp_group=None) -> TransformerLM:
@@ -67,46 +104,76 @@ def build_model(config: TrainConfig, device, sp_group=None) -> TransformerLM:
         vocab=config.vocab, dim=config.dim, heads=config.heads,
         layers=config.layers, mlp_ratio=config.mlp_ratio,
         dtype=getattr(torch, config.dtype), attention=config.attention,
-        kv_heads=config.kv_heads, sp_group=sp_group,
+        kv_heads=config.kv_heads, logits_dtype=getattr(torch, config.logits_dtype),
+        sp_group=sp_group, remat=config.remat,
     ).to(device)
     gen = torch.Generator(device=device).manual_seed(config.seed)
     init_weights(model, gen)
     return model
 
 
-def make_batch(config: TrainConfig, rank: int, device) -> torch.Tensor:
-    """This rank's token batch, drawn from (seed, rank)."""
+def make_batch(config: TrainConfig, rank: int, device,
+               rows: Optional[int] = None) -> torch.Tensor:
+    """This rank's token batch (``rows`` sequences, default the batch),
+    drawn from (seed, rank)."""
     gen = torch.Generator(device="cpu").manual_seed(
         config.seed * 1_000_003 + 7919 * (rank + 1))
-    tokens = torch.randint(0, config.vocab, (config.batch, config.seq),
+    tokens = torch.randint(0, config.vocab, (rows or config.batch, config.seq),
                            generator=gen)
     return tokens.to(device)
 
 
-def make_shard(config: TrainConfig, sp: DpSp, device):
+def make_shard(config: TrainConfig, sp: DpSp, device,
+               rows: Optional[int] = None):
     """(tokens, positions) of this rank's sequence shard: the global batch
-    of its ring (drawn from (seed, dp index), so every rank of a ring
-    shares it) cut into ``sp_size`` pieces, and the piece's global
-    positions ``sp_rank * T_local + arange(T_local)``."""
+    of its ring (``rows`` sequences, drawn from (seed, dp index), so every
+    rank of a ring shares it) cut into ``sp_size`` pieces, and the piece's
+    global positions ``sp_rank * T_local + arange(T_local)``."""
     if config.seq % sp.sp_size:
         raise ValueError(f"seq {config.seq} not divisible by sp {sp.sp_size}")
     t_local = config.seq // sp.sp_size
     start = sp.sp_rank * t_local
-    tokens = make_batch(config, sp.dp_index, device)[:, start:start + t_local]
+    tokens = make_batch(config, sp.dp_index, device, rows)[:, start:start + t_local]
     positions = torch.arange(start, start + t_local, device=device)[None, :]
     return tokens.contiguous(), positions
 
 
-def make_train_step(model: TransformerLM, opt: hvd_opt.DistributedOptimizer,
-                    positions: Optional[torch.Tensor] = None):
-    """``step(tokens) -> loss`` (a 0-d tensor on the device, this rank's).
-    On a sequence shard the targets are the shard's tokens rolled left by
-    one within the shard, as the JAX dp×sp step takes them
-    (``jnp.roll(tokens, -1, axis=1)`` on the local shard)."""
+def make_cache(config: TrainConfig, sp: Optional[DpSp], device) -> DeviceCache:
+    """This rank's ``DeviceCache`` of ``CACHE_ROWS`` sequences (at least a
+    batch) drawn from (seed, rank), or with ``sp`` from (seed, dp index) and
+    cut to this rank's shard, so the ranks of a ring hold the same rows and,
+    with the same seed, draw them in the same order. The targets are each
+    row rolled left by one (within the shard), as ``lm_loss`` takes them."""
+    rows = max(CACHE_ROWS, config.batch)
+    if sp is None:
+        tokens = make_batch(config, basics.rank(), "cpu", rows)
+    else:
+        tokens, _ = make_shard(config, sp, "cpu", rows)
+    return DeviceCache(tokens, next_tokens(tokens), batch_size=config.batch,
+                       seed=config.seed, device=device)
 
-    def step(tokens: torch.Tensor) -> torch.Tensor:
+
+def make_train_step(model: TransformerLM, opt: hvd_opt.DistributedOptimizer,
+                    positions: Optional[torch.Tensor] = None,
+                    loss_chunk: int = 0):
+    """``step(tokens, targets=None) -> loss`` (a 0-d tensor on the device,
+    this rank's): zero_grad, forward, loss, backward, ``opt.step()``.
+    ``targets`` default to the tokens rolled left by one; on a sequence
+    shard within the shard, as the JAX dp×sp step takes them
+    (``jnp.roll(tokens, -1, axis=1)`` on the local shard). ``loss_chunk >
+    0`` takes the loss from the hidden states with ``chunked_lm_loss``."""
+
+    def step(tokens: torch.Tensor, targets: Optional[torch.Tensor] = None
+             ) -> torch.Tensor:
+        if targets is None:
+            targets = next_tokens(tokens)
         opt.zero_grad()
-        loss = lm_loss(model(tokens, positions), tokens)
+        if loss_chunk:
+            hidden = model(tokens, positions, return_hidden=True)
+            loss = chunked_lm_loss(hidden, model.lm_head.weight, targets,
+                                   loss_chunk)
+        else:
+            loss = token_loss(model(tokens, positions), targets)
         loss.backward()
         opt.step()
         return loss.detach()
@@ -114,37 +181,78 @@ def make_train_step(model: TransformerLM, opt: hvd_opt.DistributedOptimizer,
     return step
 
 
-def train(config: TrainConfig, steps: int, device=None,
-          around_step: Optional[Callable[[int], ContextManager]] = None,
-          ) -> TrainResult:
-    """init -> model -> broadcasts -> ``steps`` steps on one repeated batch.
+@dataclass
+class Setup:
+    """What ``setup`` builds for one rank."""
 
-    ``around_step(i)``, if given, returns a context manager that step ``i``
-    runs inside (a profiler around one step, for example).
-    """
+    model: TransformerLM
+    opt: hvd_opt.DistributedOptimizer
+    step: Callable
+    sp: Optional[DpSp]
+    tokens_per_step: int                # over all ranks
+
+
+def setup(config: TrainConfig, device=None) -> Setup:
+    """init -> model -> broadcasts -> the train step. Adam is built
+    ``capturable`` when ``config.steps_per_dispatch`` is set and the device
+    is the card, so that its step can be captured in a CUDA graph."""
     basics.init(device)
     dev = basics.device()
     sp = dp_sp_groups(config.sp) if config.sp is not None else None
     model = build_model(config, dev, sp.group if sp else None)
     named = jax_ordered(model.named_parameters())
     hvd_opt.broadcast_parameters(named, root_rank=0)
+    capturable = config.steps_per_dispatch is not None and dev.type == "cuda"
     opt = hvd_opt.DistributedOptimizer(
-        torch.optim.Adam([p for _, p in named], lr=config.lr), named)
+        torch.optim.Adam([p for _, p in named], lr=config.lr,
+                         capturable=capturable), named)
     hvd_opt.broadcast_optimizer_state(opt, root_rank=0)
-    if sp is None:
-        tokens, positions = make_batch(config, basics.rank(), dev), None
+    positions = None
+    if sp is not None:
+        _, positions = make_shard(config, sp, dev)
+    tokens_local = config.batch * config.seq // (sp.sp_size if sp else 1)
+    return Setup(model=model, opt=opt, sp=sp,
+                 step=make_train_step(model, opt, positions, config.loss_chunk),
+                 tokens_per_step=tokens_local * basics.size())
+
+
+def train(config: TrainConfig, steps: int, device=None,
+          around_step: Optional[Callable[[int], ContextManager]] = None,
+          ) -> TrainResult:
+    """init -> model -> broadcasts -> ``steps`` steps: on one repeated
+    batch, or with ``config.steps_per_dispatch = K`` in ``steps / K``
+    dispatches of the graphed loop over a ``DeviceCache``.
+
+    ``around_step(i)``, if given, returns a context manager that step ``i``
+    (dispatch ``i`` of a graphed run) runs inside (a profiler around it,
+    for example).
+    """
+    s = setup(config, device)
+    dev = basics.device()
+    result = TrainResult(tokens_per_step=s.tokens_per_step,
+                         num_buckets=s.opt.plan.num_buckets,
+                         params=sum(p.numel() for p in s.model.parameters()))
+    k = config.steps_per_dispatch
+    if k is None:
+        tokens = make_batch(config, basics.rank(), dev) if s.sp is None \
+            else make_shard(config, s.sp, dev)[0]
     else:
-        tokens, positions = make_shard(config, sp, dev)
-    step = make_train_step(model, opt, positions)
-    result = TrainResult(tokens_per_step=tokens.numel() * basics.size(),
-                         num_buckets=opt.plan.num_buckets,
-                         params=sum(p.numel() for _, p in named))
-    for i in range(steps):
+        if steps % k:
+            raise ValueError(f"steps {steps} not a multiple of "
+                             f"steps_per_dispatch {k}")
+        loop = make_scan_train_loop(s.step, make_cache(config, s.sp, dev), k,
+                                    optimizer=s.opt)
+        if dev.type == "cuda":
+            loop.capture()
+            result.capture_s = loop.capture_s
+    losses, times = ((result.losses, result.step_s) if k is None
+                     else (result.dispatch_losses, result.dispatch_s))
+    for i in range(steps if k is None else steps // k):
         with around_step(i) if around_step else contextlib.nullcontext():
             t0 = time.perf_counter()
-            loss = step(tokens)
-            result.losses.append(hvd_opt.metric_average(loss.item()))
+            loss = s.step(tokens) if k is None else loop()
+            losses.append(hvd_opt.metric_average(loss.item()))
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
-            result.step_s.append(time.perf_counter() - t0)
+            times.append(time.perf_counter() - t0)
     return result

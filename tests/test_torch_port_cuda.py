@@ -1,8 +1,10 @@
 """The CUDA kernels against their plain versions, on the card: the flash
 kernels (B1-B3) and the ring-flash kernels (B4-B6); the sequence-parallel
 training step over NCCL on every visible GPU; the CNN step on the card
-against the CPU's; and ResNet-50 data parallelism over NCCL on every
-visible GPU (tests/torch_port_cnn_worker.py).
+against the CPU's; ResNet-50 data parallelism over NCCL on every visible
+GPU (tests/torch_port_cnn_worker.py); the graphed training loop against
+eager steps, on one card and over NCCL on every visible GPU
+(tests/torch_port_graph_worker.py); remat against no remat on the card.
 
 Needs an NVIDIA Hopper GPU and nvcc; elsewhere every test skips. Run on
 the card with (conftest.py imports jax, which the GPU machine need not
@@ -27,9 +29,13 @@ tests/test_torch_port_cnn.py's limits: logits and loss 1e-4 of
 max(1, max|ref|) and BatchNorm statistics 1e-5 of max|ref| in float32,
 and, in float64, every gradient to 1e-4 relative norm (in float32 a ReLU
 input within rounding of 0 flips between the two and moves the gradient
-below by far more).
+below by far more). The graphed loop is held to the eager steps on the
+same draws from the same weights with the same capturable Adam: every
+loss and every parameter within 1e-6 relative (the same kernels in the
+same order, so bit-equal is expected); remat to no remat, the same.
 """
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -489,3 +495,105 @@ def test_cnn_world_resnet50_data_parallel(cnn_world):
     n, out = cnn_world
     print(out)
     assert f"ok cnn world {n}" in out
+
+
+# ---------------------------------------------------- the graphed loop
+
+SMALL = dict(vocab=512, dim=256, heads=2, layers=2, seq=256)
+
+
+def test_graphed_loop_matches_eager_steps(cuda, monkeypatch):
+    """Two dispatches of K = 2 steps from one CUDA graph against four eager
+    steps of the same step on the same draws; the flash kernels launch at
+    capture only (one step's worth), the replays run them unseen."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import train
+    from horovod_tpu_torch.loop import make_scan_train_loop
+
+    for var in ("HOROVOD_RANK", "HOROVOD_SIZE", "RANK", "WORLD_SIZE",
+                "MASTER_ADDR", "MASTER_PORT", "HOROVOD_COORD_ADDR"):
+        monkeypatch.delenv(var, raising=False)
+    config = train.TrainConfig(**SMALL, steps_per_dispatch=2)
+    try:
+        s = train.setup(config, "cuda")
+        cache = train.make_cache(config, None, cuda)
+        loop = make_scan_train_loop(s.step, cache, 2, optimizer=s.opt)
+        loop.warm_up()
+        fa.reset_launches()
+        got = []
+        for _ in range(2):
+            loop()
+            got += loop.losses.tolist()
+        assert fa.launches == {"flash_fwd": 2, "flash_bwd_dq": 2,
+                               "flash_bwd_dkv": 2}
+        e = train.setup(config, "cuda")
+        ctr, want = cache.counter(), []
+        for _ in range(4):
+            x, y, ctr = cache.sample(ctr)
+            want.append(e.step(x, y).item())
+        for g, w in zip(got, want):
+            assert abs(g - w) <= 1e-6 * abs(w), (got, want)
+        for p, q in zip(s.model.parameters(), e.model.parameters()):
+            assert (p - q).abs().max().item() <= 1e-6 * q.abs().max().item()
+    finally:
+        hvd.shutdown()
+
+
+@pytest.mark.parametrize("attention", ["flash", "dense"])
+def test_remat_matches_no_remat_on_the_card(cuda, attention):
+    from horovod_tpu_torch import train
+    from horovod_tpu_torch.models.transformer import lm_loss
+
+    config = train.TrainConfig(**SMALL, attention=attention)
+    tokens = train.make_batch(config, 0, cuda)
+    res = []
+    for remat in (True, False):
+        model = train.build_model(dataclasses.replace(config, remat=remat), cuda)
+        loss = lm_loss(model(tokens), tokens)
+        loss.backward()
+        res.append((loss.item(), [p.grad for p in model.parameters()]))
+    (la, ga), (lb, gb) = res
+    assert abs(la - lb) <= 1e-6 * abs(lb)
+    for a, b in zip(ga, gb):
+        assert (a - b).norm().item() <= 1e-6 * b.norm().item()
+
+
+@pytest.fixture(scope="module")
+def graph_world():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA devices")
+    n = torch.cuda.device_count()
+    port = free_port()
+    procs = []
+    for rank in range(n):
+        env = dict(os.environ, HOROVOD_RANK=str(rank), HOROVOD_SIZE=str(n),
+                   HOROVOD_LOCAL_RANK=str(rank), HOROVOD_LOCAL_SIZE=str(n),
+                   HOROVOD_COORD_ADDR=f"127.0.0.1:{port}")
+        for var in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE"):
+            env.pop(var, None)
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.join(REPO, "tests", "torch_port_graph_worker.py")],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    failures, outs = [], []
+    for rank, proc in enumerate(procs):
+        try:
+            out, err = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+        outs.append(out)
+        if proc.returncode != 0:
+            failures.append(f"rank {rank} exit {proc.returncode}:\n{err[-3000:]}")
+    assert not failures, "\n".join(failures)
+    return n, outs[0]
+
+
+def test_graph_world_data_parallel_matches_eager(graph_world):
+    n, out = graph_world
+    print(out)
+    assert f"ok graph dp world {n}" in out
+
+
+def test_graph_world_sequence_parallel_matches_eager(graph_world):
+    n, out = graph_world
+    assert f"ok graph sp world {n}" in out

@@ -79,15 +79,35 @@ prints no result):
     parameter within 1e-6 relative; the largest difference printed), the
     capture time, the peak memory and the tokens/s eager and graphed by
     the benchmark's median-window method;
-14. the ``{"kernels": [...]}`` line (all six kernels, each with its
-    launches on every path above; phase 10 runs none of them), then
-    ``{"ok": true, ...}`` last.
+14. hierarchical data parallelism, ResNet-50 at full width through
+    ``DistributedOptimizer(hierarchical=True)`` on the ``('dcn', 'ici')``
+    groups of a world of one (both groups of one rank; every collective
+    of the ladder is still issued): flat against hierarchical at the
+    graft demo's 1 MiB bucket cap, and flat with the bf16 wire against
+    hierarchical with ``HOROVOD_DCN_COMPRESSION=bf16``, each pair bit for
+    bit in the loss of every step and in every parameter after the last;
+    img/s of flat and hierarchical at 1 MiB and of hierarchical at 64 MiB
+    beside phase 10's flat 64 MiB; buckets and the ladder's collectives
+    per step (one reduce-scatter, allreduce and all-gather per bucket);
+15. Ulysses on the flash kernels: a virtual world of 4 on the card, in
+    lockstep, the all-to-all as list re-indexing, the head shard's
+    attention through ``ring_attention.head_shard_attention`` (B1-B3),
+    at the slice's layer (1, 4096, 8, 128) bf16 and a GQA layer (8 q
+    heads over 4, D 128), output and gradients against one
+    whole-sequence ``flash_attention``, 4 launches of each kernel per
+    virtual pass; B1-B3 checked and timed at the head shard (1, 4096, 2,
+    128) as phases 2 and 3 do; ``ulysses_attention(group=None,
+    impl="flash")`` against ``flash_attention``, bit for bit;
+16. the ``{"kernels": [...]}`` line (all six kernels, each with its
+    launches on every path above; phases 10 and 14 run none of them),
+    then ``{"ok": true, ...}`` last.
 
 Both CUDA sources build at once, one nvcc each, at the start.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -1130,6 +1150,218 @@ def graphed_against_eager(torch, fa, rf, basics, train_mod, loop_mod, bench,
     torch.cuda.empty_cache()
 
 
+# Phase 14. A world of one: each group of the ladder has one rank, so the
+# ladder moves the same bytes as the flat allreduce and both pairs are
+# expected bit-equal. The bf16 pair rounds the same float32 bucket to bf16
+# once: the flat path casts the bucket, the ladder casts its DCN shard,
+# which is the whole bucket.
+HIER_THRESHOLD = 1 << 20
+HIER_COLLECTIVES = ("reduce_scatter_tensor", "all_reduce", "all_gather_into_tensor")
+
+
+class CountCollectives:
+    """Count the calls of ``torch.distributed``'s collectives made inside
+    the ``with`` block (the port calls them as ``dist.<name>``)."""
+
+    def __init__(self, dist):
+        self.dist, self.counts, self.saved = dist, {}, {}
+
+    def __enter__(self):
+        for name in HIER_COLLECTIVES:
+            fn = self.saved[name] = getattr(self.dist, name)
+
+            def counted(*args, _fn=fn, _name=name, **kwargs):
+                self.counts[_name] = self.counts.get(_name, 0) + 1
+                return _fn(*args, **kwargs)
+
+            setattr(self.dist, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.dist, name, fn)
+
+
+def hierarchical_variant(torch, tc, basics, config, dcn_env=None) -> dict:
+    """STEPS steps of ``config`` through ``setup_cnn``/``run_cnn``; the
+    collectives of step 1 counted. Returns the result, the parameters
+    after the last step (on the card) and the counts."""
+    import torch.distributed as dist
+
+    if dcn_env is not None:
+        os.environ["HOROVOD_DCN_COMPRESSION"] = dcn_env
+    try:
+        s = tc.setup_cnn(config, "cuda")
+    finally:
+        os.environ.pop("HOROVOD_DCN_COMPRESSION", None)
+    counter = CountCollectives(dist)
+
+    def around(i):
+        return counter if i == 1 else contextlib.nullcontext()
+
+    result = tc.run_cnn(s, STEPS, around)
+    params = {n: p.detach().clone() for n, p in s.model.named_parameters()}
+    wires = sorted({str(w).removeprefix("torch.") for w in s.opt.wires[1]})
+    del s
+    basics.shutdown()
+    torch.cuda.empty_cache()
+    return {"result": result, "params": params, "counts": counter.counts,
+            "dcn_wires": wires}
+
+
+def hold_bit_equal(label, a, b) -> None:
+    la, lb = a["result"].losses, b["result"].losses
+    differ = [n for n in b["params"] if not bool((a["params"][n] == b["params"][n]).all())]
+    log(f"  {label}: losses {la} vs {lb}; parameters that differ after step "
+        f"{STEPS}: {len(differ)} of {len(b['params'])}")
+    if la != lb or differ:
+        worst = max(((a["params"][n] - b["params"][n]).abs().max().item(), n)
+                    for n in differ) if differ else None
+        raise AssertionError(f"{label}: not bit-equal (losses {la} vs {lb}; "
+                             f"largest parameter difference {worst})")
+
+
+def hierarchical_resnet(torch, tc, basics, card, flat_64) -> dict:
+    base = tc.CNNConfig(fusion_threshold=HIER_THRESHOLD)
+    variants = {
+        "flat, 1 MiB": (dataclasses.replace(base, hierarchical=False), None),
+        "hierarchical, 1 MiB": (dataclasses.replace(base, hierarchical=True), None),
+        "flat, 1 MiB, bf16 wire": (dataclasses.replace(
+            base, hierarchical=False, compression="bf16"), None),
+        "hierarchical, 1 MiB, DCN bf16": (dataclasses.replace(
+            base, hierarchical=True), "bf16"),
+        "hierarchical, 64 MiB": (tc.CNNConfig(hierarchical=True), None),
+    }
+    runs = {}
+    for label, (config, dcn_env) in variants.items():
+        run = runs[label] = hierarchical_variant(torch, tc, basics, config, dcn_env)
+        res = run["result"]
+        if not all(math.isfinite(x) for x in res.losses) or \
+                not res.losses[-1] < res.losses[0]:
+            raise AssertionError(f"{label}: losses {res.losses}")
+        want = {"reduce_scatter_tensor": res.num_buckets,
+                "all_reduce": res.num_buckets + 1,      # + metric_average
+                "all_gather_into_tensor": res.num_buckets} if res.hierarchical \
+            else {"all_reduce": res.num_buckets + 1}
+        log(f"  {label}: hierarchical {res.hierarchical} (ici {res.ici_size}, "
+            f"dcn {res.dcn_size}), DCN wires {run['dcn_wires']}, "
+            f"{res.num_buckets} buckets, collectives in step 1 {run['counts']} "
+            f"(one all_reduce is metric_average's)")
+        if run["counts"] != want:
+            raise AssertionError(f"{label}: collectives {run['counts']}, expected {want}")
+    hold_bit_equal("flat vs hierarchical, 1 MiB", runs["flat, 1 MiB"],
+                   runs["hierarchical, 1 MiB"])
+    hold_bit_equal("flat bf16 wire vs hierarchical DCN bf16, 1 MiB",
+                   runs["flat, 1 MiB, bf16 wire"],
+                   runs["hierarchical, 1 MiB, DCN bf16"])
+    rates = {"flat, 64 MiB (phase 10)": flat_64}
+    for label, run in runs.items():
+        res = run["result"]
+        rates[label] = res.images_per_step / statistics.median(res.step_s[1:])
+    log(f"  img/s, median of steps 1-4, on {card}: " + "; ".join(
+        f"{k} {v:.1f}" for k, v in rates.items()))
+    return rates
+
+
+# Phase 15. The virtual world's head shards run the same kernels on the
+# same rows as the whole-sequence call (a row's program does not depend on
+# how many rows the grid holds), so bit-equality is expected.
+ULYSSES_N = 4
+ULYSSES_LAYERS = [
+    # (B, T whole, H, Hkv, D)
+    (1, 4096, 8, 8, 128),
+    (1, 4096, 8, 4, 128),
+]
+
+
+def virtual_ulysses(torch, ra, q, k, v, g):
+    """Ulysses over ULYSSES_N virtual ranks on one card: rank r's head
+    shard is every rank's sequence shard of head chunk r, in rank order;
+    its attention runs through ``head_shard_attention`` (flash), forward
+    and backward with dO = the head shard of ``g``; the result and
+    gradients are put back together along the heads."""
+    n = ULYSSES_N
+
+    def to_heads(x, r):
+        return torch.cat([s.chunk(n, dim=2)[r] for s in x.chunk(n, dim=1)], dim=1)
+
+    outs, grads = [], []
+    for r in range(n):
+        leaves = [to_heads(x, r).requires_grad_(True) for x in (q, k, v)]
+        out = ra.head_shard_attention(*leaves, impl="flash")
+        out.backward(to_heads(g, r))
+        outs.append(out.detach())
+        grads.append([x.grad for x in leaves])
+    return (torch.cat(outs, dim=2),
+            *(torch.cat([gr[i] for gr in grads], dim=2) for i in range(3)))
+
+
+def flash_with_grads(fn, q, k, v, g):
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    out = fn(*leaves)
+    out.backward(g)
+    return (out.detach(), *(x.grad for x in leaves))
+
+
+def hold_same(torch, label, got, want) -> bool:
+    """Bit-equal, or else within phase 2's bf16 kernel limits; returns
+    whether bit-equal."""
+    same = []
+    for name, a, b in zip(("out", "dq", "dk", "dv"), got, want):
+        same.append(torch.equal(a, b))
+        if not same[-1]:
+            check(torch, f"{label} {name}", a, b)
+    log(f"  {label}: " + ", ".join(f"{n} {'bit-equal' if e else 'not bit-equal'}"
+                                   for n, e in zip(("out", "dq", "dk", "dv"), same)))
+    return all(same)
+
+
+def ulysses_on_card(torch, fa, rf, ra, dev, timing, paths) -> dict:
+    for layer in ULYSSES_LAYERS:
+        b, t, h, hkv, d = layer
+        gen = torch.Generator(device=dev).manual_seed(8080 + hkv)
+        q, k, v, g = (torch.randn(b, t, hh, d, generator=gen, device=dev)
+                      .to(torch.bfloat16) for hh in (h, hkv, hkv, h))
+        read_counts(fa, rf)
+        got = virtual_ulysses(torch, ra, q, k, v, g)
+        torch.cuda.synchronize()
+        counts = read_counts(fa, rf)
+        hold_counts(f"virtual Ulysses {layer}", counts,
+                    {k_: ULYSSES_N for k_ in KERNELS})
+        paths[f"15: Ulysses, virtual world of {ULYSSES_N}, {layer}"] = counts
+        want = flash_with_grads(fa.flash_attention, q, k, v, g)
+        hold_same(torch, f"virtual Ulysses {layer} vs whole-sequence flash",
+                  got, want)
+        one = flash_with_grads(lambda a, b_, c: ra.ulysses_attention(
+            a, b_, c, None, impl="flash"), q, k, v, g)
+        if not hold_same(torch, f"ulysses_attention(group=None) {layer} vs "
+                                "flash_attention", one, want):
+            raise AssertionError("ulysses_attention in a world of one is not "
+                                 "flash_attention bit for bit")
+        read_counts(fa, rf)
+        torch.cuda.empty_cache()
+    # Every head shard the layers above ran (MHA and GQA), each kernel
+    # against its plain version; the MHA shard is timed.
+    shards = [(b, t, h // ULYSSES_N, hkv // ULYSSES_N, d, True, "bfloat16")
+              for b, t, h, hkv, d in ULYSSES_LAYERS]
+    inputs = {}
+    for shard in shards:
+        log(f"  the head shard {shard}: each kernel against its plain version")
+        _, inputs[shard] = check_shape(torch, fa, dev, shard)
+    shard = shards[0]
+    log(f"  timing at the head shard {shard}")
+    rows = time_kernels(torch, fa, inputs[shard], shard)
+    del inputs
+    read_counts(fa, rf)
+    for name, row in rows.items():
+        full = timing[name]["ms"]
+        log(f"  {name:14s} head shard {row['ms']:.4f} ms, whole layer "
+            f"{full:.4f} ms: {row['ms'] / full:.3f} of it (a quarter of the "
+            f"heads: {ULYSSES_N} launches take {ULYSSES_N * row['ms'] / full:.3f})")
+    torch.cuda.empty_cache()
+    return rows
+
+
 def config_label(config) -> str:
     return "TrainConfig(sp=1)" if config.sp else "TrainConfig()"
 
@@ -1279,6 +1511,14 @@ def main() -> int:
         graphed_against_eager(torch, fa, rf, basics, train_mod, loop_mod,
                               bench, config, dev, paths)
 
+    log(f"[14] hierarchical data parallelism: ResNet-50 on the ('dcn', 'ici') "
+        f"groups of a world of one, {HIER_THRESHOLD} and 64 MiB bucket caps")
+    flat_64 = cnn_result.images_per_step / statistics.median(cnn_result.step_s[1:])
+    hierarchical_resnet(torch, tc, basics, card, flat_64)
+
+    log(f"[15] Ulysses on the flash kernels: a virtual world of {ULYSSES_N}")
+    shard_timing = ulysses_on_card(torch, fa, rf, ra, dev, timing, paths)
+
     kernels = []
     for source, names in SOURCES.items():
         for kname in names:
@@ -1288,6 +1528,8 @@ def main() -> int:
                    "replaces": replaces, "launches": counts[kname],
                    "max_abs_err": errs[kname], **timing[kname],
                    "launches_by_path": {p: c[kname] for p, c in paths.items()}}
+            if kname in shard_timing:
+                row["ulysses_head_shard"] = shard_timing[kname]
             if kname in compiled:   # bf16 runs on flash_tc.cuh's tensor-core kernel
                 row["bf16_kernel"] = {"header": "horovod_tpu_torch/csrc/flash_tc.cuh",
                                       "compiled": compiled[kname]}

@@ -21,13 +21,20 @@ from .common.basics import (cross_rank, cross_size, device, init,
 from .compression import Compression
 from .optimizer import (DistributedOptimizer, broadcast_optimizer_state,
                         broadcast_parameters, metric_average)
-from .parallel.collectives import (ReduceOp, allgather, allreduce, broadcast,
-                                   bucketed_allreduce)
+from .parallel.collectives import (ReduceOp, allgather, allreduce, alltoall,
+                                   broadcast, bucketed_allreduce,
+                                   grouped_allreduce, hierarchical_allgather,
+                                   hierarchical_allreduce, reducescatter,
+                                   sparse_allreduce)
+from .parallel.mesh import (DCN_AXIS, HVD_AXIS, ICI_AXIS, Hierarchy,
+                            hierarchical_groups)
 
 __all__ = [
-    "Compression", "DistributedOptimizer", "ReduceOp", "allgather",
-    "allreduce", "broadcast", "broadcast_optimizer_state",
-    "broadcast_parameters", "bucketed_allreduce", "cross_rank", "cross_size",
-    "device", "init", "is_initialized", "local_rank", "local_size",
-    "metric_average", "rank", "shutdown", "size",
+    "Compression", "DCN_AXIS", "DistributedOptimizer", "HVD_AXIS", "Hierarchy",
+    "ICI_AXIS", "ReduceOp", "allgather", "allreduce", "alltoall", "broadcast",
+    "broadcast_optimizer_state", "broadcast_parameters", "bucketed_allreduce",
+    "cross_rank", "cross_size", "device", "grouped_allreduce",
+    "hierarchical_allgather", "hierarchical_allreduce", "hierarchical_groups",
+    "init", "is_initialized", "local_rank", "local_size", "metric_average",
+    "rank", "reducescatter", "shutdown", "size", "sparse_allreduce",
 ]

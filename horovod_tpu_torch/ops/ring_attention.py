@@ -1,6 +1,6 @@
-"""Sequence-parallel ring attention, plain PyTorch: the counterpart of
-``horovod_tpu.ops.ring_attention`` (its zigzag layout helpers, the dense
-oracle and the einsum ring).
+"""Sequence-parallel attention, the counterpart of
+``horovod_tpu.ops.ring_attention``: its zigzag layout helpers, the dense
+oracle, the einsum ring, and Ulysses.
 
 ``ring_attention(q, k, v, group, zigzag)`` takes this rank's sequence shard
 q ``(B, T_local, H, D)`` and k/v ``(B, T_local, Hkv, D)`` and returns its
@@ -16,6 +16,13 @@ with the block product in CUDA kernels, is
 communication). Which steps are fully masked is decided on the host from
 the positions, which are a pure function of (rank, T_local, n, zigzag), so
 no step reads a device value.
+
+``ulysses_attention(q, k, v, group, impl)`` trades the sequence shard for a
+head shard with one all-to-all per tensor, ``(B, T/n, H, D) -> (B, T,
+H/n, D)``, runs causal attention on the whole sequence for its heads
+(einsums, or ``flash_attention``'s kernels with ``impl="flash"``), and
+trades back. The all-to-alls are differentiable: the backward of each is
+the inverse all-to-all.
 """
 
 from __future__ import annotations
@@ -25,7 +32,7 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
-from ..parallel.collectives import ring_shift
+from ..parallel.collectives import alltoall, ring_shift
 
 
 def zigzag_positions(rank_idx: int, t_local: int, n: int,
@@ -195,3 +202,75 @@ def ring_attention(q, k, v, group: Optional[dist.ProcessGroup] = None,
                 o, m, l, q_pos, positions(src, t, n, zigzag, q.device), scale)
     l = torch.where(l == 0.0, torch.ones_like(l), l)
     return (o / l.transpose(1, 2)[..., None]).to(q.dtype)
+
+
+class _AllToAll(torch.autograd.Function):
+    """``alltoall`` over ``group``; its backward sends the gradient back
+    with the inverse all-to-all (split and concat dims swapped)."""
+
+    @staticmethod
+    def forward(ctx, x, group, split_dim, concat_dim):
+        ctx.geometry = (group, split_dim, concat_dim)
+        return alltoall(x, group, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        group, split_dim, concat_dim = ctx.geometry
+        return alltoall(grad.contiguous(), group, concat_dim, split_dim), None, None, None
+
+
+def to_heads(x, group: Optional[dist.ProcessGroup]):
+    """(B, T/n, H, D) sequence shard -> (B, T, H/n, D) head shard; a group
+    of one (None) hands ``x`` back."""
+    return x if group is None else _AllToAll.apply(x, group, 2, 1)
+
+
+def to_seq(x, group: Optional[dist.ProcessGroup]):
+    """The inverse of :func:`to_heads`."""
+    return x if group is None else _AllToAll.apply(x, group, 1, 2)
+
+
+def head_shard_attention(qh, kh, vh, impl: str = "dense"):
+    """Causal attention of Ulysses's head shard, q ``(B, T, h, D)`` and k/v
+    ``(B, T, hkv, D)`` with h a multiple of hkv: dense einsums (kv heads
+    repeated, masked logits at -1e30) or ``flash_attention``'s kernels,
+    whose own head grouping serves GQA."""
+    if impl == "flash":
+        from .flash_attention import flash_attention
+
+        return flash_attention(qh, kh, vh)
+    rep = qh.shape[2] // kh.shape[2]
+    if rep > 1:
+        kh = kh.repeat_interleave(rep, dim=2)
+        vh = vh.repeat_interleave(rep, dim=2)
+    scale = qh.shape[-1] ** -0.5
+    logits = torch.einsum("bqhd,bkhd->bhqk", qh, kh).float() * scale
+    pos = torch.arange(qh.shape[1], device=qh.device)
+    logits = logits.masked_fill(~(pos[:, None] >= pos[None, :]), -1e30)
+    probs = torch.softmax(logits, dim=-1).to(qh.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, vh)
+
+
+def ulysses_attention(q, k, v, group: Optional[dist.ProcessGroup] = None,
+                      impl: str = "dense"):
+    """All-to-all sequence parallelism over ``group`` (None: a group of
+    one, no call); see the module docstring. The heads must divide by the
+    group's size n, and in GQA the kv heads too, with the q heads a
+    multiple of them, so that every rank gets whole kv heads."""
+    _, n = ring_rank(group)
+    h, kvh = q.shape[2], k.shape[2]
+    if h % n != 0:
+        raise ValueError(f"heads {h} not divisible by axis size {n}")
+    if v.shape[2] != kvh:
+        raise ValueError(f"k has {kvh} heads but v has {v.shape[2]}")
+    if kvh != h and (kvh % n != 0 or h % kvh != 0):
+        raise ValueError(
+            f"GQA kv heads {kvh} must be a multiple of the axis size {n} "
+            f"(and q heads {h} a multiple of {kvh}) so the all-to-all can "
+            f"hand every device whole kv heads; use "
+            f"ring_attention/ring_flash_attention otherwise")
+    if impl not in ("dense", "flash"):
+        raise ValueError(f"unknown impl={impl!r}; use 'dense' or 'flash'")
+    out = head_shard_attention(to_heads(q, group), to_heads(k, group),
+                               to_heads(v, group), impl)
+    return to_seq(out, group)

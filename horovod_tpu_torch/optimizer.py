@@ -8,10 +8,16 @@ optimizer. The plan is built once, from the parameters in the order the
 caller gives them; to line up with the JAX package's buckets, give them in
 the order its parameter tree flattens (``convert.jax_ordered`` does so for
 the transformer).
+
+``hierarchical=True`` (or HOROVOD_HIERARCHICAL_ALLREDUCE) sends each bucket
+down the ``('dcn', 'ici')`` ladder of ``parallel.mesh.hierarchical_groups``:
+the plan pads each bucket to the ICI size and caps it by the DCN tier's
+threshold, and the DCN tier may ship at its own wire dtype.
 """
 
 from __future__ import annotations
 
+import sys
 from typing import Iterable, Mapping, Optional
 
 import torch
@@ -20,6 +26,7 @@ from .common import basics
 from .compression import Compression
 from .parallel import collectives, fusion
 from .parallel.collectives import ReduceOp
+from .parallel.mesh import hierarchical_groups
 
 
 def _resolved_threshold(fusion_threshold: Optional[int]) -> int:
@@ -43,6 +50,27 @@ def _resolved_compression(compression):
     return Compression.by_name(basics.config().compression)
 
 
+def _resolved_hierarchical(hierarchical: Optional[bool], op: ReduceOp) -> bool:
+    """None -> HOROVOD_HIERARCHICAL_ALLREDUCE. The ladder sums: an
+    env-resolved True with another op warns and runs flat, while an
+    explicit True with one raises."""
+    sums = op in (ReduceOp.SUM, ReduceOp.AVERAGE)
+    if hierarchical is not None:
+        if hierarchical and not sums:
+            raise ValueError(
+                f"hierarchical allreduce supports SUM/AVERAGE only (got "
+                f"{op}); use hierarchical=False for {op.name}")
+        return bool(hierarchical)
+    if not basics.config().hierarchical_allreduce:
+        return False
+    if not sums:
+        print(f"[horovod_tpu_torch/warning] hierarchical allreduce supports "
+              f"SUM/AVERAGE only; running {op.name} on the flat allreduce",
+              file=sys.stderr)
+        return False
+    return True
+
+
 class DistributedOptimizer:
     """Wrap ``optimizer`` so that each ``step()`` first averages the
     gradients over all ranks.
@@ -50,13 +78,26 @@ class DistributedOptimizer:
     ``backward_passes_per_step = k > 1`` lets gradients of k backward
     passes accumulate in ``.grad``; every k-th ``step()`` divides them by k
     (the mean, as ``optax.MultiSteps`` takes it), allreduces and steps, and
-    the calls between are no-ops, as is ``zero_grad()`` after them."""
+    the calls between are no-ops, as is ``zero_grad()`` after them.
+
+    ``hierarchical`` (None: HOROVOD_HIERARCHICAL_ALLREDUCE) takes the
+    ladder over ``groups`` (None: ``hierarchical_groups()``, built here,
+    once: a step captured in a CUDA graph must create no group);
+    ``dcn_compression`` (None: HOROVOD_DCN_COMPRESSION, and where that is
+    empty the policy table for adaptive, else ``compression``) and
+    ``dcn_threshold`` (None: HOROVOD_DCN_FUSION_THRESHOLD; 0 is no cap) set
+    the DCN tier's wire dtype and bucket cap; ``wires`` holds each bucket's
+    (ICI, DCN) wire dtypes. ``op`` is the reduction, AVERAGE as in
+    Horovod."""
 
     def __init__(self, optimizer: torch.optim.Optimizer,
                  named_parameters: Iterable[tuple[str, torch.Tensor]],
                  compression=None, fusion_threshold: Optional[int] = None,
                  num_buckets: Optional[int] = None,
-                 backward_passes_per_step: int = 1):
+                 backward_passes_per_step: int = 1,
+                 op: ReduceOp = ReduceOp.AVERAGE,
+                 hierarchical: Optional[bool] = None, dcn_compression=None,
+                 dcn_threshold: Optional[int] = None, groups=None):
         if backward_passes_per_step < 1:
             raise ValueError("backward_passes_per_step must be >= 1")
         named = list(named_parameters)
@@ -74,8 +115,24 @@ class DistributedOptimizer:
         self.num_buckets = _resolved_num_buckets(num_buckets)
         self.compression_min_bytes = basics.config().compression_min_bytes
         self.backward_passes_per_step = backward_passes_per_step
-        self.plan = fusion.build_plan(self.params, self.threshold,
-                                      self.num_buckets)
+        self.op = op
+        self.hierarchical = _resolved_hierarchical(hierarchical, op)
+        self.groups, pad_to = None, 1
+        threshold = self.threshold
+        if self.hierarchical:
+            self.groups = groups if groups is not None else hierarchical_groups()
+            if dcn_threshold is None:
+                dcn_threshold = basics.config().dcn_fusion_threshold
+            pad_to = self.groups.ici_size
+            threshold = fusion.dcn_capped_threshold(threshold, dcn_threshold,
+                                                    pad_to)
+        self.plan = fusion.build_plan(self.params, threshold, self.num_buckets,
+                                      pad_to)
+        # (ICI, DCN) wire dtype per bucket, chosen once: the plan and the
+        # knobs are fixed from here on.
+        self.wires = fusion.tier_wires(self.plan, op, self.compression,
+                                       self.compression_min_bytes,
+                                       self.hierarchical, dcn_compression)
         self._passes = 0
 
     def synchronize(self) -> None:
@@ -88,8 +145,9 @@ class DistributedOptimizer:
         if self.backward_passes_per_step > 1:
             for g in grads:
                 g.div_(self.backward_passes_per_step)
-        fusion.fused_allreduce_(grads, self.plan, ReduceOp.AVERAGE,
-                                self.compression, self.compression_min_bytes)
+        fusion.fused_allreduce_(grads, self.plan, self.op,
+                                hierarchical=self.hierarchical,
+                                groups=self.groups, wires=self.wires)
 
     def step(self) -> bool:
         """Allreduce and step; returns whether this call stepped."""

@@ -1,11 +1,14 @@
-"""Collectives over ``torch.distributed``: allreduce, broadcast, allgather,
-and the point-to-point ``ppermute``/``ring_shift`` of sequence parallelism.
+"""Collectives over ``torch.distributed``: the allreduces (flat, grouped
+and the hierarchical ladder), broadcast, the allgathers, reduce-scatter,
+all-to-all, the sparse allreduce, and the point-to-point
+``ppermute``/``ring_shift`` of sequence parallelism.
 
-The counterparts of ``horovod_tpu.parallel.collectives``, where the mesh
-axis becomes the default process group (or, for ``ppermute`` and
-``ring_shift``, the process group given). AVERAGE is a SUM followed by a
-divide by the world size on every backend (gloo has no AVG). Every
-reduction is issued through ``torch.distributed``, also in a world of one,
+The counterparts of ``horovod_tpu.parallel.collectives``, where a mesh
+axis becomes a process group: ``group=None`` is the whole world, and the
+ladder takes the ``('dcn', 'ici')`` groups of
+``parallel.mesh.hierarchical_groups``. AVERAGE is a SUM followed by a
+divide by the group's size on every backend (gloo has no AVG). Every
+reduction is issued through ``torch.distributed``, also in a group of one,
 so the single-card run takes the same path as a multi-card one; a
 ``ppermute`` in a group of one makes no call at all (NCCL does not send to
 itself).
@@ -37,19 +40,31 @@ _DIST_OPS = {
 }
 
 
-def allreduce_(tensor: torch.Tensor,
-               op: ReduceOp = ReduceOp.AVERAGE) -> torch.Tensor:
-    """Allreduce ``tensor`` in place and return it."""
-    dist.all_reduce(tensor, op=_DIST_OPS[op])
+Group = Optional[dist.ProcessGroup]
+
+
+def allreduce_(tensor: torch.Tensor, op: ReduceOp = ReduceOp.AVERAGE,
+               group: Group = None) -> torch.Tensor:
+    """Allreduce ``tensor`` over ``group`` in place and return it."""
+    dist.all_reduce(tensor, op=_DIST_OPS[op], group=group)
     if op == ReduceOp.AVERAGE:
-        tensor.div_(dist.get_world_size())
+        tensor.div_(dist.get_world_size(group))
     return tensor
 
 
-def allreduce(tensor: torch.Tensor,
-              op: ReduceOp = ReduceOp.AVERAGE) -> torch.Tensor:
+def allreduce(tensor: torch.Tensor, op: ReduceOp = ReduceOp.AVERAGE,
+              group: Group = None) -> torch.Tensor:
     """Allreduce into a new tensor (default: average, as hvd.allreduce)."""
-    return allreduce_(tensor.clone(), op)
+    return allreduce_(tensor.clone(), op, group)
+
+
+def grouped_allreduce(tensors, op: ReduceOp = ReduceOp.AVERAGE,
+                      group: Group = None):
+    """Allreduce a list or a dict of tensors into new ones, one collective
+    per tensor, in order."""
+    if isinstance(tensors, dict):
+        return {k: allreduce(t, op, group) for k, t in tensors.items()}
+    return [allreduce(t, op, group) for t in tensors]
 
 
 def bucketed_allreduce(buffers: Sequence[torch.Tensor],
@@ -58,17 +73,96 @@ def bucketed_allreduce(buffers: Sequence[torch.Tensor],
     return [allreduce_(b, op) for b in buffers]
 
 
-def broadcast(tensor: torch.Tensor, root_rank: int = 0) -> torch.Tensor:
-    """Overwrite ``tensor`` with root's value, in place."""
-    dist.broadcast(tensor, src=root_rank)
+def _global(group: Group, rank: int) -> int:
+    return rank if group is None else dist.get_global_rank(group, rank)
+
+
+def broadcast(tensor: torch.Tensor, root_rank: int = 0,
+              group: Group = None) -> torch.Tensor:
+    """Overwrite ``tensor`` with the value of ``root_rank`` (a rank within
+    ``group``), in place."""
+    dist.broadcast(tensor, src=_global(group, root_rank), group=group)
     return tensor
 
 
-def allgather(tensor: torch.Tensor) -> torch.Tensor:
+def allgather(tensor: torch.Tensor, group: Group = None) -> torch.Tensor:
     """Concatenate every rank's tensor along dim 0 (shapes must match)."""
-    parts = [torch.empty_like(tensor) for _ in range(dist.get_world_size())]
-    dist.all_gather(parts, tensor.contiguous())
+    parts = [torch.empty_like(tensor) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, tensor.contiguous(), group=group)
     return torch.cat(parts, dim=0)
+
+
+def reducescatter(x: torch.Tensor, group: Group = None,
+                  average: bool = False) -> torch.Tensor:
+    """Sum ``x`` over ``group`` and hand group rank j the j-th of n equal
+    dim-0 shards (dim 0 must divide by n)."""
+    n = dist.get_world_size(group)
+    if x.shape[0] % n:
+        raise ValueError(f"dim 0 of {tuple(x.shape)} not divisible by {n} ranks")
+    out = x.new_empty((x.shape[0] // n, *x.shape[1:]))
+    dist.reduce_scatter_tensor(out, x.contiguous(), group=group)
+    return out.div_(n) if average else out
+
+
+def alltoall(x: torch.Tensor, group: Group = None, split_dim: int = 0,
+             concat_dim: int = 0) -> torch.Tensor:
+    """Cut ``x`` into n pieces along ``split_dim``, send piece j to group
+    rank j, and concatenate the pieces received along ``concat_dim`` in
+    rank order (``lax.all_to_all(..., tiled=True)``)."""
+    n = dist.get_world_size(group)
+    if x.shape[split_dim] % n:
+        raise ValueError(f"dim {split_dim} of {tuple(x.shape)} not divisible "
+                         f"by {n} ranks")
+    send = torch.stack(x.chunk(n, dim=split_dim))    # piece j at [j]
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group)
+    return torch.cat(recv.unbind(0), dim=concat_dim)
+
+
+def _all_gather_into(x: torch.Tensor, group: Group) -> torch.Tensor:
+    """The group's ``x`` concatenated along dim 0 in one buffer."""
+    out = x.new_empty((x.shape[0] * dist.get_world_size(group), *x.shape[1:]))
+    dist.all_gather_into_tensor(out, x.contiguous(), group=group)
+    return out
+
+
+def hierarchical_allgather(x: torch.Tensor, groups) -> torch.Tensor:
+    """Allgather over ICI, then over DCN: the world's tensors concatenated
+    along dim 0 DCN-major, which is rank order for the ``('dcn', 'ici')``
+    layout. ``groups``: a ``parallel.mesh.Hierarchy``."""
+    return _all_gather_into(_all_gather_into(x, groups.ici_group),
+                            groups.dcn_group)
+
+
+def sparse_allreduce(values: torch.Tensor, indices: torch.Tensor,
+                     group: Group = None, average: bool = True):
+    """A sparse gradient's allreduce as two allgathers: every rank's values
+    (divided by the group's size first when ``average``) and indices,
+    concatenated along dim 0 in rank order. The caller scatter-adds them."""
+    if average:
+        values = values / dist.get_world_size(group)
+    return allgather(values, group), allgather(indices, group)
+
+
+def hierarchical_allreduce(x: torch.Tensor, groups, average: bool = True,
+                           dcn_wire_dtype: Optional[torch.dtype] = None
+                           ) -> torch.Tensor:
+    """The ladder: reduce-scatter over ICI, allreduce over DCN (at
+    ``dcn_wire_dtype`` when given: the shard is cast for that one call and
+    cast back), all-gather over ICI; the average is divided last, by the
+    world's size, as the reference divides it. Three collectives, each
+    issued also in a group of one. dim 0 must divide by the ICI size: the
+    fusion plan pads each bucket to it. ``groups``: a
+    ``parallel.mesh.Hierarchy``."""
+    shard = reducescatter(x, groups.ici_group)
+    wire = shard
+    if dcn_wire_dtype is not None and dcn_wire_dtype != shard.dtype:
+        wire = shard.to(dcn_wire_dtype)
+    dist.all_reduce(wire, group=groups.dcn_group)
+    out = _all_gather_into(wire.to(shard.dtype), groups.ici_group)
+    if average:
+        out.div_(groups.ici_size * groups.dcn_size)
+    return out
 
 
 def ppermute(tensors: Sequence[torch.Tensor], perm: Sequence[tuple[int, int]],

@@ -10,7 +10,8 @@ counterpart of the JAX package's ResNet-50 benchmark step (``bench.py``
 backward, and ``DistributedOptimizer.step`` (fused bucket allreduce, then
 SGD with momentum). BatchNorm statistics stay per rank and are never
 averaged inside the step, as in Horovod and in the JAX benchmark. It runs
-on the card unless ``device="cpu"``.
+on the card unless ``device="cpu"``. ``setup_cnn`` and ``run_cnn`` are
+its two halves, for callers that want the model after the steps.
 
 The batch is random normal images and uniform labels drawn from the seed
 and the rank: constant images would give every BatchNorm zero variance,
@@ -32,6 +33,7 @@ import torch.nn.functional as F
 from . import models
 from . import optimizer as hvd_opt
 from .common import basics
+from .compression import Compression
 from .convert import cnn_param_path, jax_ordered
 from .models.cnn_layers import Conv2d, Dense, init_cnn
 
@@ -55,6 +57,14 @@ class CNNConfig:
     dtype: str = "bfloat16"             # activations; params stay float32
     channels_last: bool = True
     seed: int = 0
+    # The DistributedOptimizer knobs of ``bench.py``'s ``_build``; None
+    # reads the env (HOROVOD_FUSION_THRESHOLD, HOROVOD_COMPRESSION,
+    # HOROVOD_HIERARCHICAL_ALLREDUCE, HOROVOD_NUM_BUCKETS). The DCN tier's
+    # knobs come from the env alone, as there.
+    fusion_threshold: Optional[int] = None
+    compression: Optional[str] = None   # a HOROVOD_COMPRESSION name
+    hierarchical: Optional[bool] = None
+    num_buckets: Optional[int] = None
 
 
 @dataclass
@@ -64,6 +74,9 @@ class CNNResult:
     images_per_step: int = 0                          # over all ranks
     num_buckets: int = 0
     params: int = 0
+    hierarchical: bool = False                        # as resolved
+    ici_size: Optional[int] = None                    # the ladder's tiers
+    dcn_size: Optional[int] = None
 
 
 def build_cnn(config: CNNConfig, device) -> nn.Module:
@@ -131,14 +144,19 @@ def forward_macs(model: nn.Module, images: torch.Tensor) -> int:
     return sum(macs)
 
 
-def train_cnn(config: CNNConfig, steps: int, device=None,
-              around_step: Optional[Callable[[int], ContextManager]] = None,
-              ) -> CNNResult:
-    """init -> model -> broadcasts -> ``steps`` steps on one repeated batch.
+@dataclass
+class CNNSetup:
+    """What ``setup_cnn`` builds for one rank."""
 
-    ``around_step(i)``, if given, returns a context manager that step ``i``
-    runs inside (a profiler around one step, for example).
-    """
+    model: nn.Module
+    opt: hvd_opt.DistributedOptimizer
+    step: Callable
+    images: torch.Tensor
+    labels: torch.Tensor
+
+
+def setup_cnn(config: CNNConfig, device=None) -> CNNSetup:
+    """init -> model -> broadcasts -> the train step and this rank's batch."""
     basics.init(device)
     dev = basics.device()
     model = build_cnn(config, dev)
@@ -146,19 +164,47 @@ def train_cnn(config: CNNConfig, steps: int, device=None,
     named = jax_ordered(model.named_parameters(), cnn_param_path)
     opt = hvd_opt.DistributedOptimizer(
         torch.optim.SGD([p for _, p in named], lr=config.lr * basics.size(),
-                        momentum=config.momentum), named)
+                        momentum=config.momentum), named,
+        compression=(None if config.compression is None
+                     else Compression.by_name(config.compression)),
+        fusion_threshold=config.fusion_threshold,
+        num_buckets=config.num_buckets, hierarchical=config.hierarchical)
     hvd_opt.broadcast_optimizer_state(opt, root_rank=0)
     images, labels = make_images(config, basics.rank(), dev)
-    step = make_cnn_train_step(model, opt)
-    result = CNNResult(images_per_step=config.batch * basics.size(),
-                       num_buckets=opt.plan.num_buckets,
-                       params=sum(p.numel() for _, p in named))
+    return CNNSetup(model=model, opt=opt, step=make_cnn_train_step(model, opt),
+                    images=images, labels=labels)
+
+
+def run_cnn(s: CNNSetup, steps: int,
+            around_step: Optional[Callable[[int], ContextManager]] = None,
+            ) -> CNNResult:
+    """``steps`` steps of ``s`` on its one repeated batch.
+
+    ``around_step(i)``, if given, returns a context manager that step ``i``
+    runs inside (a profiler around one step, for example).
+    """
+    dev = basics.device()
+    groups = s.opt.groups
+    result = CNNResult(images_per_step=s.images.shape[0] * basics.size(),
+                       num_buckets=s.opt.plan.num_buckets,
+                       params=sum(p.numel() for p in s.opt.params),
+                       hierarchical=s.opt.hierarchical,
+                       ici_size=groups.ici_size if groups else None,
+                       dcn_size=groups.dcn_size if groups else None)
     for i in range(steps):
         with around_step(i) if around_step else contextlib.nullcontext():
             t0 = time.perf_counter()
-            loss = step(images, labels)
+            loss = s.step(s.images, s.labels)
             result.losses.append(hvd_opt.metric_average(loss.item()))
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
             result.step_s.append(time.perf_counter() - t0)
     return result
+
+
+def train_cnn(config: CNNConfig, steps: int, device=None,
+              around_step: Optional[Callable[[int], ContextManager]] = None,
+              ) -> CNNResult:
+    """init -> model -> broadcasts -> ``steps`` steps on one repeated batch
+    (``run_cnn`` of ``setup_cnn``)."""
+    return run_cnn(setup_cnn(config, device), steps, around_step)

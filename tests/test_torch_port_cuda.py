@@ -4,7 +4,11 @@ training step over NCCL on every visible GPU; the CNN step on the card
 against the CPU's; ResNet-50 data parallelism over NCCL on every visible
 GPU (tests/torch_port_cnn_worker.py); the graphed training loop against
 eager steps, on one card and over NCCL on every visible GPU
-(tests/torch_port_graph_worker.py); remat against no remat on the card.
+(tests/torch_port_graph_worker.py); remat against no remat on the card;
+hierarchical data parallelism of ResNet-50 on a 2 x 2 layout of four GPUs
+(tests/torch_port_hier_worker.py); Ulysses flash attention over NCCL on
+every visible GPU against one whole-sequence call
+(tests/torch_port_ulysses_worker.py).
 
 Needs an NVIDIA Hopper GPU and nvcc; elsewhere every test skips. Run on
 the card with (conftest.py imports jax, which the GPU machine need not
@@ -32,7 +36,14 @@ input within rounding of 0 flips between the two and moves the gradient
 below by far more). The graphed loop is held to the eager steps on the
 same draws from the same weights with the same capturable Adam: every
 loss and every parameter within 1e-6 relative (the same kernels in the
-same order, so bit-equal is expected); remat to no remat, the same.
+same order, so bit-equal is expected); remat to no remat, the same. The
+hierarchical world holds the ladder's runs to the flat run: loss 1e-2
+relative (phase 10's bf16 limit) and the updates of all parameters
+together 3e-2 relative norm, about three times the bf16 DCN wire's reading
+(9.13e-3; 3.65e-4 with no wire cast): four ranks sum in another order on
+each tier. The Ulysses world expects bit
+equality (the all-to-alls move data; each rank runs the same kernels on
+the same rows) and otherwise holds the bf16 kernel rules above.
 """
 
 import dataclasses
@@ -380,26 +391,28 @@ def test_ring_rejects_what_the_kernels_do_not_take(cuda):
 
 # ------------------------------------------------------ the sp NCCL world
 
-@pytest.fixture(scope="module")
-def sp_world():
-    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
-        pytest.skip("needs two or more CUDA devices")
+def _world(script: str, timeout: int, needs: int = 2, **env_extra):
+    """One process per visible GPU running ``tests/<script>``; skips with
+    fewer than ``needs`` GPUs. Returns (n, the cards' names and power
+    limits, then rank 0's stdout)."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < needs:
+        pytest.skip(f"needs {needs} or more CUDA devices")
     n = torch.cuda.device_count()
     port = free_port()
     procs = []
     for rank in range(n):
         env = dict(os.environ, HOROVOD_RANK=str(rank), HOROVOD_SIZE=str(n),
                    HOROVOD_LOCAL_RANK=str(rank), HOROVOD_LOCAL_SIZE=str(n),
-                   HOROVOD_COORD_ADDR=f"127.0.0.1:{port}", RING_DEVICE="cuda")
+                   HOROVOD_COORD_ADDR=f"127.0.0.1:{port}", **env_extra)
         for var in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE"):
             env.pop(var, None)
         procs.append(subprocess.Popen(
-            [sys.executable, os.path.join(REPO, "tests", "torch_port_ring_worker.py")],
+            [sys.executable, os.path.join(REPO, "tests", script)],
             env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     failures, outs = [], []
     for rank, proc in enumerate(procs):
         try:
-            out, err = proc.communicate(timeout=900)
+            out, err = proc.communicate(timeout=timeout)
         except subprocess.TimeoutExpired:
             proc.kill()
             out, err = proc.communicate()
@@ -407,7 +420,15 @@ def sp_world():
         if proc.returncode != 0:
             failures.append(f"rank {rank} exit {proc.returncode}:\n{err[-3000:]}")
     assert not failures, "\n".join(failures)
-    return n, outs[0]
+    cards = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout
+    return n, f"cards (name, power limit):\n{cards}{outs[0]}"
+
+
+@pytest.fixture(scope="module")
+def sp_world():
+    return _world("torch_port_ring_worker.py", 900, RING_DEVICE="cuda")
 
 
 def test_sp_world_step_matches_whole_sequence_step(sp_world):
@@ -463,32 +484,7 @@ def test_cnn_step_on_the_card_matches_the_cpu(cuda, dtype):
 
 @pytest.fixture(scope="module")
 def cnn_world():
-    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
-        pytest.skip("needs two or more CUDA devices")
-    n = torch.cuda.device_count()
-    port = free_port()
-    procs = []
-    for rank in range(n):
-        env = dict(os.environ, HOROVOD_RANK=str(rank), HOROVOD_SIZE=str(n),
-                   HOROVOD_LOCAL_RANK=str(rank), HOROVOD_LOCAL_SIZE=str(n),
-                   HOROVOD_COORD_ADDR=f"127.0.0.1:{port}", CNN_DEVICE="cuda")
-        for var in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE"):
-            env.pop(var, None)
-        procs.append(subprocess.Popen(
-            [sys.executable, os.path.join(REPO, "tests", "torch_port_cnn_worker.py")],
-            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
-    failures, outs = [], []
-    for rank, proc in enumerate(procs):
-        try:
-            out, err = proc.communicate(timeout=900)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            out, err = proc.communicate()
-        outs.append(out)
-        if proc.returncode != 0:
-            failures.append(f"rank {rank} exit {proc.returncode}:\n{err[-3000:]}")
-    assert not failures, "\n".join(failures)
-    return n, outs[0]
+    return _world("torch_port_cnn_worker.py", 900, CNN_DEVICE="cuda")
 
 
 def test_cnn_world_resnet50_data_parallel(cnn_world):
@@ -560,32 +556,7 @@ def test_remat_matches_no_remat_on_the_card(cuda, attention):
 
 @pytest.fixture(scope="module")
 def graph_world():
-    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
-        pytest.skip("needs two or more CUDA devices")
-    n = torch.cuda.device_count()
-    port = free_port()
-    procs = []
-    for rank in range(n):
-        env = dict(os.environ, HOROVOD_RANK=str(rank), HOROVOD_SIZE=str(n),
-                   HOROVOD_LOCAL_RANK=str(rank), HOROVOD_LOCAL_SIZE=str(n),
-                   HOROVOD_COORD_ADDR=f"127.0.0.1:{port}")
-        for var in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE"):
-            env.pop(var, None)
-        procs.append(subprocess.Popen(
-            [sys.executable, os.path.join(REPO, "tests", "torch_port_graph_worker.py")],
-            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
-    failures, outs = [], []
-    for rank, proc in enumerate(procs):
-        try:
-            out, err = proc.communicate(timeout=600)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            out, err = proc.communicate()
-        outs.append(out)
-        if proc.returncode != 0:
-            failures.append(f"rank {rank} exit {proc.returncode}:\n{err[-3000:]}")
-    assert not failures, "\n".join(failures)
-    return n, outs[0]
+    return _world("torch_port_graph_worker.py", 600)
 
 
 def test_graph_world_data_parallel_matches_eager(graph_world):
@@ -597,3 +568,33 @@ def test_graph_world_data_parallel_matches_eager(graph_world):
 def test_graph_world_sequence_parallel_matches_eager(graph_world):
     n, out = graph_world
     assert f"ok graph sp world {n}" in out
+
+
+# ------------------------------------- hierarchical data parallelism, Ulysses
+
+@pytest.fixture(scope="module")
+def hier_world():
+    return _world("torch_port_hier_worker.py", 900, needs=4, HIER_DEVICE="cuda")
+
+
+def test_hier_world_resnet50_flat_vs_hierarchical(hier_world):
+    """Full-width ResNet-50 on a 2 x 2 ('dcn', 'ici') layout of four cards,
+    3 steps flat, hierarchical and hierarchical with a bf16 DCN wire, held
+    to each other by phase 10's bf16 limits."""
+    n, out = hier_world
+    print(out)
+    assert f"ok hier world {n}" in out
+
+
+@pytest.fixture(scope="module")
+def ulysses_world():
+    return _world("torch_port_ulysses_worker.py", 900, ULY_DEVICE="cuda")
+
+
+def test_ulysses_world_flash_matches_whole_sequence(ulysses_world):
+    """Ulysses flash at (1, 16384, 8, 128) bf16 over every card against one
+    whole-sequence flash_attention, and timed beside ring_flash_attention
+    at the same sp."""
+    n, out = ulysses_world
+    print(out)
+    assert f"ok ulysses world {n}" in out

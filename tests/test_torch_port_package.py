@@ -37,6 +37,7 @@ def test_import_pulls_in_no_jax():
             "horovod_tpu_torch.ops.ring_flash, "
             "horovod_tpu_torch.ops.ring_attention, "
             "horovod_tpu_torch.parallel.mesh, horovod_tpu_torch.trace_step, "
+            "horovod_tpu_torch.common.policy, "
             "horovod_tpu_torch.train_cnn, horovod_tpu_torch.models.resnet, "
             "horovod_tpu_torch.models.vgg, horovod_tpu_torch.models.inception, "
             "horovod_tpu_torch.models.mlp, horovod_tpu_torch.models.cnn_layers, "

@@ -98,7 +98,22 @@ prints no result):
     virtual pass; B1-B3 checked and timed at the head shard (1, 4096, 2,
     128) as phases 2 and 3 do; ``ulysses_attention(group=None,
     impl="flash")`` against ``flash_attention``, bit for bit;
-16. the ``{"kernels": [...]}`` line (all six kernels, each with its
+16. sharded data parallelism at full width, on a world of one over NCCL
+    with every group of one rank: 3 steps of ``TrainConfig(sharded=True)``
+    with ``HOROVOD_MESH=1x1`` (ZeRO through
+    ``DistributedOptimizer(sharded=True)``) and 3 steps of FSDP
+    (``train.setup_fsdp`` on ``training_groups(1, 1)``:
+    ``fsdp_gather_params`` and ``functional_call``), each against 3 steps
+    of ``TrainConfig()`` from the same weights on the same tokens, bit for
+    bit in every step's loss and every parameter after the last step; the
+    median step ms and peak memory of flat, ZeRO and FSDP, the collectives
+    of a step (at shard 1 ZeRO issues the DP call, one all-reduce per
+    bucket, and no gather, as the JAX package does; FSDP one all-gather
+    and one reduce-scatter per leaf), B1-B3's launches (12 of each per
+    step on both paths), the parameter count, and the plan's
+    ``state_bytes_per_rank()`` at shard 1, 2, 4 and 8 (planned, not
+    measured);
+17. the ``{"kernels": [...]}`` line (all six kernels, each with its
     launches on every path above; phases 10 and 14 run none of them),
     then ``{"ok": true, ...}`` last.
 
@@ -1362,6 +1377,122 @@ def ulysses_on_card(torch, fa, rf, ra, dev, timing, paths) -> dict:
     return rows
 
 
+# Phase 16. A world of one: every group of the sharded layouts has one
+# rank, the ZeRO exchange at shard 1 is the DP path's call, and Adam runs
+# its foreach implementation on the rows and on the parameters alike, so
+# ZeRO and FSDP are expected bit-equal to the flat step.
+SHARD_STEPS = 3
+PLANNED_SHARDS = (1, 2, 4, 8)
+
+
+def sharded_run(torch, fa, rf, basics, train_mod, sh, fsdp_mod, label, config,
+                dev) -> dict:
+    """SHARD_STEPS steps of ``config`` (``label`` "FSDP": through
+    ``setup_fsdp``) on one repeated batch: losses, step ms, peak memory,
+    the collectives of step 1, B1-B6's launches (counts zeroed just
+    before the steps), the parameters after the last step (on the host)
+    and the planned per-rank bytes."""
+    import torch.distributed as dist
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    if label == "ZeRO":
+        os.environ["HOROVOD_MESH"] = "1x1"
+    try:
+        s = train_mod.setup_fsdp(config, device="cuda") if label == "FSDP" \
+            else train_mod.setup(config, "cuda")
+    finally:
+        os.environ.pop("HOROVOD_MESH", None)
+    tokens = train_mod.make_batch(config, 0, dev)
+    counter = CountCollectives(dist)
+    losses, times = [], []
+    read_counts(fa, rf)
+    for i in range(SHARD_STEPS):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        with counter if i == 1 else contextlib.nullcontext():
+            loss = s.step(tokens)
+        torch.cuda.synchronize(dev)
+        times.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+    counts = read_counts(fa, rf)
+    run = {"losses": losses, "ms": [1e3 * t for t in times],
+           "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+           "collectives": counter.counts, "launches": counts}
+    if label == "FSDP":
+        run["params"] = {n: t.cpu() for n, t in
+                         fsdp_mod.fsdp_unshard_params([s.rows], s.shapes).items()}
+        run["leaves"] = len(s.rows)
+    else:
+        if s.opt.sharded:
+            sh.gather_params(s.opt.rows, s.opt.shard_plan, s.opt.layout, s.opt.params)
+            run["planned"] = {n: sh.build_shard_plan(
+                s.opt.params, n, s.opt.threshold, s.opt.num_buckets, 0
+            ).state_bytes_per_rank() for n in PLANNED_SHARDS}
+            run["param_count"] = sum(s.opt.shard_plan.raw_sizes)
+        run["params"] = {n: p.detach().cpu() for n, p in s.model.named_parameters()}
+        run["buckets"] = s.opt.plan.num_buckets
+    del s
+    basics.shutdown()
+    torch.cuda.empty_cache()
+    return run
+
+
+def hold_runs_bit_equal(label, a, b) -> None:
+    differ = [n for n in b["params"] if not torch_equal(a["params"][n], b["params"][n])]
+    log(f"  {label}: losses {a['losses']} vs {b['losses']}; parameters that "
+        f"differ after step {SHARD_STEPS}: {len(differ)} of {len(b['params'])}")
+    if a["losses"] != b["losses"] or differ:
+        raise AssertionError(f"{label}: not bit-equal (losses {a['losses']} vs "
+                             f"{b['losses']}; differing parameters {differ[:5]})")
+
+
+def torch_equal(a, b) -> bool:
+    return a.shape == b.shape and bool((a == b).all())
+
+
+def sharded_phase(torch, fa, rf, basics, train_mod, card, dev, paths) -> None:
+    from horovod_tpu_torch.parallel import fsdp as fsdp_mod
+    from horovod_tpu_torch.parallel import sharded as sh
+
+    flat_config = train_mod.TrainConfig()
+    configs = {"flat": flat_config,
+               "ZeRO": dataclasses.replace(flat_config, sharded=True),
+               "FSDP": flat_config}
+    runs = {label: sharded_run(torch, fa, rf, basics, train_mod, sh, fsdp_mod,
+                               label, config, dev)
+            for label, config in configs.items()}
+    hold_runs_bit_equal("ZeRO (HOROVOD_MESH=1x1) vs flat", runs["ZeRO"], runs["flat"])
+    hold_runs_bit_equal("FSDP (training_groups(1, 1)) vs flat", runs["FSDP"],
+                        runs["flat"])
+    per_step = flat_config.layers * SHARD_STEPS
+    for label, run in runs.items():
+        hold_counts(f"{label}, {SHARD_STEPS} steps", run["launches"],
+                    {k: per_step for k in KERNELS})
+        paths[f"16: {SHARD_STEPS} steps, {label}"] = run["launches"]
+        log(f"  {label}: median step {statistics.median(run['ms'][1:]):.2f} ms "
+            f"(steps 1-{SHARD_STEPS - 1}; per step {[round(t, 2) for t in run['ms']]}), "
+            f"peak memory {run['peak_gb']:.3f} GB, on {card}")
+    b, leaves = runs["flat"]["buckets"], runs["FSDP"]["leaves"]
+    want = {"flat": {"all_reduce": b}, "ZeRO": {"all_reduce": b},
+            "FSDP": {"all_gather_into_tensor": leaves, "reduce_scatter_tensor": leaves}}
+    for label, run in runs.items():
+        log(f"  collectives of a {label} step: {run['collectives']} ({b} buckets, "
+            f"{leaves} leaves)")
+        if run["collectives"] != want[label]:
+            raise AssertionError(f"{label}: collectives {run['collectives']}, "
+                                 f"expected {want[label]}")
+    log(f"  ZeRO at shard 1 sends each of its {b} buckets through the DP call "
+        f"(an all-reduce over the batch group) and gathers nothing; at shard > 1 "
+        f"each bucket takes one reduce-scatter and one all-gather")
+    zero = runs["ZeRO"]
+    log(f"  parameters: {zero['param_count']} (float32, "
+        f"{4 * zero['param_count'] / 1e9:.3f} GB)")
+    log("  planned per-rank bytes of the parameters (state_bytes_per_rank(); "
+        "Adam's state is twice that), not measured: " + ", ".join(
+            f"shard {n} {v} B" for n, v in zero["planned"].items()))
+
+
 def config_label(config) -> str:
     return "TrainConfig(sp=1)" if config.sp else "TrainConfig()"
 
@@ -1518,6 +1649,10 @@ def main() -> int:
 
     log(f"[15] Ulysses on the flash kernels: a virtual world of {ULYSSES_N}")
     shard_timing = ulysses_on_card(torch, fa, rf, ra, dev, timing, paths)
+
+    log(f"[16] sharded data parallelism at full width: ZeRO (HOROVOD_MESH=1x1) "
+        f"and FSDP against the flat step, {SHARD_STEPS} steps each")
+    sharded_phase(torch, fa, rf, basics, train_mod, card, dev, paths)
 
     kernels = []
     for source, names in SOURCES.items():

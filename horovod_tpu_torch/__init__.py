@@ -10,6 +10,11 @@ Horovod's data-parallel contract on NVIDIA GPUs, mirroring
     hvd.broadcast_parameters(model.state_dict(), root_rank=0)
     hvd.broadcast_optimizer_state(opt, root_rank=0)
 
+Sharded data parallelism (ZeRO) is ``DistributedOptimizer(sharded=True)``
+over ``sharded_groups()`` (``HOROVOD_MESH``, ``HOROVOD_SHARD_PARAMS``;
+``parallel/sharded.py``); FSDP is ``parallel/fsdp.py`` over
+``training_groups(dp, fsdp)``.
+
 Entry points run on the card unless the caller passes ``device="cpu"``.
 The flash-attention kernels (``ops/flash_attention.py``) are CUDA C++
 built from ``csrc/`` on first use.
@@ -20,21 +25,27 @@ from .common.basics import (cross_rank, cross_size, device, init,
                             shutdown, size)
 from .compression import Compression
 from .optimizer import (DistributedOptimizer, broadcast_optimizer_state,
-                        broadcast_parameters, metric_average)
+                        broadcast_parameters, broadcast_sharded_state,
+                        metric_average)
 from .parallel.collectives import (ReduceOp, allgather, allreduce, alltoall,
                                    broadcast, bucketed_allreduce,
                                    grouped_allreduce, hierarchical_allgather,
                                    hierarchical_allreduce, reducescatter,
                                    sparse_allreduce)
-from .parallel.mesh import (DCN_AXIS, HVD_AXIS, ICI_AXIS, Hierarchy,
-                            hierarchical_groups)
+from .parallel.mesh import (BATCH_AXIS, DCN_AXIS, FSDP_AXIS, HVD_AXIS,
+                            ICI_AXIS, MODEL_AXIS, SHARD_AXIS, DpFsdp, Hierarchy,
+                            ShardedLayout, hierarchical_groups,
+                            parse_mesh_spec, sharded_groups, training_groups)
 
 __all__ = [
-    "Compression", "DCN_AXIS", "DistributedOptimizer", "HVD_AXIS", "Hierarchy",
-    "ICI_AXIS", "ReduceOp", "allgather", "allreduce", "alltoall", "broadcast",
-    "broadcast_optimizer_state", "broadcast_parameters", "bucketed_allreduce",
-    "cross_rank", "cross_size", "device", "grouped_allreduce",
-    "hierarchical_allgather", "hierarchical_allreduce", "hierarchical_groups",
-    "init", "is_initialized", "local_rank", "local_size", "metric_average",
-    "rank", "reducescatter", "shutdown", "size", "sparse_allreduce",
+    "BATCH_AXIS", "Compression", "DCN_AXIS", "DistributedOptimizer", "DpFsdp",
+    "FSDP_AXIS", "HVD_AXIS", "Hierarchy", "ICI_AXIS", "MODEL_AXIS", "ReduceOp",
+    "SHARD_AXIS", "ShardedLayout", "allgather", "allreduce", "alltoall",
+    "broadcast", "broadcast_optimizer_state", "broadcast_parameters",
+    "broadcast_sharded_state", "bucketed_allreduce", "cross_rank",
+    "cross_size", "device", "grouped_allreduce", "hierarchical_allgather",
+    "hierarchical_allreduce", "hierarchical_groups", "init", "is_initialized",
+    "local_rank", "local_size", "metric_average", "parse_mesh_spec", "rank",
+    "reducescatter", "sharded_groups", "shutdown", "size", "sparse_allreduce",
+    "training_groups",
 ]

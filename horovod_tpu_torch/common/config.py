@@ -73,6 +73,11 @@ class Config:
     # HOROVOD_DCN_COMPRESSION, is read where the wires are chosen
     # (parallel/fusion.py tier_wires), as the reference reads it.
     dcn_fusion_threshold: int = 0                       # HOROVOD_DCN_FUSION_THRESHOLD
+    # Sharded data parallelism: the ('batch', 'shard'[, 'model']) shape as
+    # "<b>", "<b>x<s>" or "<b>x<s>x<m>" (empty: pure DP), and the switch
+    # that puts DistributedOptimizer on the reduce-scatter exchange.
+    mesh: str = ""                                      # HOROVOD_MESH
+    shard_params: bool = False                          # HOROVOD_SHARD_PARAMS
 
     @classmethod
     def from_env(cls) -> "Config":
@@ -88,4 +93,6 @@ class Config:
             hierarchical_allreduce=_env_bool("HOROVOD_HIERARCHICAL_ALLREDUCE"),
             dcn_fusion_threshold=max(0, _env_int(
                 "HOROVOD_DCN_FUSION_THRESHOLD", 0)),
+            mesh=os.environ.get("HOROVOD_MESH", "").strip(),
+            shard_params=_env_bool("HOROVOD_SHARD_PARAMS"),
         )

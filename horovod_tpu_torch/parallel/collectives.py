@@ -68,9 +68,11 @@ def grouped_allreduce(tensors, op: ReduceOp = ReduceOp.AVERAGE,
 
 
 def bucketed_allreduce(buffers: Sequence[torch.Tensor],
-                       op: ReduceOp = ReduceOp.AVERAGE) -> list:
-    """One collective per flat bucket buffer, in issue order, in place."""
-    return [allreduce_(b, op) for b in buffers]
+                       op: ReduceOp = ReduceOp.AVERAGE,
+                       group: Group = None) -> list:
+    """One collective per flat bucket buffer over ``group``, in issue
+    order, in place."""
+    return [allreduce_(b, op, group) for b in buffers]
 
 
 def _global(group: Group, rank: int) -> int:
@@ -119,8 +121,9 @@ def alltoall(x: torch.Tensor, group: Group = None, split_dim: int = 0,
     return torch.cat(recv.unbind(0), dim=concat_dim)
 
 
-def _all_gather_into(x: torch.Tensor, group: Group) -> torch.Tensor:
-    """The group's ``x`` concatenated along dim 0 in one buffer."""
+def all_gather_into(x: torch.Tensor, group: Group = None) -> torch.Tensor:
+    """The group's ``x`` concatenated along dim 0 in one buffer (one
+    ``all_gather_into_tensor``: ``lax.all_gather(..., tiled=True)``)."""
     out = x.new_empty((x.shape[0] * dist.get_world_size(group), *x.shape[1:]))
     dist.all_gather_into_tensor(out, x.contiguous(), group=group)
     return out
@@ -130,7 +133,7 @@ def hierarchical_allgather(x: torch.Tensor, groups) -> torch.Tensor:
     """Allgather over ICI, then over DCN: the world's tensors concatenated
     along dim 0 DCN-major, which is rank order for the ``('dcn', 'ici')``
     layout. ``groups``: a ``parallel.mesh.Hierarchy``."""
-    return _all_gather_into(_all_gather_into(x, groups.ici_group),
+    return all_gather_into(all_gather_into(x, groups.ici_group),
                             groups.dcn_group)
 
 
@@ -159,7 +162,7 @@ def hierarchical_allreduce(x: torch.Tensor, groups, average: bool = True,
     if dcn_wire_dtype is not None and dcn_wire_dtype != shard.dtype:
         wire = shard.to(dcn_wire_dtype)
     dist.all_reduce(wire, group=groups.dcn_group)
-    out = _all_gather_into(wire.to(shard.dtype), groups.ici_group)
+    out = all_gather_into(wire.to(shard.dtype), groups.ici_group)
     if average:
         out.div_(groups.ici_size * groups.dcn_size)
     return out

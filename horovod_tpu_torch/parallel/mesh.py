@@ -15,11 +15,21 @@ so the sp ranks of one ring are consecutive global ranks, and the ring of
 global rank g is g // sp. The mesh axis "sp" becomes a process group that
 ``ring_shift`` runs over; "dp" needs no group of its own, because the
 gradients average over the whole world, as ``axis_name=("dp", "sp")``.
+
+``sharded_groups`` is the counterpart of ``sharded_mesh``: the
+``('batch', 'shard')`` layout of sharded data parallelism, or
+``('batch', 'shard', 'model')`` when the model axis is named, row-major
+with ``model`` the most minor axis, so global rank ``(b * shard + s) *
+model + m`` sits at mesh position ``(b, s, m)``. ``HOROVOD_MESH`` spells
+its shape (``parse_mesh_spec``, a copy of the JAX package's).
+``training_groups(dp, fsdp)`` is the ``('dp', 'fsdp')`` layout of
+``training_mesh(dp=, fsdp=)`` that FSDP runs on, row-major too.
 """
 
 from __future__ import annotations
 
 import math
+import os
 from dataclasses import dataclass
 from typing import Optional
 
@@ -30,6 +40,10 @@ from ..common import basics
 HVD_AXIS = "hvd"
 DCN_AXIS = "dcn"
 ICI_AXIS = "ici"
+BATCH_AXIS = "batch"
+SHARD_AXIS = "shard"
+MODEL_AXIS = "model"
+FSDP_AXIS = "fsdp"
 
 
 @dataclass(frozen=True)
@@ -97,3 +111,154 @@ def dp_sp_groups(sp: int) -> DpSp:
             mine = group
     return DpSp(group=mine, sp_rank=rank % sp, sp_size=sp, dp_index=rank // sp,
                 dp_size=world // sp)
+
+
+def parse_mesh_spec(spec: str, n_devices: int) -> tuple[int, int, int]:
+    """Parse a ``HOROVOD_MESH`` value into ``(batch, shard, model)`` sizes
+    for ``n_devices`` ranks: ``"<batch>"``, ``"<batch>x<shard>"`` or
+    ``"<batch>x<shard>x<model>"``, at most one size ``-1`` ("the rest");
+    an empty spec is pure DP, ``(n_devices, 1, 1)``. Raises on a malformed
+    spec or a shape that does not tile the ranks."""
+    s = (spec or "").strip().lower().replace("×", "x")
+    if not s:
+        return n_devices, 1, 1
+    parts = s.split("x")
+    if not 1 <= len(parts) <= 3:
+        raise ValueError(
+            f"HOROVOD_MESH={spec!r}: expected '<batch>', '<batch>x<shard>' "
+            f"or '<batch>x<shard>x<model>' (e.g. '4x2x1')")
+    try:
+        sizes = [int(p) for p in parts]
+    except ValueError:
+        raise ValueError(
+            f"HOROVOD_MESH={spec!r}: sizes must be integers (or -1)") from None
+    sizes += [1] * (3 - len(sizes))
+    if sizes.count(-1) > 1:
+        raise ValueError(f"HOROVOD_MESH={spec!r}: at most one size may be -1")
+    if -1 in sizes:
+        known = math.prod(v for v in sizes if v != -1)
+        if known <= 0 or n_devices % known:
+            raise ValueError(
+                f"HOROVOD_MESH={spec!r}: {n_devices} devices not divisible "
+                f"by the fixed sizes' product {known}")
+        sizes[sizes.index(-1)] = n_devices // known
+    batch, shard, model = sizes
+    if batch <= 0 or shard <= 0 or model <= 0 or \
+            batch * shard * model != n_devices:
+        raise ValueError(
+            f"HOROVOD_MESH={spec!r} needs {batch}x{shard}x{model}="
+            f"{batch * shard * model} devices, have {n_devices}")
+    return batch, shard, model
+
+
+def _spec_names_model(spec: str) -> bool:
+    """Whether a ``HOROVOD_MESH`` spelling names the third (model) axis:
+    ``"4x2x1"`` does, ``"4x2"`` does not."""
+    return (spec or "").strip().lower().replace("×", "x").count("x") >= 2
+
+
+@dataclass(frozen=True)
+class ShardedLayout:
+    """This rank's place in the ``('batch', 'shard'[, 'model'])`` layout.
+    ``model_group`` is None when the model axis is not named."""
+
+    batch_group: dist.ProcessGroup    # the ranks of this (shard, model) index
+    batch_rank: int
+    batch_size: int
+    shard_group: dist.ProcessGroup    # the ranks of this (batch, model) index
+    shard_rank: int
+    shard_size: int
+    model_group: Optional[dist.ProcessGroup]
+    model_rank: int
+    model_size: int
+
+
+def _mesh_sizes(world: int, batch, shard, model) -> tuple[int, int, int, bool]:
+    """(batch, shard, model, whether the model axis is named), resolved as
+    ``sharded_mesh`` resolves its arguments."""
+    if batch is None and shard is None and model is None:
+        spec = os.environ.get("HOROVOD_MESH", "")
+        return (*parse_mesh_spec(spec, world), _spec_names_model(spec))
+    named = model is not None
+    m = 1 if model is None else model
+    if batch is None and shard is None:
+        spec = f"-1x1x{m}"
+    elif batch is None:
+        spec = f"-1x{shard}x{m}"
+    elif shard is None:
+        spec = f"{batch}x-1x{m}"
+    else:
+        spec = f"{batch}x{shard}x{m}"
+    return (*parse_mesh_spec(spec, world), named)
+
+
+def sharded_groups(batch: Optional[int] = None, shard: Optional[int] = None,
+                   model: Optional[int] = None) -> ShardedLayout:
+    """The ``sharded_mesh`` layout as process groups. With every size None
+    the shape comes from ``HOROVOD_MESH``; the model axis is named when
+    ``model`` is given (any value, 1 too) or the spec has three sizes.
+    Every rank creates every group, in one order: the batch groups, the
+    shard groups, then the model groups."""
+    world, rank = dist.get_world_size(), dist.get_rank()
+    b_size, s_size, m_size, named = _mesh_sizes(world, batch, shard, model)
+    b, s, m = rank // (s_size * m_size), rank // m_size % s_size, rank % m_size
+
+    def rank_of(bi, si, mi):
+        return (bi * s_size + si) * m_size + mi
+
+    def build(groups, mine):
+        """One group per key of ``groups``; this rank's is ``mine``'s."""
+        out = None
+        for key, ranks in groups:
+            group = dist.new_group(ranks)
+            if key == mine:
+                out = group
+        return out
+
+    batch_group = build(
+        [((si, mi), [rank_of(bi, si, mi) for bi in range(b_size)])
+         for si in range(s_size) for mi in range(m_size)], (s, m))
+    shard_group = build(
+        [((bi, mi), [rank_of(bi, si, mi) for si in range(s_size)])
+         for bi in range(b_size) for mi in range(m_size)], (b, m))
+    model_group = build(
+        [((bi, si), [rank_of(bi, si, mi) for mi in range(m_size)])
+         for bi in range(b_size) for si in range(s_size)], (b, s)) \
+        if named or m_size != 1 else None
+    return ShardedLayout(batch_group=batch_group, batch_rank=b,
+                         batch_size=b_size, shard_group=shard_group,
+                         shard_rank=s, shard_size=s_size,
+                         model_group=model_group, model_rank=m,
+                         model_size=m_size)
+
+
+@dataclass(frozen=True)
+class DpFsdp:
+    """This rank's place in the ``('dp', 'fsdp')`` layout."""
+
+    dp_group: dist.ProcessGroup       # the ranks of this fsdp index
+    dp_rank: int
+    dp_size: int
+    fsdp_group: dist.ProcessGroup     # the ranks of this dp index
+    fsdp_rank: int
+    fsdp_size: int
+
+
+def training_groups(dp: int, fsdp: int) -> DpFsdp:
+    """``training_mesh(dp=, fsdp=)`` as process groups: global rank ``d *
+    fsdp + f`` at ``(d, f)``. Every rank creates every group, in one
+    order: the dp groups, then the fsdp groups."""
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if dp < 1 or fsdp < 1 or dp * fsdp != world:
+        raise ValueError(f"dp {dp} x fsdp {fsdp} must be the world size {world}")
+    dp_group = fsdp_group = None
+    for f in range(fsdp):
+        group = dist.new_group(list(range(f, world, fsdp)))
+        if f == rank % fsdp:
+            dp_group = group
+    for d in range(dp):
+        group = dist.new_group(list(range(d * fsdp, (d + 1) * fsdp)))
+        if d == rank // fsdp:
+            fsdp_group = group
+    return DpFsdp(dp_group=dp_group, dp_rank=rank // fsdp, dp_size=dp,
+                  fsdp_group=fsdp_group, fsdp_rank=rank % fsdp, fsdp_size=fsdp)

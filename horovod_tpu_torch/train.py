@@ -24,6 +24,18 @@ before the cross entropy). ``steps_per_dispatch = K`` trains from a
 ``loop.make_scan_train_loop``: on the card one CUDA graph of the whole
 step, replayed K times per dispatch, with Adam built ``capturable``;
 ``metric_average`` then runs once per dispatch, on the mean loss.
+
+``config.sharded = True`` (None: HOROVOD_SHARD_PARAMS) trains with ZeRO on
+the ``('batch', 'shard')`` groups that ``HOROVOD_MESH`` lays out
+(``parallel.mesh.sharded_groups``): the parameters are broadcast whole,
+each rank cuts its rows of the fusion buckets, Adam steps the rows, and
+each step starts with ``gather_params``, which refreshes the model's
+parameters from every shard's rows. ``setup_fsdp`` builds the per-leaf
+FSDP step instead (``parallel/fsdp.py``): the model runs on the gathered
+leaves through ``torch.func.functional_call``. Adam runs its ``foreach``
+implementation on every path, so that it steps a flat row and a parameter
+with the same arithmetic per element: at ``shard = 1`` a sharded step is
+the data-parallel step bit for bit.
 """
 
 from __future__ import annotations
@@ -42,7 +54,10 @@ from .data import DeviceCache
 from .loop import make_scan_train_loop
 from .models.transformer import (TransformerLM, chunked_lm_loss, init_weights,
                                  next_tokens, token_loss)
-from .parallel.mesh import DpSp, dp_sp_groups
+from .parallel import fsdp
+from .parallel import sharded as sh
+from .parallel.mesh import (DpFsdp, DpSp, dp_sp_groups, sharded_groups,
+                            training_groups)
 
 # Sequences per rank in the DeviceCache of a graphed run (8 x 4096 int64
 # tokens and as many targets: 0.5 MB).
@@ -71,6 +86,7 @@ class TrainConfig:
     loss_chunk: int = 0                 # > 0: chunked_lm_loss over chunks
     logits_dtype: str = "float32"       # the LM head's
     steps_per_dispatch: Optional[int] = None   # K steps per CUDA graph dispatch
+    sharded: Optional[bool] = None      # ZeRO; None: HOROVOD_SHARD_PARAMS
 
     def __post_init__(self):
         if self.loss_chunk < 0:
@@ -157,7 +173,8 @@ def make_train_step(model: TransformerLM, opt: hvd_opt.DistributedOptimizer,
                     positions: Optional[torch.Tensor] = None,
                     loss_chunk: int = 0):
     """``step(tokens, targets=None) -> loss`` (a 0-d tensor on the device,
-    this rank's): zero_grad, forward, loss, backward, ``opt.step()``.
+    this rank's): zero_grad, forward, loss, backward, ``opt.step()``; a
+    sharded ``opt`` first refreshes the parameters (``gather_params``).
     ``targets`` default to the tokens rolled left by one; on a sequence
     shard within the shard, as the JAX dp×sp step takes them
     (``jnp.roll(tokens, -1, axis=1)`` on the local shard). ``loss_chunk >
@@ -168,6 +185,8 @@ def make_train_step(model: TransformerLM, opt: hvd_opt.DistributedOptimizer,
         if targets is None:
             targets = next_tokens(tokens)
         opt.zero_grad()
+        if opt.sharded:
+            sh.gather_params(opt.rows, opt.shard_plan, opt.layout, opt.params)
         if loss_chunk:
             hidden = model(tokens, positions, return_hidden=True)
             loss = chunked_lm_loss(hidden, model.lm_head.weight, targets,
@@ -192,21 +211,46 @@ class Setup:
     tokens_per_step: int                # over all ranks
 
 
+def adam(params, config: TrainConfig, capturable: bool = False):
+    """The trainers' Adam, pinned to its ``foreach`` implementation."""
+    return torch.optim.Adam(params, lr=config.lr, capturable=capturable,
+                            foreach=True)
+
+
 def setup(config: TrainConfig, device=None) -> Setup:
     """init -> model -> broadcasts -> the train step. Adam is built
     ``capturable`` when ``config.steps_per_dispatch`` is set and the device
-    is the card, so that its step can be captured in a CUDA graph."""
+    is the card, so that its step can be captured in a CUDA graph.
+    Sharded: init -> model -> ``broadcast_parameters`` of the full
+    parameters -> this rank's rows -> Adam on the rows ->
+    ``DistributedOptimizer(sharded=True)`` -> ``broadcast_sharded_state``."""
     basics.init(device)
     dev = basics.device()
+    sharded = basics.config().shard_params if config.sharded is None \
+        else config.sharded
+    if sharded and (config.sp is not None or config.steps_per_dispatch is not None):
+        raise ValueError("sharded training does not combine with sp or "
+                         "steps_per_dispatch yet")
     sp = dp_sp_groups(config.sp) if config.sp is not None else None
     model = build_model(config, dev, sp.group if sp else None)
     named = jax_ordered(model.named_parameters())
+    params = [p for _, p in named]
     hvd_opt.broadcast_parameters(named, root_rank=0)
-    capturable = config.steps_per_dispatch is not None and dev.type == "cuda"
-    opt = hvd_opt.DistributedOptimizer(
-        torch.optim.Adam([p for _, p in named], lr=config.lr,
-                         capturable=capturable), named)
-    hvd_opt.broadcast_optimizer_state(opt, root_rank=0)
+    if sharded:
+        layout = sharded_groups()
+        plan = sh.build_shard_plan(params, layout.shard_size,
+                                   basics.config().fusion_threshold,
+                                   basics.config().num_buckets)
+        rows = sh.shard_params(params, plan, layout.shard_rank)
+        opt = hvd_opt.DistributedOptimizer(adam(rows, config), named,
+                                           sharded=True, shard_plan=plan,
+                                           layout=layout)
+        hvd_opt.broadcast_sharded_state(opt)
+    else:
+        capturable = config.steps_per_dispatch is not None and dev.type == "cuda"
+        opt = hvd_opt.DistributedOptimizer(adam(params, config, capturable),
+                                           named, sharded=False)
+        hvd_opt.broadcast_optimizer_state(opt, root_rank=0)
     positions = None
     if sp is not None:
         _, positions = make_shard(config, sp, dev)
@@ -214,6 +258,74 @@ def setup(config: TrainConfig, device=None) -> Setup:
     return Setup(model=model, opt=opt, sp=sp,
                  step=make_train_step(model, opt, positions, config.loss_chunk),
                  tokens_per_step=tokens_local * basics.size())
+
+
+def make_fsdp_train_step(model: TransformerLM, rows: dict, shapes: dict,
+                         layout: DpFsdp, optimizer: torch.optim.Optimizer):
+    """``step(tokens, targets=None) -> loss``, FSDP: zero_grad, the leaves
+    gathered from every fsdp rank's rows, forward through
+    ``functional_call``, loss, backward (each row's gradient the
+    reduce-scatter-sum), the average over dp x fsdp, the step, and the pad
+    tails zeroed."""
+
+    def step(tokens: torch.Tensor, targets: Optional[torch.Tensor] = None
+             ) -> torch.Tensor:
+        if targets is None:
+            targets = next_tokens(tokens)
+        optimizer.zero_grad()
+        full = fsdp.fsdp_gather_params(rows, shapes, layout.fsdp_group)
+        loss = token_loss(torch.func.functional_call(model, full, (tokens,)),
+                          targets)
+        loss.backward()
+        fsdp.fsdp_average_gradients_(rows, layout)
+        optimizer.step()
+        fsdp.fsdp_mask_(rows, shapes, layout.fsdp_rank)
+        return loss.detach()
+
+    return step
+
+
+@dataclass
+class FsdpSetup:
+    """What ``setup_fsdp`` builds for one rank."""
+
+    model: TransformerLM        # its own parameters released: the rows hold them
+    rows: dict                  # name -> this rank's row, an nn.Parameter
+    shapes: dict                # name -> the full leaf's shape
+    layout: DpFsdp
+    optimizer: torch.optim.Optimizer
+    step: Callable
+    tokens_per_step: int        # over all ranks
+
+
+def setup_fsdp(config: TrainConfig, layout: Optional[DpFsdp] = None,
+               device=None) -> FsdpSetup:
+    """init -> model -> ``broadcast_parameters`` -> each parameter cut into
+    this rank's FSDP row (the model's own parameters are then released) ->
+    Adam on the rows -> the FSDP step. ``layout`` None is
+    ``training_groups(1, world)``. The plain forward only: no ring, graph,
+    remat or chunked loss."""
+    if (config.sp, config.steps_per_dispatch, config.remat, config.loss_chunk) \
+            != (None, None, False, 0):
+        raise ValueError("FSDP training takes the plain step only: no sp, "
+                         "steps_per_dispatch, remat or loss_chunk")
+    basics.init(device)
+    dev = basics.device()
+    if layout is None:
+        layout = training_groups(1, basics.size())
+    model = build_model(config, dev)
+    named = jax_ordered(model.named_parameters())
+    hvd_opt.broadcast_parameters(named, root_rank=0)
+    rows, shapes = fsdp.fsdp_shard_params(dict(named), layout.fsdp_size,
+                                          layout.fsdp_rank)
+    for _, p in named:
+        p.data = p.data.new_empty(0)
+    optimizer = adam(list(rows.values()), config)
+    return FsdpSetup(model=model, rows=rows, shapes=shapes, layout=layout,
+                     optimizer=optimizer,
+                     step=make_fsdp_train_step(model, rows, shapes, layout,
+                                               optimizer),
+                     tokens_per_step=config.batch * config.seq * basics.size())
 
 
 def train(config: TrainConfig, steps: int, device=None,

@@ -8,7 +8,9 @@ eager steps, on one card and over NCCL on every visible GPU
 hierarchical data parallelism of ResNet-50 on a 2 x 2 layout of four GPUs
 (tests/torch_port_hier_worker.py); Ulysses flash attention over NCCL on
 every visible GPU against one whole-sequence call
-(tests/torch_port_ulysses_worker.py).
+(tests/torch_port_ulysses_worker.py); sharded data parallelism of the
+full-width TransformerLM on four GPUs, ZeRO 2x2 and 1x4 and FSDP 4
+against flat DP (tests/torch_port_sharded_worker.py).
 
 Needs an NVIDIA Hopper GPU and nvcc; elsewhere every test skips. Run on
 the card with (conftest.py imports jax, which the GPU machine need not
@@ -43,7 +45,10 @@ together 3e-2 relative norm, about three times the bf16 DCN wire's reading
 (9.13e-3; 3.65e-4 with no wire cast): four ranks sum in another order on
 each tier. The Ulysses world expects bit
 equality (the all-to-alls move data; each rank runs the same kernels on
-the same rows) and otherwise holds the bf16 kernel rules above.
+the same rows) and otherwise holds the bf16 kernel rules above. The
+sharded world holds each sharded run's updates of all parameters
+together to flat DP's within 3e-2 relative norm (four ranks sum in
+another order).
 """
 
 import dataclasses
@@ -598,3 +603,21 @@ def test_ulysses_world_flash_matches_whole_sequence(ulysses_world):
     n, out = ulysses_world
     print(out)
     assert f"ok ulysses world {n}" in out
+
+
+# ------------------------------------------------ sharded data parallelism
+
+@pytest.fixture(scope="module")
+def sharded_world():
+    return _world("torch_port_sharded_worker.py", 900, needs=4, SHARDED_MODE="cuda")
+
+
+def test_sharded_world_zero_and_fsdp_match_flat_dp(sharded_world):
+    """The full-width flash TransformerLM on four cards, 3 steps each of
+    flat DP, ZeRO 2x2 and 1x4 and FSDP 4 from the same weights: all
+    updates within 3e-2 relative norm of flat DP's, one reduce-scatter and
+    one all-gather per bucket on the ZeRO paths; each rank's peak memory
+    printed."""
+    n, out = sharded_world
+    print(out)
+    assert f"ok sharded world {n}" in out

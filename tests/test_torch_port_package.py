@@ -42,6 +42,7 @@ def test_import_pulls_in_no_jax():
             "horovod_tpu_torch.models.vgg, horovod_tpu_torch.models.inception, "
             "horovod_tpu_torch.models.mlp, horovod_tpu_torch.models.cnn_layers, "
             "horovod_tpu_torch.data, horovod_tpu_torch.loop, "
+            "horovod_tpu_torch.parallel.sharded, horovod_tpu_torch.parallel.fsdp, "
             "horovod_tpu_torch.transformer_benchmark\n"
             "bad = [m for m in set(sys.modules) - before if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
@@ -144,15 +145,20 @@ def test_config_matches_jax(monkeypatch):
 
     for env in ({}, {"HOROVOD_FUSION_THRESHOLD": "1234", "HOROVOD_NUM_BUCKETS": "3",
                      "HOROVOD_COMPRESSION": "bf16",
-                     "HOROVOD_COMPRESSION_MIN_BYTES": "10"}):
+                     "HOROVOD_COMPRESSION_MIN_BYTES": "10",
+                     "HOROVOD_MESH": " 2x2 ", "HOROVOD_SHARD_PARAMS": "1"},
+                {"HOROVOD_MESH": "4×2x1", "HOROVOD_SHARD_PARAMS": "no"},
+                {"HOROVOD_MESH": "", "HOROVOD_SHARD_PARAMS": ""},
+                {"HOROVOD_SHARD_PARAMS": "TRUE"}):
         for k in ("HOROVOD_FUSION_THRESHOLD", "HOROVOD_NUM_BUCKETS",
-                  "HOROVOD_COMPRESSION", "HOROVOD_COMPRESSION_MIN_BYTES"):
+                  "HOROVOD_COMPRESSION", "HOROVOD_COMPRESSION_MIN_BYTES",
+                  "HOROVOD_MESH", "HOROVOD_SHARD_PARAMS"):
             monkeypatch.delenv(k, raising=False)
         for k, v in env.items():
             monkeypatch.setenv(k, v)
         got, want = config.Config.from_env(), JaxConfig.from_env()
         for field in ("fusion_threshold", "num_buckets", "compression",
-                      "compression_min_bytes"):
+                      "compression_min_bytes", "mesh", "shard_params"):
             assert getattr(got, field) == getattr(want, field), field
 
 

@@ -113,7 +113,30 @@ prints no result):
     step on both paths), the parameter count, and the plan's
     ``state_bytes_per_rank()`` at shard 1, 2, 4 and 8 (planned, not
     measured);
-17. the ``{"kernels": [...]}`` line (all six kernels, each with its
+17. tensor parallelism at full width: 3 steps with a model group of one
+    (``sharded_groups(1, 1, 1)``, a world of one over NCCL;
+    ``TransformerLM(tp_group=...)``, ``DistributedOptimizer(group=<batch
+    group>)``) against 3 flat steps, bit for bit in every loss and
+    parameter, with no collective on the model group and 12 launches of
+    each of B1-B3 per step; step ms and peak memory of both; then a
+    virtual model group of 4 on the card: one full-width block cut by
+    ``tp_state_dict`` into 4 rank blocks, each rank's ``attn_partial`` and
+    ``mlp_partial`` (B1-B3 at the head shard (1, 4096, 2, 128)) summed in
+    float32 in place of the reduce, against the whole block (output 1e-2,
+    every gradient, reassembled, 3e-2 relative norm); the allreduce bytes
+    a step at tp = 4 would move (planned);
+18. the full-width MoE TransformerLM (8 experts in every 2nd block,
+    capacity factor 1.25): 5 steps with loss = task + 0.01 x the
+    load-balancing losses (finite and falling), tokens dropped per MoE
+    layer, step ms, tokens/s, peak memory, 12 launches of B1-B3 per step;
+    one step against the same step with dense attention, in float32 held
+    whole to phase 5's limits, in bf16 with the routing flips counted and
+    every parameter but the experts' held (the experts' gradients move
+    with the tokens each expert keeps, and are printed);
+    ``MoEMLP(ep_group=<group of one>)`` against ``MoEMLP()``, bit for
+    bit; ``moe_apply`` with a capacity that drops nothing against the
+    dense per-token oracle (bf16 relative norm 1e-2);
+19. the ``{"kernels": [...]}`` line (all six kernels, each with its
     launches on every path above; phases 10 and 14 run none of them),
     then ``{"ok": true, ...}`` last.
 
@@ -1176,10 +1199,11 @@ HIER_COLLECTIVES = ("reduce_scatter_tensor", "all_reduce", "all_gather_into_tens
 
 class CountCollectives:
     """Count the calls of ``torch.distributed``'s collectives made inside
-    the ``with`` block (the port calls them as ``dist.<name>``)."""
+    the ``with`` block (the port calls them as ``dist.<name>``), by name
+    (``counts``) and by the process group each call names (``on``)."""
 
     def __init__(self, dist):
-        self.dist, self.counts, self.saved = dist, {}, {}
+        self.dist, self.counts, self.groups, self.saved = dist, {}, [], {}
 
     def __enter__(self):
         for name in HIER_COLLECTIVES:
@@ -1187,6 +1211,7 @@ class CountCollectives:
 
             def counted(*args, _fn=fn, _name=name, **kwargs):
                 self.counts[_name] = self.counts.get(_name, 0) + 1
+                self.groups.append(kwargs.get("group"))
                 return _fn(*args, **kwargs)
 
             setattr(self.dist, name, counted)
@@ -1195,6 +1220,10 @@ class CountCollectives:
     def __exit__(self, *exc):
         for name, fn in self.saved.items():
             setattr(self.dist, name, fn)
+
+    def on(self, group) -> int:
+        """Calls that named ``group``."""
+        return sum(g is group for g in self.groups)
 
 
 def hierarchical_variant(torch, tc, basics, config, dcn_env=None) -> dict:
@@ -1493,6 +1522,366 @@ def sharded_phase(torch, fa, rf, basics, train_mod, card, dev, paths) -> None:
             f"shard {n} {v} B" for n, v in zero["planned"].items()))
 
 
+# Phase 17. Tensor parallelism. (a) A model group of one in a world of one
+# over NCCL: copy_to_model and reduce_from_model issue nothing, the flat
+# allreduce runs over the batch group of one, and the model draws the same
+# weights, so TP_STEPS steps are expected bit-equal to the flat step in
+# every loss and parameter, with no collective on the model group. (b) A
+# virtual model group of TP_N on the card: one full-width block cut by
+# tp_state_dict into TP_N rank blocks, each rank's attn_partial and
+# mlp_partial summed in float32 in place of the reduce, against the whole
+# block. Its output is held to phase 2's bf16 relative norm (1e-2) and its
+# gradients (x and every parameter, reassembled: the sliced ones by
+# tp_merge_state_dicts, each replicated norm scale as the sum of the
+# ranks' partial gradients) to phase 5's 3e-2: the ranks' partial products
+# are summed in another order than the whole block's contraction.
+TP_STEPS, TP_N = 3, 4
+# Phase 18. The full-width MoE TransformerLM (8 experts in every 2nd
+# block, capacity factor 1.25), loss = task + MOE_AUX x the sum of the
+# load-balancing losses, Adam through DistributedOptimizer.
+MOE_EXPERTS, MOE_EVERY, MOE_AUX = 8, 2, 0.01
+
+
+def lm_setup(torch, train_mod, config, dev, group=None, **model_kw):
+    """model -> ``broadcast_parameters`` -> Adam ->
+    ``DistributedOptimizer(group=)`` -> ``broadcast_optimizer_state``, the
+    port's own functions, after ``init``; ``group`` is the batch group
+    (None: the world)."""
+    from horovod_tpu_torch import optimizer as hvd_opt
+    from horovod_tpu_torch.convert import jax_ordered
+
+    model = train_mod.build_model(config, dev, **model_kw)
+    named = jax_ordered(model.named_parameters())
+    hvd_opt.broadcast_parameters(named, 0, group)
+    opt = hvd_opt.DistributedOptimizer(
+        train_mod.adam([p for _, p in named], config), named, sharded=False,
+        group=group)
+    hvd_opt.broadcast_optimizer_state(opt, 0, group)
+    return model, opt
+
+
+def moe_loss(model, tokens):
+    from horovod_tpu_torch.models.transformer import lm_loss
+
+    return lm_loss(model(tokens), tokens) + MOE_AUX * model.moe_lb_loss()
+
+
+def run_steps(torch, fa, rf, model, opt, tokens, steps, dev, loss_fn=None,
+              counter=None) -> dict:
+    """``steps`` steps (zero_grad, forward, loss, backward, ``opt.step()``)
+    on one repeated batch, the counts zeroed just before: losses, ms per
+    step, peak memory, launches, the parameters after the last step (on
+    the host). ``counter`` wraps step 1."""
+    from horovod_tpu_torch.models.transformer import lm_loss
+
+    loss_fn = loss_fn or (lambda m, t: lm_loss(m(t), t))
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, times = [], []
+    read_counts(fa, rf)
+    for i in range(steps):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        with counter if (counter is not None and i == 1) else contextlib.nullcontext():
+            opt.zero_grad()
+            loss = loss_fn(model, tokens)
+            loss.backward()
+            opt.step()
+        torch.cuda.synchronize(dev)
+        times.append(1e3 * (time.perf_counter() - t0))
+        losses.append(loss.item())
+    return {"losses": losses, "ms": times, "launches": read_counts(fa, rf),
+            "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+            "params": {n: p.detach().cpu() for n, p in model.named_parameters()}}
+
+
+def tp_of_one(torch, fa, rf, basics, train_mod, config, card, dev, paths) -> None:
+    import torch.distributed as dist
+    from horovod_tpu_torch.parallel.mesh import sharded_groups
+
+    runs = {}
+    for label in ("flat", "TP=1"):
+        basics.init("cuda")
+        layout = sharded_groups(1, 1, 1) if label == "TP=1" else None
+        model, opt = lm_setup(
+            torch, train_mod, config, dev,
+            group=layout.batch_group if layout else None,
+            tp_group=layout.model_group if layout else None)
+        tokens = train_mod.make_batch(config, 0, dev)
+        counter = CountCollectives(dist)
+        runs[label] = run_steps(torch, fa, rf, model, opt, tokens, TP_STEPS, dev,
+                                counter=counter)
+        if layout is not None:
+            on_model = counter.on(layout.model_group)
+            log(f"  TP=1: collectives of step 1 on the model group: {on_model}; "
+                f"on the batch group: {counter.on(layout.batch_group)} "
+                f"({opt.plan.num_buckets} buckets)")
+            if on_model:
+                raise AssertionError(f"a model group of one issued {on_model} "
+                                     f"collectives")
+        del model, opt
+        basics.shutdown()
+        torch.cuda.empty_cache()
+    hold_runs_bit_equal("TP=1 (sharded_groups(1, 1, 1)) vs flat", runs["TP=1"],
+                        runs["flat"])
+    for label, run in runs.items():
+        hold_counts(f"{label}, {TP_STEPS} steps", run["launches"],
+                    {k: config.layers * TP_STEPS for k in KERNELS})
+        paths[f"17: {TP_STEPS} steps, {label}"] = run["launches"]
+        log(f"  {label}: median step {statistics.median(run['ms'][1:]):.2f} ms "
+            f"(steps 1-{TP_STEPS - 1}; per step {[round(t, 2) for t in run['ms']]}), "
+            f"peak memory {run['peak_gb']:.3f} GB, on {card}")
+
+
+def relnorm_t(a, b) -> float:
+    return ((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30)).item()
+
+
+def virtual_tp(torch, fa, rf, config, dev, paths) -> None:
+    from horovod_tpu_torch.models.transformer import (
+        TransformerLM, init_weights, tp_merge_state_dicts, tp_param_specs,
+        tp_state_dict)
+
+    kw = dict(vocab=config.vocab, dim=config.dim, heads=config.heads, layers=1,
+              mlp_ratio=config.mlp_ratio, dtype=getattr(torch, config.dtype),
+              attention=config.attention)
+    whole = TransformerLM(**kw).to(dev)
+    init_weights(whole, torch.Generator(device=dev).manual_seed(config.seed))
+    ranks = []
+    for r in range(TP_N):
+        m = TransformerLM(**kw, tp_size=TP_N).to(dev)
+        m.load_state_dict(tp_state_dict(whole.state_dict(), TP_N, r))
+        ranks.append(m.blocks[0])
+    gen = torch.Generator(device=dev).manual_seed(1717)
+    shape = (config.batch, config.seq, config.dim)
+    x0 = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    g = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    pos = torch.arange(config.seq, device=dev)[None]
+
+    read_counts(fa, rf)
+    x = x0.clone().requires_grad_(True)
+    want = whole.blocks[0](x, pos)
+    want.backward(g)
+    want_grads = {"x": x.grad, **{n: p.grad for n, p in
+                                  whole.blocks[0].named_parameters()}}
+    hold_counts("the whole block, one pass", read_counts(fa, rf),
+                {k: 1 for k in KERNELS})
+
+    x = x0.clone().requires_grad_(True)
+    x1 = x + torch.stack([b.attn_partial(x, pos).float() for b in ranks]).sum(0) \
+        .to(x.dtype)
+    got = x1 + torch.stack([b.mlp_partial(x1).float() for b in ranks]).sum(0) \
+        .to(x.dtype)
+    got.backward(g)
+    torch.cuda.synchronize(dev)
+    counts = read_counts(fa, rf)
+    hold_counts(f"virtual TP world of {TP_N}, one pass", counts,
+                {k: TP_N for k in KERNELS})
+    paths[f"17: virtual TP world of {TP_N}, one block, one pass"] = counts
+    out_err = relnorm_t(got, want)
+    log(f"  virtual TP={TP_N} block vs the whole block: output relative norm "
+        f"{out_err:.3e} (limit {BF16_RELNORM:g})")
+    if not out_err <= BF16_RELNORM:
+        raise AssertionError(f"virtual TP output {out_err:.3e} > {BF16_RELNORM:g}")
+    specs = tp_param_specs(ranks[0])
+    grads = {"x": x.grad}
+    for n in specs:
+        parts = [dict(b.named_parameters())[n].grad for b in ranks]
+        grads[n] = torch.stack([p.float() for p in parts]).sum(0) \
+            if specs[n] is None else tp_merge_state_dicts([{n: p} for p in parts])[n]
+    errs = sorted(((relnorm_t(grads[n], w), n) for n, w in want_grads.items()),
+                  reverse=True)
+    log("  gradients vs the whole block, relative norm: " + ", ".join(
+        f"{n} {e:.3e}" for e, n in errs) + " (limit 3e-2)")
+    if not errs[0][0] <= 3e-2:
+        raise AssertionError(f"virtual TP gradient {errs[0]} > 3e-2")
+    del whole, ranks
+    torch.cuda.empty_cache()
+
+
+def tp_wire(torch, config) -> None:
+    from horovod_tpu_torch.parallel.tensor import tp_wire_bytes_per_pair
+
+    rows = config.batch * config.seq
+    act = tp_wire_bytes_per_pair(rows, config.dim, getattr(torch, config.dtype))
+    head = tp_wire_bytes_per_pair(rows, config.vocab,
+                                  getattr(torch, config.logits_dtype))
+    fwd = 2 * config.layers * act + head
+    bwd = (2 * config.layers + 1) * act
+    log(f"  TP={TP_N} model-group allreduce payload per step (planned, not "
+        f"measured): forward {2 * config.layers} x {act} B (the o_proj and "
+        f"mlp_out partials) + the head's float32 logits {head} B = {fwd} B; "
+        f"backward {2 * config.layers + 1} x {act} B (copy_to_model: each "
+        f"sublayer's and the head's input cotangent) = {bwd} B; {fwd + bwd} B "
+        f"in all")
+
+
+def tensor_parallel(torch, fa, rf, basics, train_mod, card, dev, paths) -> None:
+    config = train_mod.TrainConfig()
+    tp_of_one(torch, fa, rf, basics, train_mod, config, card, dev, paths)
+    log(f"  a virtual model group of {TP_N}: one full-width block, the head "
+        f"shard ({config.batch}, {config.seq}, {config.heads // TP_N}, "
+        f"{config.dim // config.heads}) per rank")
+    virtual_tp(torch, fa, rf, config, dev, paths)
+    tp_wire(torch, config)
+
+
+def moe_oracle(torch, params, x):
+    """Every token through its argmax expert's MLP times its gate
+    probability (the dense oracle of tests/test_tensor_parallel.py's MoE
+    test): the gate's logits as ``moe_apply`` and the oracle take them,
+    ``x @ gate`` in the inputs' dtype, so both route alike; the experts in
+    float32 from the same inputs."""
+    prob, expert = torch.softmax((x @ params.gate).float(), dim=-1).max(dim=-1)
+    gate, w_in, w_out = (p.float() for p in params)
+    x = x.float()
+    h = torch.relu(torch.einsum("td,tdh->th", x, w_in[expert]))
+    return torch.einsum("th,thd->td", h, w_out[expert]) * prob[:, None]
+
+
+def moe_layer_checks(torch, basics, config, dev) -> None:
+    from horovod_tpu_torch.models.moe import MoEMLP
+    from horovod_tpu_torch.models.transformer import init_weights
+    from horovod_tpu_torch.ops.moe import MoEParams, moe_apply
+    from horovod_tpu_torch.parallel.mesh import sharded_groups
+
+    d, hidden = config.dim, config.mlp_ratio * config.dim
+    n_tok = config.batch * config.seq
+    basics.init("cuda")
+    group = sharded_groups(1, 1, 1).model_group
+    gen = torch.Generator(device=dev).manual_seed(1818)
+    x0 = torch.randn(config.batch, config.seq, d, generator=gen,
+                     device=dev).to(torch.bfloat16)
+    outs = []
+    for ep_group in (None, group):
+        mlp = MoEMLP(d, hidden, MOE_EXPERTS, ep_group=ep_group).to(dev)
+        init_weights(mlp, torch.Generator(device=dev).manual_seed(18))
+        x = x0.clone().requires_grad_(True)
+        out = mlp(x)
+        out.float().square().mean().backward()
+        outs.append([out, x.grad, *(p.grad for p in mlp.parameters())])
+    same = all(torch.equal(a, b) for a, b in zip(*outs))
+    log(f"  MoEMLP(ep_group=<group of one>) vs MoEMLP(), full width: output and "
+        f"gradients {'bit-equal' if same else 'differ'}")
+    if not same:
+        raise AssertionError("MoEMLP with an ep group of one is not MoEMLP()")
+    basics.shutdown()
+    gate = torch.randn(d, MOE_EXPERTS, generator=gen, device=dev) / d ** 0.5
+    w_in = torch.randn(MOE_EXPERTS, d, hidden, generator=gen, device=dev) / d ** 0.5
+    w_out = torch.randn(MOE_EXPERTS, hidden, d, generator=gen, device=dev) / hidden ** 0.5
+    params = MoEParams(*(p.to(torch.bfloat16) for p in (gate, w_in, w_out)))
+    x = x0.reshape(n_tok, d)
+    got = moe_apply(params, x, n_tok)
+    want = moe_oracle(torch, params, x)
+    check(torch, "moe_apply ep=1, no drop", got, want.to(torch.bfloat16),
+          autograd=True)
+    log(f"  (capacity {n_tok}: no token dropped; against the dense per-token "
+        f"oracle, experts in float32 from the same bf16 inputs; bf16 relative "
+        f"norm: moe_apply rounds h and each product to bf16)")
+    del got, want
+    torch.cuda.empty_cache()
+
+
+def routes_of(torch, model) -> list:
+    """Forward hooks that record each MoE layer's (expert, keep) per token,
+    routed again from the layer's input as the layer routes it."""
+    from horovod_tpu_torch.ops.moe import top1_route
+
+    routes = []
+
+    def hook(mod, args, _out):
+        tokens = args[0].reshape(-1, mod.dim)
+        expert, _, _, keep = top1_route(tokens.float() @ mod.gate,
+                                        mod.capacity(tokens.shape[0]))
+        routes.append((expert, keep))
+
+    for b in model.blocks:
+        if b.moe is not None:
+            b.moe.register_forward_hook(hook)
+    return routes
+
+
+def moe_against_dense(torch, fa, rf, train_mod, config, dev, tokens) -> None:
+    """One step of the MoE model, flash kernels against plain dense
+    attention, same weights and batch. Routing is an argmax, and capacity
+    keeps the first tokens of each expert in sequence order: a token whose
+    two best gate logits lie within the two paths' rounding flips, and
+    moves which later tokens of both experts are kept. In float32 the two
+    attention paths agree to ~1e-6, routing is expected the same, and the
+    step is held whole to phase 5's limits. In bf16 (the trained dtype)
+    they differ at 2^-9: the flips are counted, the loss and every
+    parameter but the experts' are held to phase 5's limits, and the
+    experts' gradients are printed."""
+    results, routes = {}, {}
+    for attention in ("flash", "dense"):
+        model = train_mod.build_model(
+            dataclasses.replace(config, attention=attention), dev,
+            moe_experts=MOE_EXPERTS, moe_every=MOE_EVERY)
+        routes[attention] = routes_of(torch, model)
+        loss = moe_loss(model, tokens)
+        loss.backward()
+        results[attention] = (loss.item(), {n: p.grad.float() for n, p in
+                                            model.named_parameters()})
+        del model, loss
+        torch.cuda.empty_cache()
+    read_counts(fa, rf)
+    flips = [int(((ea != eb) | (ka != kb)).sum()) for (ea, ka), (eb, kb)
+             in zip(routes["flash"], routes["dense"])]
+    kept = [int(k.sum()) for _, k in routes["flash"]]
+    log(f"  {config.dtype}: tokens routed otherwise (expert or keep) by dense "
+        f"attention, per MoE layer: {flips}; tokens kept (flash) {kept} of "
+        f"{tokens.numel()}")
+    label = f"MoE flash vs dense, {config.dtype}"
+    if config.dtype == "float32":
+        hold_step(label, results["flash"], results["dense"], 1e-2)
+        return
+    experts = {n for n in results["dense"][1] if ".moe.w_" in n}
+    hold_step(label + ", all but the experts",
+              (results["flash"][0], {n: g for n, g in results["flash"][1].items()
+                                     if n not in experts}),
+              (results["dense"][0], {n: g for n, g in results["dense"][1].items()
+                                     if n not in experts}), 1e-2)
+    errs = sorted((relnorm_t(results["flash"][1][n], results["dense"][1][n]), n)
+                  for n in experts)
+    log("  experts' gradients, relative norm (printed, not held: the routing "
+        "above differs): " + ", ".join(f"{n} {e:.3e}" for e, n in errs))
+
+
+def mixture_of_experts(torch, fa, rf, basics, train_mod, card, dev, paths) -> None:
+    config = train_mod.TrainConfig()
+    moe_kw = dict(moe_experts=MOE_EXPERTS, moe_every=MOE_EVERY)
+    basics.init("cuda")
+    model, opt = lm_setup(torch, train_mod, config, dev, **moe_kw)
+    n_params = sum(p.numel() for p in model.parameters())
+    tokens = train_mod.make_batch(config, 0, dev)
+    run = run_steps(torch, fa, rf, model, opt, tokens, STEPS, dev, moe_loss)
+    n_tok = config.batch * config.seq
+    dropped = [int(b.moe.dropped) for b in model.blocks if b.moe is not None]
+    losses = run["losses"]
+    ms = statistics.median(run["ms"][1:])
+    log(f"  {n_params} parameters ({4 * n_params / 1e9:.3f} GB float32), "
+        f"{len(dropped)} MoE layers of {MOE_EXPERTS} experts, capacity "
+        f"{model.blocks[MOE_EVERY - 1].moe.capacity(n_tok)} tokens per expert")
+    log(f"  losses (task + {MOE_AUX} x load balancing) {losses}")
+    log(f"  tokens dropped per MoE layer, last step: {dropped} of {n_tok}")
+    log(f"  median step {ms:.2f} ms (steps 1-{STEPS - 1}; per step "
+        f"{[round(t, 2) for t in run['ms']]}), {n_tok / ms * 1e3:.1f} tokens/s, "
+        f"peak memory {run['peak_gb']:.3f} GB, on {card}")
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"MoE losses not finite and falling: {losses}")
+    hold_counts(f"MoE, {STEPS} steps", run["launches"],
+                {k: config.layers * STEPS for k in KERNELS})
+    paths[f"18: {STEPS} steps, MoE"] = run["launches"]
+    del model, opt, run
+    basics.shutdown()
+    torch.cuda.empty_cache()
+
+    for dtype in ("float32", "bfloat16"):
+        moe_against_dense(torch, fa, rf, train_mod,
+                          dataclasses.replace(config, dtype=dtype), dev, tokens)
+    moe_layer_checks(torch, basics, config, dev)
+
+
 def config_label(config) -> str:
     return "TrainConfig(sp=1)" if config.sp else "TrainConfig()"
 
@@ -1653,6 +2042,14 @@ def main() -> int:
     log(f"[16] sharded data parallelism at full width: ZeRO (HOROVOD_MESH=1x1) "
         f"and FSDP against the flat step, {SHARD_STEPS} steps each")
     sharded_phase(torch, fa, rf, basics, train_mod, card, dev, paths)
+
+    log(f"[17] tensor parallelism: a model group of one against the flat step, "
+        f"{TP_STEPS} steps each; a virtual model group of {TP_N}")
+    tensor_parallel(torch, fa, rf, basics, train_mod, card, dev, paths)
+
+    log(f"[18] the full-width MoE TransformerLM, {MOE_EXPERTS} experts in every "
+        f"{MOE_EVERY}nd block: {STEPS} steps; against dense attention; the layer")
+    mixture_of_experts(torch, fa, rf, basics, train_mod, card, dev, paths)
 
     kernels = []
     for source, names in SOURCES.items():

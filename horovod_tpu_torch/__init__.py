@@ -13,7 +13,11 @@ Horovod's data-parallel contract on NVIDIA GPUs, mirroring
 Sharded data parallelism (ZeRO) is ``DistributedOptimizer(sharded=True)``
 over ``sharded_groups()`` (``HOROVOD_MESH``, ``HOROVOD_SHARD_PARAMS``;
 ``parallel/sharded.py``); FSDP is ``parallel/fsdp.py`` over
-``training_groups(dp, fsdp)``.
+``training_groups(dp, fsdp)``. Tensor parallelism is
+``TransformerLM(tp_group=...)`` on ``parallel/tensor.py``'s conjugate
+pair, over the model group of ``sharded_groups``; mixture of experts is
+``TransformerLM(moe_experts=...)`` (``models/moe.py``, ``ops/moe.py``),
+its experts sharded with ``ep_group``.
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 The flash-attention kernels (``ops/flash_attention.py``) are CUDA C++

@@ -2,7 +2,7 @@
 
 ``flax_path(name)`` maps a parameter name of the port's TransformerLM to
 the path of the same parameter in the flax tree (``embed/embedding``,
-``block_3/qkv/kernel``, ...). ``cnn_flax_path(name)`` does the same for the
+``block_3/qkv/kernel``, ``block_1/moe/w_in``, ...). ``cnn_flax_path(name)`` does the same for the
 CNN zoo, whose submodules carry the flax scopes' names, so only the leaf
 is renamed: a conv or Dense ``weight`` is flax's ``kernel``, a BatchNorm
 ``weight`` its ``scale``, and the buffers ``running_mean`` and
@@ -10,7 +10,8 @@ is renamed: a conv or Dense ``weight`` is flax's ``kernel``, a BatchNorm
 
 A flax Dense kernel ``(in, out)`` is the transpose of the port's
 ``weight`` ``(out, in)``; a flax conv kernel HWIO is the port's OIHW
-``weight`` permuted; every other leaf has the same shape in both. Sorting
+``weight`` permuted; every other leaf has the same shape in both (the
+MoE's ``gate``, ``w_in`` and ``w_out`` too: they are not Dense kernels). Sorting
 the port's parameters by their flax paths gives the order in which JAX
 flattens the tree (its dict keys sorted, so ``BottleneckBlock_10`` comes
 before ``BottleneckBlock_2``), the order the fusion plan needs to put the
@@ -27,6 +28,7 @@ import torch
 
 _NORMS = {"norm1": "RMSNorm_0", "norm2": "RMSNorm_1"}
 _DENSE = {"qkv", "q_proj", "kv_proj", "o_proj", "mlp_in", "mlp_out"}
+_MOE = {"gate", "w_in", "w_out"}     # flax's own layout: no transpose
 
 
 def flax_path(name: str) -> tuple[str, ...]:
@@ -44,6 +46,8 @@ def flax_path(name: str) -> tuple[str, ...]:
             return (block, _NORMS[parts[2]], "scale")
         if parts[2] in _DENSE and parts[3] == "weight":
             return (block, parts[2], "kernel")
+        if parts[2] == "moe" and parts[3] in _MOE:
+            return (block, "moe", parts[3])
     raise KeyError(f"no flax counterpart for parameter {name!r}")
 
 

@@ -32,7 +32,7 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
-from ..parallel.collectives import alltoall, ring_shift
+from ..parallel.collectives import AllToAll, ring_shift
 
 
 def zigzag_positions(rank_idx: int, t_local: int, n: int,
@@ -204,30 +204,15 @@ def ring_attention(q, k, v, group: Optional[dist.ProcessGroup] = None,
     return (o / l.transpose(1, 2)[..., None]).to(q.dtype)
 
 
-class _AllToAll(torch.autograd.Function):
-    """``alltoall`` over ``group``; its backward sends the gradient back
-    with the inverse all-to-all (split and concat dims swapped)."""
-
-    @staticmethod
-    def forward(ctx, x, group, split_dim, concat_dim):
-        ctx.geometry = (group, split_dim, concat_dim)
-        return alltoall(x, group, split_dim, concat_dim)
-
-    @staticmethod
-    def backward(ctx, grad):
-        group, split_dim, concat_dim = ctx.geometry
-        return alltoall(grad.contiguous(), group, concat_dim, split_dim), None, None, None
-
-
 def to_heads(x, group: Optional[dist.ProcessGroup]):
     """(B, T/n, H, D) sequence shard -> (B, T, H/n, D) head shard; a group
     of one (None) hands ``x`` back."""
-    return x if group is None else _AllToAll.apply(x, group, 2, 1)
+    return x if group is None else AllToAll.apply(x, group, 2, 1)
 
 
 def to_seq(x, group: Optional[dist.ProcessGroup]):
     """The inverse of :func:`to_heads`."""
-    return x if group is None else _AllToAll.apply(x, group, 1, 2)
+    return x if group is None else AllToAll.apply(x, group, 1, 2)
 
 
 def head_shard_attention(qh, kh, vh, impl: str = "dense"):

@@ -124,7 +124,8 @@ class DistributedOptimizer:
                  op: ReduceOp = ReduceOp.AVERAGE,
                  hierarchical: Optional[bool] = None, dcn_compression=None,
                  dcn_threshold: Optional[int] = None, groups=None,
-                 sharded: Optional[bool] = None, shard_plan=None, layout=None):
+                 sharded: Optional[bool] = None, shard_plan=None, layout=None,
+                 group: collectives.Group = None):
         if backward_passes_per_step < 1:
             raise ValueError("backward_passes_per_step must be >= 1")
         named = list(named_parameters)
@@ -139,6 +140,7 @@ class DistributedOptimizer:
         self.compression_min_bytes = basics.config().compression_min_bytes
         self.backward_passes_per_step = backward_passes_per_step
         self.op = op
+        self.group = group
         self._passes = 0
         self.sharded = _resolved_sharded(sharded)
         owned = [p for g in optimizer.param_groups for p in g["params"]]
@@ -215,7 +217,8 @@ class DistributedOptimizer:
                 g.div_(self.backward_passes_per_step)
         fusion.fused_allreduce_(grads, self.plan, self.op,
                                 hierarchical=self.hierarchical,
-                                groups=self.groups, wires=self.wires)
+                                groups=self.groups, wires=self.wires,
+                                group=self.group)
 
     def step(self) -> bool:
         """Allreduce and step; returns whether this call stepped."""
@@ -245,12 +248,14 @@ def _named_tensors(params) -> list[tuple[str, torch.Tensor]]:
     return list(params)
 
 
-def broadcast_parameters(params, root_rank: int = 0) -> None:
+def broadcast_parameters(params, root_rank: int = 0,
+                         group: collectives.Group = None) -> None:
     """Overwrite every tensor of ``params`` (a module, a state dict, or
-    ``(name, tensor)`` pairs) with root's value, in place."""
+    ``(name, tensor)`` pairs) with root's value, in place, over ``group``
+    (None: the world; ``root_rank`` is a rank of ``group``)."""
     with torch.no_grad():
         for _, t in _named_tensors(params):
-            collectives.broadcast(t.data, root_rank)
+            collectives.broadcast(t.data, root_rank, group)
 
 
 def broadcast_optimizer_state(optimizer, root_rank: int = 0,

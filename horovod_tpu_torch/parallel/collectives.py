@@ -121,6 +121,22 @@ def alltoall(x: torch.Tensor, group: Group = None, split_dim: int = 0,
     return torch.cat(recv.unbind(0), dim=concat_dim)
 
 
+class AllToAll(torch.autograd.Function):
+    """``alltoall`` over ``group``, differentiable: its backward sends the
+    gradient back with the inverse all-to-all (split and concat dims
+    swapped). ``AllToAll.apply(x, group, split_dim, concat_dim)``."""
+
+    @staticmethod
+    def forward(ctx, x, group, split_dim, concat_dim):
+        ctx.geometry = (group, split_dim, concat_dim)
+        return alltoall(x, group, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        group, split_dim, concat_dim = ctx.geometry
+        return alltoall(grad.contiguous(), group, concat_dim, split_dim), None, None, None
+
+
 def all_gather_into(x: torch.Tensor, group: Group = None) -> torch.Tensor:
     """The group's ``x`` concatenated along dim 0 in one buffer (one
     ``all_gather_into_tensor``: ``lax.all_gather(..., tiled=True)``)."""

@@ -251,9 +251,11 @@ def fused_allreduce_(tensors: Sequence[torch.Tensor], plan: FusionPlan,
                      op=collectives.ReduceOp.AVERAGE, compression=None,
                      compression_min_bytes: Optional[int] = None,
                      hierarchical: bool = False, groups=None,
-                     dcn_compression=None, wires=None) -> None:
-    """Fuse, cast each bucket to its wire dtype, allreduce, cast back and
-    unfuse into ``tensors`` in place. ``hierarchical``: each bucket takes
+                     dcn_compression=None, wires=None,
+                     group: collectives.Group = None) -> None:
+    """Fuse, cast each bucket to its wire dtype, allreduce over ``group``
+    (None: the world), cast back and unfuse into ``tensors`` in place.
+    ``hierarchical``: each bucket takes
     the ladder over ``groups`` (a ``parallel.mesh.Hierarchy``; the plan
     must pad to its ICI size), a SUM or AVERAGE alone. ``wires``: the
     ``tier_wires`` of these arguments, for a caller that computes them
@@ -277,5 +279,5 @@ def fused_allreduce_(tensors: Sequence[torch.Tensor], plan: FusionPlan,
             s, groups, average=op == collectives.ReduceOp.AVERAGE,
             dcn_wire_dtype=w) for s, w in zip(shipped, dcn)]
     else:
-        reduced = collectives.bucketed_allreduce(shipped, op)
+        reduced = collectives.bucketed_allreduce(shipped, op, group)
     unfuse_([r.to(b.dtype) for r, b in zip(reduced, buffers)], plan, tensors)

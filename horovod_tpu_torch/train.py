@@ -46,18 +46,21 @@ from dataclasses import dataclass, field
 from typing import Callable, ContextManager, Optional
 
 import torch
+import torch.distributed as dist
 
 from . import optimizer as hvd_opt
 from .common import basics
 from .convert import jax_ordered
 from .data import DeviceCache
 from .loop import make_scan_train_loop
+from .models.moe import ep_state_dict
 from .models.transformer import (TransformerLM, chunked_lm_loss, init_weights,
-                                 next_tokens, token_loss)
+                                 next_tokens, token_loss, tp_state_dict)
 from .parallel import fsdp
 from .parallel import sharded as sh
 from .parallel.mesh import (DpFsdp, DpSp, dp_sp_groups, sharded_groups,
                             training_groups)
+from .parallel.tensor import model_size
 
 # Sequences per rank in the DeviceCache of a graphed run (8 x 4096 int64
 # tokens and as many targets: 0.5 MB).
@@ -114,17 +117,37 @@ class TrainResult:
     capture_s: Optional[float] = None                     # warm-up + capture
 
 
-def build_model(config: TrainConfig, device, sp_group=None) -> TransformerLM:
-    """The config's model with random weights drawn from its seed."""
-    model = TransformerLM(
-        vocab=config.vocab, dim=config.dim, heads=config.heads,
-        layers=config.layers, mlp_ratio=config.mlp_ratio,
-        dtype=getattr(torch, config.dtype), attention=config.attention,
-        kv_heads=config.kv_heads, logits_dtype=getattr(torch, config.logits_dtype),
-        sp_group=sp_group, remat=config.remat,
-    ).to(device)
+def build_model(config: TrainConfig, device, sp_group=None, tp_group=None,
+                ep_group=None, moe_experts: int = 0,
+                moe_every: int = 2) -> TransformerLM:
+    """The config's model with random weights drawn from its seed.
+    ``tp_group``/``ep_group`` of more than one rank: the whole model's
+    weights are drawn and this rank's slices cut from them
+    (``tp_state_dict``, ``ep_state_dict``), so the ranks of a group hold
+    one model; ``moe_experts``/``moe_every`` as ``TransformerLM`` takes
+    them."""
+    kw = dict(vocab=config.vocab, dim=config.dim, heads=config.heads,
+              layers=config.layers, mlp_ratio=config.mlp_ratio,
+              dtype=getattr(torch, config.dtype), attention=config.attention,
+              kv_heads=config.kv_heads,
+              logits_dtype=getattr(torch, config.logits_dtype),
+              sp_group=sp_group, remat=config.remat, moe_experts=moe_experts,
+              moe_every=moe_every)
+    model = TransformerLM(**kw, tp_group=tp_group, ep_group=ep_group).to(device)
     gen = torch.Generator(device=device).manual_seed(config.seed)
-    init_weights(model, gen)
+    tp, ep = model_size(tp_group), model_size(ep_group)
+    if tp == 1 and ep == 1:
+        init_weights(model, gen)
+        return model
+    full = TransformerLM(**kw).to(device)
+    init_weights(full, gen)
+    state = full.state_dict()
+    del full
+    if tp > 1:
+        state = tp_state_dict(state, tp, dist.get_rank(tp_group))
+    if ep > 1:
+        state = ep_state_dict(state, ep, dist.get_rank(ep_group))
+    model.load_state_dict(state)
     return model
 
 

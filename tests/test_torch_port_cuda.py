@@ -10,7 +10,10 @@ hierarchical data parallelism of ResNet-50 on a 2 x 2 layout of four GPUs
 every visible GPU against one whole-sequence call
 (tests/torch_port_ulysses_worker.py); sharded data parallelism of the
 full-width TransformerLM on four GPUs, ZeRO 2x2 and 1x4 and FSDP 4
-against flat DP (tests/torch_port_sharded_worker.py).
+against flat DP (tests/torch_port_sharded_worker.py); tensor parallelism
+(tp = 4) and expert parallelism (ep = 4: ``moe_apply`` and the MoE
+TransformerLM) at full width on four GPUs against one rank
+(tests/torch_port_tp_worker.py).
 
 Needs an NVIDIA Hopper GPU and nvcc; elsewhere every test skips. Run on
 the card with (conftest.py imports jax, which the GPU machine need not
@@ -48,7 +51,9 @@ equality (the all-to-alls move data; each rank runs the same kernels on
 the same rows) and otherwise holds the bf16 kernel rules above. The
 sharded world holds each sharded run's updates of all parameters
 together to flat DP's within 3e-2 relative norm (four ranks sum in
-another order).
+another order). The tp world holds each run's loss to the one-rank run's
+within 1e-2 relative and every gradient (reassembled from the ranks'
+slices) and ``moe_apply``'s output within 3e-2 relative norm.
 """
 
 import dataclasses
@@ -621,3 +626,21 @@ def test_sharded_world_zero_and_fsdp_match_flat_dp(sharded_world):
     n, out = sharded_world
     print(out)
     assert f"ok sharded world {n}" in out
+
+
+# ------------------------------------------------ tensor and expert parallelism
+
+@pytest.fixture(scope="module")
+def tp_world():
+    return _world("torch_port_tp_worker.py", 900, needs=4, TP_MODE="cuda")
+
+
+def test_tp_world_tensor_and_expert_parallel_match_one_rank(tp_world):
+    """On four cards: the full-width flash TransformerLM at tp = 4, the
+    full-width MoE TransformerLM at ep = 4 and ``moe_apply`` at ep = 4
+    (dim 1024, hidden 4096, 8 experts, 4096 tokens a rank), each against
+    the one-rank run; loss 1e-2 relative, gradients and outputs 3e-2
+    relative norm (phase 5's bf16 limits)."""
+    n, out = tp_world
+    print(out)
+    assert f"ok tp world {n}" in out

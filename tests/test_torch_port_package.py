@@ -43,6 +43,8 @@ def test_import_pulls_in_no_jax():
             "horovod_tpu_torch.models.mlp, horovod_tpu_torch.models.cnn_layers, "
             "horovod_tpu_torch.data, horovod_tpu_torch.loop, "
             "horovod_tpu_torch.parallel.sharded, horovod_tpu_torch.parallel.fsdp, "
+            "horovod_tpu_torch.parallel.tensor, horovod_tpu_torch.ops.moe, "
+            "horovod_tpu_torch.models.moe, "
             "horovod_tpu_torch.transformer_benchmark\n"
             "bad = [m for m in set(sys.modules) - before if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"

@@ -136,7 +136,21 @@ prints no result):
     ``MoEMLP(ep_group=<group of one>)`` against ``MoEMLP()``, bit for
     bit; ``moe_apply`` with a capacity that drops nothing against the
     dense per-token oracle (bf16 relative norm 1e-2);
-19. the ``{"kernels": [...]}`` line (all six kernels, each with its
+19. pipeline parallelism at full width (``train.setup_pipeline``,
+    ``models/pipeline_lm.py``): 3 steps with a pp group of one
+    (``training_groups(1, 1, 1)``, a world of one over NCCL) at
+    ``n_micro = 1`` against 3 flat steps, bit for bit in every loss and
+    parameter, with no P2P call and 12 launches of each of B1-B3 per step;
+    at ``n_micro = 4`` on a batch of 4 against the flat step on the same
+    batch (step 0's loss and gradients, phase 5's limits), 48 launches
+    each per step (the ``(n_micro + pp - 1) x L / pp`` of the schedule);
+    step ms and peak memory of each; then a virtual pp of 4 on the card:
+    4 ``PipelineStage``s of 3 blocks cut by ``stage_state_dict``, run in
+    lockstep on the tick schedule with a local hand-off, loss and
+    gradients against the flat step (phase 5's limits), and bubble
+    isolation (microbatch 1 changed, the others' logits bit for bit); the
+    bytes a real pp = 4 step would hand on per rank (planned);
+20. the ``{"kernels": [...]}`` line (all six kernels, each with its
     launches on every path above; phases 10 and 14 run none of them),
     then ``{"ok": true, ...}`` last.
 
@@ -147,6 +161,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -1198,15 +1213,17 @@ HIER_COLLECTIVES = ("reduce_scatter_tensor", "all_reduce", "all_gather_into_tens
 
 
 class CountCollectives:
-    """Count the calls of ``torch.distributed``'s collectives made inside
-    the ``with`` block (the port calls them as ``dist.<name>``), by name
-    (``counts``) and by the process group each call names (``on``)."""
+    """Count the calls of ``torch.distributed``'s collectives ``names``
+    made inside the ``with`` block (the port calls them as
+    ``dist.<name>``), by name (``counts``) and by the process group each
+    call names (``on``)."""
 
-    def __init__(self, dist):
-        self.dist, self.counts, self.groups, self.saved = dist, {}, [], {}
+    def __init__(self, dist, names=HIER_COLLECTIVES):
+        self.dist, self.names = dist, names
+        self.counts, self.groups, self.saved = {}, [], {}
 
     def __enter__(self):
-        for name in HIER_COLLECTIVES:
+        for name in self.names:
             fn = self.saved[name] = getattr(self.dist, name)
 
             def counted(*args, _fn=fn, _name=name, **kwargs):
@@ -1882,6 +1899,206 @@ def mixture_of_experts(torch, fa, rf, basics, train_mod, card, dev, paths) -> No
     moe_layer_checks(torch, basics, config, dev)
 
 
+# Phase 19. Pipeline parallelism at full width (models/pipeline_lm.py on the
+# tick schedule of parallel/pipeline.py). (a) A pp group of one in a world of
+# one over NCCL at n_micro = 1: the same operations on the same rows as the
+# flat step, so PP_STEPS steps are expected bit-equal to it in every loss and
+# parameter, with no P2P call. (b) The same group with PP_MICRO microbatches
+# of one sequence against the flat step on the same batch of PP_MICRO: the
+# gradients sum over the microbatches in another order, so step 0's loss and
+# gradients are held to phase 5's limits. (c) A virtual pp of PP_N on the
+# card: PP_N PipelineStages of 3 blocks cut by stage_state_dict, run in one
+# process in lockstep on the tick schedule, list rotation in place of the
+# PPermute; loss and gradients (the outer leaves summed over the stages, the
+# blocks merged) against (b)'s flat step within phase 5's limits, and bubble
+# isolation: microbatch 1 changed, the other microbatches' logits bit for bit.
+PP_STEPS, PP_N, PP_MICRO = 3, 4, 4
+P2P_CALLS = ("batch_isend_irecv", "isend", "irecv", "send", "recv")
+
+
+def pipeline_run(torch, fa, rf, basics, train_mod, config, n_micro, dev,
+                 keep_grads=False) -> dict:
+    """PP_STEPS steps on one repeated batch of ``config.batch`` sequences,
+    of ``setup_pipeline(config, 1, n_micro)``, or of ``setup(config)`` (the
+    flat step) when ``n_micro`` is None: losses, step ms, peak memory,
+    launches (zeroed just before the steps), P2P calls, the parameters after
+    the last step (on the host) and with ``keep_grads`` step 0's gradients
+    (on the card)."""
+    import torch.distributed as dist
+
+    gc.collect()    # the previous run's objects, so its memory leaves the peak
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    if n_micro is None:
+        s = train_mod.setup(config, "cuda")
+        model = s.model
+    else:
+        s = train_mod.setup_pipeline(config, 1, n_micro, "cuda")
+        model = s.stage
+    tokens = train_mod.make_batch(config, 0, dev)
+    losses, times, grads = [], [], None
+    read_counts(fa, rf)
+    with CountCollectives(dist, P2P_CALLS) as p2p:
+        for i in range(PP_STEPS):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            loss = s.step(tokens)
+            torch.cuda.synchronize(dev)
+            times.append(1e3 * (time.perf_counter() - t0))
+            losses.append(loss.item())
+            if i == 0 and keep_grads:
+                grads = {n: p.grad.detach().float().clone()
+                         for n, p in model.named_parameters()}
+    run = {"losses": losses, "ms": times, "launches": read_counts(fa, rf),
+           "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+           "p2p": sum(p2p.counts.values()), "grads": grads,
+           "params": {n: p.detach().cpu() for n, p in model.named_parameters()}}
+    del s, model
+    basics.shutdown()
+    torch.cuda.empty_cache()
+    return run
+
+
+def virtual_pipeline(torch, stages, tokens_micro):
+    """``(n_micro, mb, T, vocab)`` logits of a pipeline of ``stages`` run in
+    one process in lockstep: each tick of ``pipeline_ticks`` every stage
+    runs its blocks on what it holds (stage 0 on its ingested microbatch,
+    the others on what the previous tick handed them, zeros at first), the
+    last stage's output of a collecting tick is kept, and the outputs move
+    one stage on by list rotation in place of the ``PPermute``."""
+    from horovod_tpu_torch.parallel.pipeline import pipeline_ticks
+
+    n_micro, mb, t = tokens_micro.shape
+    first, last = stages[0], stages[-1]
+    positions = first.positions(t, tokens_micro.device)
+    x_micro = first.embed(tokens_micro).to(first.dtype)
+    held = [torch.zeros_like(x_micro[0]) for _ in stages]
+    outs = [None] * n_micro
+    for ingest, collect in pipeline_ticks(n_micro, len(stages)):
+        held[0] = x_micro[ingest]
+        done = []
+        for stage, h in zip(stages, held):
+            for block in stage.blocks:
+                h = block(h, positions)
+            done.append(h)
+        if collect is not None:
+            outs[collect] = done[-1]
+        held = done[-1:] + done[:-1]
+    h = last.norm(torch.stack(outs).reshape(n_micro * mb, t, last.dim))
+    return last.lm_head(h).reshape(n_micro, mb, t, last.vocab)
+
+
+def virtual_pp(torch, fa, rf, train_mod, config, dev, want, paths) -> None:
+    from horovod_tpu_torch.models.pipeline_lm import merge_stage_state_dicts
+    from horovod_tpu_torch.models.transformer import next_tokens, token_loss
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    stages = train_mod.pipeline_stages(config, dev, PP_N, range(PP_N))
+    tokens = train_mod.make_batch(config, 0, dev)
+    micro = tokens.reshape(PP_MICRO, -1, config.seq)
+
+    def one_pass():
+        for stage in stages:
+            stage.zero_grad(set_to_none=True)
+        loss = token_loss(virtual_pipeline(torch, stages, micro).reshape(
+            config.batch, config.seq, -1), next_tokens(tokens))
+        loss.backward()
+        return loss.item()
+
+    read_counts(fa, rf)
+    one_pass()
+    counts = read_counts(fa, rf)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    loss = one_pass()
+    torch.cuda.synchronize(dev)
+    ms = 1e3 * (time.perf_counter() - t0)
+    read_counts(fa, rf)
+    n_ticks = PP_MICRO + PP_N - 1
+    per = config.layers // PP_N
+    # The virtual hand-off drops the junk of the bubble ticks from the graph,
+    # so only the collected microbatches' passes run a backward.
+    hold_counts(f"virtual pp={PP_N}, one pass", counts,
+                {"flash_fwd": n_ticks * config.layers,
+                 "flash_bwd_dq": PP_MICRO * config.layers,
+                 "flash_bwd_dkv": PP_MICRO * config.layers})
+    paths[f"19c: virtual pp={PP_N}, {PP_MICRO} microbatches, one pass"] = counts
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    named = [dict(s.named_parameters()) for s in stages]
+    grads = merge_stage_state_dicts([{n: p.grad for n, p in d.items()} for d in named])
+    for name in ("embed.weight", "norm.scale", "lm_head.weight"):
+        # the psum over the pp group: each leaf's gradient lands on one stage
+        grads[name] = sum(d[name].grad for d in named if d[name].grad is not None)
+    log(f"  virtual pp={PP_N} ({per} blocks per stage, {PP_MICRO} microbatches of "
+        f"{config.batch // PP_MICRO}, {n_ticks} ticks): forward + backward "
+        f"{ms:.2f} ms (the second pass), peak {peak:.3f} GB")
+    hold_step(f"virtual pp={PP_N} vs flat", (loss, {n: g.float() for n, g in
+                                                   grads.items()}), want, 1e-2)
+    del grads
+    for s in stages:
+        s.zero_grad(set_to_none=True)
+    torch.cuda.empty_cache()
+    changed = micro.clone()
+    changed[1] = (changed[1] + 1) % config.vocab
+    with torch.no_grad():
+        a = virtual_pipeline(torch, stages, micro)
+        b = virtual_pipeline(torch, stages, changed)
+    kept = [i for i in range(PP_MICRO) if i != 1 and torch.equal(a[i], b[i])]
+    log(f"  bubble isolation: microbatch 1 changed; microbatches bit-equal: "
+        f"{kept} (want {[i for i in range(PP_MICRO) if i != 1]}); microbatch 1 "
+        f"differs: {not torch.equal(a[1], b[1])}")
+    if kept != [i for i in range(PP_MICRO) if i != 1] or torch.equal(a[1], b[1]):
+        raise AssertionError("virtual pipeline: a microbatch's change reached "
+                             "another's logits, or none")
+    read_counts(fa, rf)
+    del a, b, stages
+    torch.cuda.empty_cache()
+
+
+def pipeline_parallel(torch, fa, rf, basics, train_mod, card, dev, paths) -> None:
+    config = train_mod.TrainConfig()
+    config4 = dataclasses.replace(config, batch=PP_MICRO)
+    runs = {"flat": pipeline_run(torch, fa, rf, basics, train_mod, config, None, dev),
+            "a": pipeline_run(torch, fa, rf, basics, train_mod, config, 1, dev),
+            f"flat, batch {PP_MICRO}": pipeline_run(torch, fa, rf, basics, train_mod,
+                                                   config4, None, dev, True),
+            "b": pipeline_run(torch, fa, rf, basics, train_mod, config4, PP_MICRO, dev,
+                              True)}
+    hold_runs_bit_equal("(a) pp group of one, n_micro = 1, vs flat", runs["a"],
+                        runs["flat"])
+    for label, run in runs.items():
+        if run["p2p"]:
+            raise AssertionError(f"{label}: {run['p2p']} P2P calls in a world of one")
+    flat4, b = runs[f"flat, batch {PP_MICRO}"], runs["b"]
+    log(f"  (b) pp group of one, {PP_MICRO} microbatches of 1, vs flat on the "
+        f"same batch of {PP_MICRO}, step 0:")
+    hold_step("(b) vs flat", (b["losses"][0], b["grads"]),
+              (flat4["losses"][0], flat4["grads"]), 1e-2)
+    # One launch per layer and pass carries a whole batch (its B x H rows);
+    # the pipeline launches once per microbatch and tick.
+    want = {"flat": 1, "a": 1, f"flat, batch {PP_MICRO}": 1, "b": PP_MICRO}
+    for label, run in runs.items():
+        per_step = want[label] * config.layers
+        hold_counts(f"{label}, {PP_STEPS} steps", run["launches"],
+                    {k: per_step * PP_STEPS for k in KERNELS})
+        paths[f"19: {PP_STEPS} steps, {label}"] = run["launches"]
+        log(f"  {label}: median step {statistics.median(run['ms'][1:]):.2f} ms "
+            f"(steps 1-{PP_STEPS - 1}; per step {[round(t, 2) for t in run['ms']]}), "
+            f"peak memory {run['peak_gb']:.3f} GB, B1-B3 {per_step} launches each "
+            f"per step, {run['p2p']} P2P calls, on {card}")
+    want_b = (flat4["losses"][0], flat4["grads"])
+    del runs
+    log(f"  (c) a virtual pp of {PP_N} on the card")
+    virtual_pp(torch, fa, rf, train_mod, config4, dev, want_b, paths)
+    n_ticks = PP_MICRO + PP_N - 1
+    act = config4.batch // PP_MICRO * config.seq * config.dim * 2
+    log(f"  a real pp={PP_N} step moves 2 x {n_ticks - 1} hand-offs of {act} B "
+        f"(one bf16 microbatch's activations) = {2 * (n_ticks - 1) * act} B per "
+        f"rank, forward and backward (planned, not measured)")
+
+
 def config_label(config) -> str:
     return "TrainConfig(sp=1)" if config.sp else "TrainConfig()"
 
@@ -2050,6 +2267,11 @@ def main() -> int:
     log(f"[18] the full-width MoE TransformerLM, {MOE_EXPERTS} experts in every "
         f"{MOE_EVERY}nd block: {STEPS} steps; against dense attention; the layer")
     mixture_of_experts(torch, fa, rf, basics, train_mod, card, dev, paths)
+
+    log(f"[19] pipeline parallelism at full width: a pp group of one against the "
+        f"flat step ({PP_STEPS} steps; n_micro 1 and {PP_MICRO}); a virtual pp "
+        f"of {PP_N}")
+    pipeline_parallel(torch, fa, rf, basics, train_mod, card, dev, paths)
 
     kernels = []
     for source, names in SOURCES.items():

@@ -16,12 +16,22 @@ the port's parameters by their flax paths gives the order in which JAX
 flattens the tree (its dict keys sorted, so ``BottleneckBlock_10`` comes
 before ``BottleneckBlock_2``), the order the fusion plan needs to put the
 same leaves in the same buckets.
+
+The pipelined TransformerLM's reference layout is ``split_lm_params``'
+``(outer, blocks)``: ``outer`` the embedding, final norm and head, and
+``blocks`` one tree of the block leaves, each with a leading layer dim.
+``stage_state_dict_from_jax`` cuts a ``PipelineStage``'s state dict from
+it and ``stages_to_stacked_jax`` puts every stage's tensors (gradients,
+for the tests) back into it. A stage's parameters keep the flat model's
+names, its blocks renumbered from 0, so ``jax_ordered`` orders a stage as
+JAX flattens the flat model's tree, and each stage's bucket plan is the
+same on every call.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Callable, Iterable, Mapping
+from typing import Callable, Iterable, Mapping, Optional
 
 import numpy as np
 import torch
@@ -145,3 +155,62 @@ def jax_ordered(named_parameters: Iterable[tuple[str, torch.Tensor]],
     """``(name, parameter)`` pairs in the JAX tree's flatten order;
     ``path`` as in ``to_flax_layout``."""
     return sorted(named_parameters, key=lambda kv: path(kv[0]))
+
+
+def stacked_flax_path(name: str) -> tuple[Optional[int], tuple[str, ...]]:
+    """(layer, path) of the port's parameter ``name`` in the stacked layout:
+    ``(None, path in outer)`` for an outer leaf, ``(block index, path in
+    blocks)`` for a block leaf (whose leaves lead with the layer dim)."""
+    path = flax_path(name)
+    if path[0].startswith("block_"):
+        return int(path[0][len("block_"):]), path[1:]
+    return None, path
+
+
+def stage_state_dict_from_jax(outer: Mapping, blocks: Mapping,
+                              names: Iterable[str], pp: int,
+                              stage: int) -> dict:
+    """Stage ``stage``'s state dict, for parameters ``names`` (the keys of
+    a ``PipelineStage``'s ``state_dict()``, blocks numbered from 0), from
+    the stacked layout of numpy arrays, the blocks cut into ``pp`` equal
+    stages."""
+    out = {}
+    for name in names:
+        layer, path = stacked_flax_path(name)
+        if layer is None:
+            arr = _lookup(outer, path)
+        else:
+            stacked = _lookup(blocks, path)
+            if stacked.shape[0] % pp:
+                raise ValueError(f"{stacked.shape[0]} layers do not cut into "
+                                 f"{pp} equal stages")
+            arr = stacked[stage * (stacked.shape[0] // pp) + layer]
+        arr = np.asarray(arr, dtype=np.float32)
+        out[name] = torch.from_numpy(np.array(_from_flax(arr, path[-1] == "kernel"),
+                                              order="C"))
+    return out
+
+
+def stages_to_stacked_jax(stages: list) -> tuple[dict, dict]:
+    """Every stage's tensors by name (e.g. gradients), in stage order, as
+    ``(outer, blocks)`` nested dicts of float64 numpy arrays in flax's
+    stacked layout; the outer leaves from stage 0."""
+    per = 1 + max(layer for layer, _ in map(stacked_flax_path, stages[0])
+                  if layer is not None)
+    outer, blocks, layers = {}, {}, {}
+    for s, tensors in enumerate(stages):
+        for name, t in tensors.items():
+            layer, path = stacked_flax_path(name)
+            if layer is not None:
+                layers.setdefault(path, {})[s * per + layer] = to_flax_layout(name, t)
+            elif s == 0:
+                _put(outer, path, to_flax_layout(name, t))
+    for path, by_layer in layers.items():
+        _put(blocks, path, np.stack([by_layer[i] for i in sorted(by_layer)]))
+    return outer, blocks
+
+
+def _put(tree: dict, path: tuple[str, ...], value) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = value

@@ -1,7 +1,8 @@
 """Collectives over ``torch.distributed``: the allreduces (flat, grouped
 and the hierarchical ladder), broadcast, the allgathers, reduce-scatter,
 all-to-all, the sparse allreduce, and the point-to-point
-``ppermute``/``ring_shift`` of sequence parallelism.
+``ppermute``/``ring_shift`` of sequence parallelism (``PPermute``, the
+differentiable ``ppermute`` of pipeline parallelism).
 
 The counterparts of ``horovod_tpu.parallel.collectives``, where a mesh
 axis becomes a process group: ``group=None`` is the whole world, and the
@@ -135,6 +136,23 @@ class AllToAll(torch.autograd.Function):
     def backward(ctx, grad):
         group, split_dim, concat_dim = ctx.geometry
         return alltoall(grad.contiguous(), group, concat_dim, split_dim), None, None, None
+
+
+class PPermute(torch.autograd.Function):
+    """``ppermute`` of one tensor over ``group``, differentiable: its
+    backward sends the gradient along the inverse permutation, as
+    ``lax.ppermute``'s transpose does. In a group of one it issues no P2P
+    call, forward or backward. ``PPermute.apply(x, perm, group)``."""
+
+    @staticmethod
+    def forward(ctx, x, perm, group):
+        ctx.perm, ctx.group = perm, group
+        return ppermute([x], perm, group)[0]
+
+    @staticmethod
+    def backward(ctx, grad):
+        inverse = [(d, s) for s, d in ctx.perm]
+        return ppermute([grad.contiguous()], inverse, ctx.group)[0], None, None
 
 
 def all_gather_into(x: torch.Tensor, group: Group = None) -> torch.Tensor:

@@ -22,12 +22,14 @@ gradients average over the whole world, as ``axis_name=("dp", "sp")``.
 with ``model`` the most minor axis, so global rank ``(b * shard + s) *
 model + m`` sits at mesh position ``(b, s, m)``. ``HOROVOD_MESH`` spells
 its shape (``parse_mesh_spec``, a copy of the JAX package's).
-``training_groups(dp, fsdp)`` is the ``('dp', 'fsdp')`` layout of
-``training_mesh(dp=, fsdp=)`` that FSDP runs on, row-major too.
+``training_groups(dp, fsdp, pp, sp)`` is the ``('dp', 'fsdp', 'pp', 'sp')``
+layout of ``training_mesh(dp=, fsdp=, pp=, sp=)`` that FSDP and pipeline
+parallelism run on, row-major too.
 """
 
 from __future__ import annotations
 
+import itertools
 import math
 import os
 from dataclasses import dataclass
@@ -234,31 +236,56 @@ def sharded_groups(batch: Optional[int] = None, shard: Optional[int] = None,
 
 @dataclass(frozen=True)
 class DpFsdp:
-    """This rank's place in the ``('dp', 'fsdp')`` layout."""
+    """This rank's place in the ``('dp', 'fsdp', 'pp', 'sp')`` layout."""
 
-    dp_group: dist.ProcessGroup       # the ranks of this fsdp index
+    dp_group: dist.ProcessGroup       # the ranks of this (fsdp, pp, sp) index
     dp_rank: int
     dp_size: int
-    fsdp_group: dist.ProcessGroup     # the ranks of this dp index
+    fsdp_group: dist.ProcessGroup     # the ranks of this (dp, pp, sp) index
     fsdp_rank: int
     fsdp_size: int
+    pp_group: dist.ProcessGroup       # this rank's pipeline: (dp, fsdp, sp)
+    pp_rank: int                      # this rank's stage
+    pp_size: int
+    sp_group: dist.ProcessGroup       # this rank's ring: (dp, fsdp, pp)
+    sp_rank: int
+    sp_size: int
 
 
-def training_groups(dp: int, fsdp: int) -> DpFsdp:
-    """``training_mesh(dp=, fsdp=)`` as process groups: global rank ``d *
-    fsdp + f`` at ``(d, f)``. Every rank creates every group, in one
-    order: the dp groups, then the fsdp groups."""
+def training_groups(dp: int, fsdp: int, pp: int = 1, sp: int = 1) -> DpFsdp:
+    """``training_mesh(dp=, fsdp=, pp=, sp=)`` as process groups, tp and ep
+    of size 1: global rank ``((d * fsdp + f) * pp + p) * sp + s`` at ``(d,
+    f, p, s)``, row-major in the mesh's axis order. Every rank creates
+    every group, in one order: the dp groups, the fsdp groups, the pp
+    groups, then the sp groups; an axis of size 1 has one group of one
+    rank per rank."""
     world, rank = dist.get_world_size(), dist.get_rank()
-    if dp < 1 or fsdp < 1 or dp * fsdp != world:
-        raise ValueError(f"dp {dp} x fsdp {fsdp} must be the world size {world}")
-    dp_group = fsdp_group = None
-    for f in range(fsdp):
-        group = dist.new_group(list(range(f, world, fsdp)))
-        if f == rank % fsdp:
-            dp_group = group
-    for d in range(dp):
-        group = dist.new_group(list(range(d * fsdp, (d + 1) * fsdp)))
-        if d == rank // fsdp:
-            fsdp_group = group
-    return DpFsdp(dp_group=dp_group, dp_rank=rank // fsdp, dp_size=dp,
-                  fsdp_group=fsdp_group, fsdp_rank=rank % fsdp, fsdp_size=fsdp)
+    sizes = (dp, fsdp, pp, sp)
+    if min(sizes) < 1 or math.prod(sizes) != world:
+        raise ValueError(f"dp {dp} x fsdp {fsdp} x pp {pp} x sp {sp} must be "
+                         f"the world size {world}")
+    me = (rank // (fsdp * pp * sp), rank // (pp * sp) % fsdp, rank // sp % pp,
+          rank % sp)
+
+    def rank_of(index):
+        d, f, p, s = index
+        return ((d * fsdp + f) * pp + p) * sp + s
+
+    def build(axis: int):
+        """One group per index of the other axes, in row-major order; this
+        rank's is the one of its own index."""
+        mine = None
+        others = [range(n) if a != axis else range(1) for a, n in enumerate(sizes)]
+        for key in itertools.product(*others):
+            ranks = [rank_of(key[:axis] + (i,) + key[axis + 1:])
+                     for i in range(sizes[axis])]
+            group = dist.new_group(ranks)
+            if rank in ranks:
+                mine = group
+        return mine
+
+    groups = [build(axis) for axis in range(4)]
+    return DpFsdp(dp_group=groups[0], dp_rank=me[0], dp_size=dp,
+                  fsdp_group=groups[1], fsdp_rank=me[1], fsdp_size=fsdp,
+                  pp_group=groups[2], pp_rank=me[2], pp_size=pp,
+                  sp_group=groups[3], sp_rank=me[3], sp_size=sp)

@@ -36,6 +36,15 @@ leaves through ``torch.func.functional_call``. Adam runs its ``foreach``
 implementation on every path, so that it steps a flat row and a parameter
 with the same arithmetic per element: at ``shard = 1`` a sharded step is
 the data-parallel step bit for bit.
+
+``setup_pipeline(config, pp, n_micro)`` builds the GPipe step of
+``models/pipeline_lm.py`` on the ``('dp', 'pp')`` groups of
+``training_groups``: each rank draws the whole model from the config's
+seed and keeps its stage (``build_pipeline_stage``), Adam steps the
+stage's parameters through ``DistributedOptimizer(group=<dp group>)``,
+and a step feeds the replica's batch of ``config.batch`` sequences as
+``n_micro`` microbatches. The ranks of one pipeline share their batch,
+drawn from (seed, dp index).
 """
 
 from __future__ import annotations
@@ -54,12 +63,15 @@ from .convert import jax_ordered
 from .data import DeviceCache
 from .loop import make_scan_train_loop
 from .models.moe import ep_state_dict
+from .models.pipeline_lm import (PipelineStage, pipeline_lm_loss_and_grads,
+                                 stage_state_dict)
 from .models.transformer import (TransformerLM, chunked_lm_loss, init_weights,
                                  next_tokens, token_loss, tp_state_dict)
 from .parallel import fsdp
 from .parallel import sharded as sh
 from .parallel.mesh import (DpFsdp, DpSp, dp_sp_groups, sharded_groups,
                             training_groups)
+from .parallel.pipeline import stage_of
 from .parallel.tensor import model_size
 
 # Sequences per rank in the DeviceCache of a graphed run (8 x 4096 int64
@@ -149,6 +161,36 @@ def build_model(config: TrainConfig, device, sp_group=None, tp_group=None,
         state = ep_state_dict(state, ep, dist.get_rank(ep_group))
     model.load_state_dict(state)
     return model
+
+
+def build_pipeline_stage(config: TrainConfig, pp_group, device,
+                         sp_group=None) -> PipelineStage:
+    """This rank's ``PipelineStage`` of the config's model (see
+    ``pipeline_stages``), its stage and the stage count from ``pp_group``,
+    so the ranks of a pp group hold one model."""
+    stage, pp = stage_of(pp_group)
+    return pipeline_stages(config, device, pp, [stage], sp_group)[0]
+
+
+def pipeline_stages(config: TrainConfig, device, pp: int, stages,
+                    sp_group=None) -> list:
+    """Stages ``stages`` of the config's model cut into ``pp``: the whole
+    model's weights drawn from the config's seed, as ``build_model`` draws
+    them, and each stage's blocks cut out (``stage_state_dict``). The head
+    is float32."""
+    kw = dict(vocab=config.vocab, dim=config.dim, heads=config.heads,
+              mlp_ratio=config.mlp_ratio, dtype=getattr(torch, config.dtype),
+              attention=config.attention, kv_heads=config.kv_heads)
+    full = TransformerLM(**kw, layers=config.layers).to(device)
+    init_weights(full, torch.Generator(device=device).manual_seed(config.seed))
+    state = full.state_dict()
+    out = []
+    for stage in stages:
+        model = PipelineStage(**kw, layers=config.layers // pp,
+                              sp_group=sp_group).to(device)
+        model.load_state_dict(stage_state_dict(state, pp, stage))
+        out.append(model)
+    return out
 
 
 def make_batch(config: TrainConfig, rank: int, device,
@@ -349,6 +391,71 @@ def setup_fsdp(config: TrainConfig, layout: Optional[DpFsdp] = None,
                      step=make_fsdp_train_step(model, rows, shapes, layout,
                                                optimizer),
                      tokens_per_step=config.batch * config.seq * basics.size())
+
+
+def make_pipeline_train_step(stage: PipelineStage,
+                             opt: hvd_opt.DistributedOptimizer, pp_group,
+                             n_micro: int):
+    """``step(tokens) -> loss``, GPipe: zero_grad, the replica's ``(batch,
+    T)`` tokens cut into ``n_micro`` microbatches through
+    ``pipeline_lm_loss_and_grads`` (the outer leaves' gradients summed over
+    the pp group), then ``opt.step()`` (the average over the dp group and
+    Adam). The loss is the last stage's, on every stage."""
+
+    def step(tokens: torch.Tensor) -> torch.Tensor:
+        if tokens.shape[0] % n_micro:
+            raise ValueError(f"batch {tokens.shape[0]} not divisible by "
+                             f"{n_micro} microbatches")
+        opt.zero_grad()
+        loss, _ = pipeline_lm_loss_and_grads(
+            stage, tokens.reshape(n_micro, -1, tokens.shape[1]), pp_group)
+        opt.step()
+        return loss
+
+    return step
+
+
+@dataclass
+class PipelineSetup:
+    """What ``setup_pipeline`` builds for one rank."""
+
+    stage: PipelineStage
+    opt: hvd_opt.DistributedOptimizer
+    step: Callable
+    layout: DpFsdp
+    tokens_per_step: int        # over all ranks' pipelines
+
+
+def setup_pipeline(config: TrainConfig, pp: int, n_micro: int,
+                   device=None) -> PipelineSetup:
+    """init -> ``training_groups(world / pp, 1, pp)`` -> this rank's stage
+    -> ``broadcast_parameters`` over the dp group, and of the outer leaves
+    over the pp group -> Adam on the stage's parameters ->
+    ``DistributedOptimizer(group=<dp group>)`` -> the pipelined step. The
+    plain step only: no ring, graph, remat, chunked loss or ZeRO."""
+    if (config.sp, config.steps_per_dispatch, config.remat, config.loss_chunk) \
+            != (None, None, False, 0) or config.sharded:
+        raise ValueError("pipeline training takes the plain step only: no sp, "
+                         "steps_per_dispatch, remat, loss_chunk or sharded")
+    basics.init(device)
+    dev = basics.device()
+    if basics.size() % pp:
+        raise ValueError(f"world size {basics.size()} not divisible by pp {pp}")
+    layout = training_groups(basics.size() // pp, 1, pp)
+    stage = build_pipeline_stage(config, layout.pp_group, dev)
+    named = jax_ordered(stage.named_parameters())
+    hvd_opt.broadcast_parameters(named, 0, layout.dp_group)
+    hvd_opt.broadcast_parameters(
+        [(n, p) for n, p in named if not n.startswith("blocks.")], 0,
+        layout.pp_group)
+    opt = hvd_opt.DistributedOptimizer(adam([p for _, p in named], config),
+                                       named, sharded=False,
+                                       group=layout.dp_group)
+    hvd_opt.broadcast_optimizer_state(opt, 0, layout.dp_group)
+    return PipelineSetup(
+        stage=stage, opt=opt, layout=layout,
+        step=make_pipeline_train_step(stage, opt, layout.pp_group, n_micro),
+        tokens_per_step=config.batch * config.seq * layout.dp_size)
 
 
 def train(config: TrainConfig, steps: int, device=None,

@@ -45,6 +45,8 @@ def test_import_pulls_in_no_jax():
             "horovod_tpu_torch.parallel.sharded, horovod_tpu_torch.parallel.fsdp, "
             "horovod_tpu_torch.parallel.tensor, horovod_tpu_torch.ops.moe, "
             "horovod_tpu_torch.models.moe, "
+            "horovod_tpu_torch.parallel.pipeline, "
+            "horovod_tpu_torch.models.pipeline_lm, "
             "horovod_tpu_torch.transformer_benchmark\n"
             "bad = [m for m in set(sys.modules) - before if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"

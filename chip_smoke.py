@@ -150,7 +150,17 @@ prints no result):
     gradients against the flat step (phase 5's limits), and bubble
     isolation (microbatch 1 changed, the others' logits bit for bit); the
     bytes a real pp = 4 step would hand on per rank (planned);
-20. the ``{"kernels": [...]}`` line (all six kernels, each with its
+20. the gradient exchange from the gradient hooks at full width
+    (``HOROVOD_LATENCY_HIDING=1``, ``HOROVOD_NUM_BUCKETS=4``, a world of one
+    over NCCL): (a) 3 steps of ``TrainConfig()`` with the hooks on against
+    3 with them off, bit for bit in every loss and parameter, the buckets'
+    launch order (plan order) and those started before ``backward()``
+    returned, B1-B3's launches, step ms and peak memory of both; (b)
+    ``TrainConfig(steps_per_dispatch=4)`` with the hooks on against eager
+    steps with the hooks on, as phase 13; (c) ``metrics.overlap``'s
+    ``record_plan`` and a ``measure_overlap`` report of 2 hooked steps
+    (``ok: false`` where NCCL launches no kernel in a world of one);
+21. the ``{"kernels": [...]}`` line (all six kernels, each with its
     launches on every path above; phases 10 and 14 run none of them),
     then ``{"ok": true, ...}`` last.
 
@@ -1136,7 +1146,10 @@ def bf16_head(torch, fa, rf, basics, train_mod, dev, paths) -> None:
 
 
 def graphed_against_eager(torch, fa, rf, basics, train_mod, loop_mod, bench,
-                          config, dev, paths) -> None:
+                          config, dev, paths, phase="13") -> list:
+    """Returns the captured step's ``last_launches`` (the exchange's
+    buckets, in launch order, with whether a hook started each) and the
+    optimizer's ``launch_order``."""
     s = train_mod.setup(config, "cuda")
     cache = train_mod.make_cache(config, s.sp, dev)
     torch.cuda.empty_cache()
@@ -1157,7 +1170,8 @@ def graphed_against_eager(torch, fa, rf, basics, train_mod, loop_mod, bench,
         f"{loop.capture_s - warm_s:.3f} s, peak memory {peak / 1e9:.2f} GB")
     hold_counts("at capture (one step; replays run no Python)", counts,
                 {k: config.layers for k in (RING_KERNELS if config.sp else KERNELS)})
-    paths[f"13: capture of one step, {config_label(config)}"] = counts
+    paths[f"{phase}: capture of one step, {config_label(config)}"] = counts
+    captured = (s.opt.last_launches, s.opt.launch_order)
 
     e = train_mod.setup(config, "cuda")
     ctr, eager_losses = cache.counter(), []
@@ -1201,6 +1215,7 @@ def graphed_against_eager(torch, fa, rf, basics, train_mod, loop_mod, bench,
     del loop, s, e
     basics.shutdown()
     torch.cuda.empty_cache()
+    return captured
 
 
 # Phase 14. A world of one: each group of the ladder has one rank, so the
@@ -2099,6 +2114,137 @@ def pipeline_parallel(torch, fa, rf, basics, train_mod, card, dev, paths) -> Non
         f"rank, forward and backward (planned, not measured)")
 
 
+# Phase 20. The gradient exchange from the gradient hooks
+# (HOROVOD_LATENCY_HIDING=1) at HOROVOD_NUM_BUCKETS=OVERLAP_BUCKETS in a
+# world of one over NCCL: the same fused buffers, the same all-reduces and
+# the same divisions as the serial exchange, only started earlier (in plan
+# order on the first step, then in the order the buckets completed on it),
+# so the hooked steps are expected bit-equal to the serial ones in every
+# loss and parameter; the graphed loop with the hooks on is held to eager steps with
+# the hooks on as phase 13 holds it (1e-6 relative, bit-equal expected).
+OVERLAP_STEPS, OVERLAP_BUCKETS = 3, 4
+
+
+def overlap_run(torch, fa, rf, basics, train_mod, config, hooked, dev) -> dict:
+    """OVERLAP_STEPS steps of ``config`` on one repeated batch, the hooks
+    on or off: losses, step ms, peak memory, B1-B3's launches (counts zeroed
+    just before the steps), each step's launches, the parameters; with the
+    hooks on also ``record_plan`` and a ``measure_overlap`` report of 2 more
+    steps."""
+    from horovod_tpu_torch.metrics.overlap import measure_overlap, record_plan
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    os.environ["HOROVOD_NUM_BUCKETS"] = str(OVERLAP_BUCKETS)
+    os.environ["HOROVOD_LATENCY_HIDING"] = "1" if hooked else "0"
+    try:
+        s = train_mod.setup(config, "cuda")
+    finally:
+        os.environ.pop("HOROVOD_NUM_BUCKETS")
+        os.environ.pop("HOROVOD_LATENCY_HIDING")
+    if s.opt.latency_hiding != hooked:
+        raise AssertionError(f"HOROVOD_LATENCY_HIDING={int(hooked)} did not reach "
+                             f"the optimizer ({s.opt.latency_hiding})")
+    tokens = train_mod.make_batch(config, 0, dev)
+    losses, times, launches = [], [], []
+    read_counts(fa, rf)
+    for _ in range(OVERLAP_STEPS):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        loss = s.step(tokens)
+        torch.cuda.synchronize(dev)
+        times.append(1e3 * (time.perf_counter() - t0))
+        losses.append(loss.item())
+        launches.append(s.opt.last_launches)
+    run = {"losses": losses, "ms": times, "launches": launches,
+           "counts": read_counts(fa, rf),
+           "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+           "buckets": s.opt.plan.num_buckets, "order": s.opt.launch_order,
+           "params": {n: p.detach().cpu() for n, p in s.model.named_parameters()}}
+    if hooked:
+        run["plan"] = record_plan(s.opt.plan, s.opt.threshold)
+        run["overlap"] = measure_overlap(lambda: s.step(tokens), steps=2,
+                                         sync=lambda: torch.cuda.synchronize(dev))
+        read_counts(fa, rf)
+    del s
+    basics.shutdown()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run
+
+
+def overlap_phase(torch, fa, rf, basics, train_mod, loop_mod, bench, card, dev,
+                  paths) -> None:
+    config = train_mod.TrainConfig()
+    runs = {hooked: overlap_run(torch, fa, rf, basics, train_mod, config, hooked, dev)
+            for hooked in (False, True)}
+    off, on = runs[False], runs[True]
+    differ = [n for n in off["params"] if not torch_equal(on["params"][n], off["params"][n])]
+    log(f"  (a) hooks on vs off, {OVERLAP_STEPS} steps: losses {on['losses']} vs "
+        f"{off['losses']}; parameters that differ: {len(differ)} of {len(off['params'])}")
+    if on["losses"] != off["losses"] or differ:
+        raise AssertionError(f"hooked exchange not bit-equal to the serial one: "
+                             f"losses {on['losses']} vs {off['losses']}, {differ[:5]}")
+    nb, leaves = on["buckets"], len(on["params"])
+    log(f"  agreed launch order (as the buckets completed on the first "
+        f"backward pass): {on['order']}")
+    if sorted(on["order"]) != list(range(nb)):
+        raise AssertionError(f"launch order {on['order']} is no permutation of "
+                             f"{nb} buckets")
+    for i, step in enumerate(on["launches"]):
+        order = [b for b, _ in step]
+        early = [(b, at) for b, at in step if at is not None]
+        want = list(range(nb)) if i == 0 else on["order"]
+        log(f"  step {i}: buckets launched in order {order} "
+            f"({'plan' if i == 0 else 'agreed'} order: {order == want}); "
+            f"launched before backward() returned, as (bucket, leaves of "
+            f"{leaves} landed when its hook started it): {early}")
+        if order != want:
+            raise AssertionError(f"step {i}: launch order {order}, expected {want}")
+    for step in off["launches"]:
+        if step != [(b, None) for b in range(nb)]:
+            raise AssertionError(f"the serial exchange launched {step}, not every "
+                                 f"bucket from synchronize in plan order")
+    per_step = config.layers * OVERLAP_STEPS
+    for label, run in (("hooks off", off), ("hooks on", on)):
+        hold_counts(f"{label}, {OVERLAP_STEPS} steps", run["counts"],
+                    {k: per_step for k in KERNELS})
+        paths[f"20: {OVERLAP_STEPS} steps, {OVERLAP_BUCKETS} buckets, {label}"] = \
+            run["counts"]
+        log(f"  {label}: {run['buckets']} buckets, median step "
+            f"{statistics.median(run['ms'][1:]):.2f} ms (steps 1-{OVERLAP_STEPS - 1}; "
+            f"per step {[round(t, 2) for t in run['ms']]}), peak memory "
+            f"{run['peak_gb']:.3f} GB, on {card}")
+    log(f"  peak memory, hooks on minus off: {on['peak_gb'] - off['peak_gb']:+.3f} GB")
+    plan = on["plan"]
+    log(f"  (c) record_plan: bucket bytes in issue order "
+        f"{[n for _, n in plan['buckets']]}, total {plan['total_bytes']} B, "
+        f"occupancy {plan['occupancy']:.4f}, planned bound "
+        f"{plan['planned_efficiency']:.4f}")
+    rep = dict(on["overlap"])
+    spans = rep.pop("spans", [])
+    log(f"  measure_overlap, 2 hooked steps: {rep}; first spans {spans[:4]}")
+    del runs, off, on
+    graph_config = train_mod.TrainConfig(steps_per_dispatch=GRAPH_K)
+    log(f"  (b) the graphed loop with the hooks on, K = {GRAPH_K}, against eager "
+        f"steps with the hooks on")
+    os.environ["HOROVOD_NUM_BUCKETS"] = str(OVERLAP_BUCKETS)
+    os.environ["HOROVOD_LATENCY_HIDING"] = "1"
+    try:
+        captured = graphed_against_eager(torch, fa, rf, basics, train_mod, loop_mod,
+                                         bench, graph_config, dev, paths, phase="20")
+    finally:
+        os.environ.pop("HOROVOD_NUM_BUCKETS")
+        os.environ.pop("HOROVOD_LATENCY_HIDING")
+    captured, order = captured
+    log(f"  captured step's launches (bucket, leaves landed): {captured}")
+    if [b for b, _ in captured] != order or sorted(order) != list(range(nb)) or \
+            all(at is None for _, at in captured):
+        raise AssertionError(f"the captured step did not run the hooked exchange "
+                             f"in its agreed order {order}: {captured}")
+
+
 def config_label(config) -> str:
     return "TrainConfig(sp=1)" if config.sp else "TrainConfig()"
 
@@ -2272,6 +2418,11 @@ def main() -> int:
         f"flat step ({PP_STEPS} steps; n_micro 1 and {PP_MICRO}); a virtual pp "
         f"of {PP_N}")
     pipeline_parallel(torch, fa, rf, basics, train_mod, card, dev, paths)
+
+    log(f"[20] the gradient exchange from the gradient hooks "
+        f"(HOROVOD_LATENCY_HIDING=1, {OVERLAP_BUCKETS} buckets) against the serial "
+        f"exchange, {OVERLAP_STEPS} steps each; the graphed loop with the hooks on")
+    overlap_phase(torch, fa, rf, basics, train_mod, loop_mod, bench, card, dev, paths)
 
     kernels = []
     for source, names in SOURCES.items():

@@ -10,6 +10,9 @@ Horovod's data-parallel contract on NVIDIA GPUs, mirroring
     hvd.broadcast_parameters(model.state_dict(), root_rank=0)
     hvd.broadcast_optimizer_state(opt, root_rank=0)
 
+``HOROVOD_LATENCY_HIDING=1`` starts each bucket's exchange from the
+gradient hooks during the backward pass (``optimizer.py``;
+``metrics/overlap.py`` measures what it hides).
 Sharded data parallelism (ZeRO) is ``DistributedOptimizer(sharded=True)``
 over ``sharded_groups()`` (``HOROVOD_MESH``, ``HOROVOD_SHARD_PARAMS``;
 ``parallel/sharded.py``); FSDP is ``parallel/fsdp.py`` over

@@ -7,13 +7,14 @@ a machine without one raises instead of falling back.
 
 The rendezvous address is, in order: torchrun's ``MASTER_ADDR`` and
 ``MASTER_PORT``; the launcher's ``HOROVOD_COORD_ADDR``; and, for a world of
-one, ``127.0.0.1`` on a free port.
+one, a store of its own on ``127.0.0.1`` that binds a port the kernel picks
+(port 0), so no other socket can take the port between its choice and the
+bind.
 """
 
 from __future__ import annotations
 
 import os
-import socket
 import threading
 from datetime import timedelta
 from typing import Optional
@@ -54,28 +55,26 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+# How long a rank waits for the others at rendezvous and in a collective.
+_TIMEOUT = timedelta(minutes=10)
 
 
-def _rendezvous(topo: Topology) -> str:
+def _rendezvous(topo: Topology) -> dict:
+    """``init_process_group``'s rendezvous arguments: ``init_method`` for a
+    launched world, ``store`` for a world of one."""
     env = os.environ
     if env.get("MASTER_ADDR") and env.get("MASTER_PORT"):
-        return f"tcp://{env['MASTER_ADDR']}:{env['MASTER_PORT']}"
+        return {"init_method":
+                f"tcp://{env['MASTER_ADDR']}:{env['MASTER_PORT']}"}
     if env.get("HOROVOD_COORD_ADDR"):
-        return f"tcp://{env['HOROVOD_COORD_ADDR']}"
+        return {"init_method": f"tcp://{env['HOROVOD_COORD_ADDR']}"}
     if topo.size == 1:
-        return f"tcp://127.0.0.1:{_free_port()}"
+        return {"store": dist.TCPStore("127.0.0.1", 0, 1, is_master=True,
+                                       timeout=_TIMEOUT)}
     raise RuntimeError(
         f"rank {topo.rank} of a world of {topo.size} has no rendezvous "
         "address: launch with torchrun (MASTER_ADDR/MASTER_PORT) or the "
         "horovod launcher (HOROVOD_COORD_ADDR)")
-
-
-# How long a rank waits for the others at rendezvous and in a collective.
-_TIMEOUT = timedelta(minutes=10)
 
 
 def init(device=None) -> None:
@@ -95,7 +94,7 @@ def init(device=None) -> None:
             device = torch.device("cuda", topo.local_rank)
         dist.init_process_group(
             "nccl" if device.type == "cuda" else "gloo",
-            init_method=_rendezvous(topo), rank=topo.rank,
+            **_rendezvous(topo), rank=topo.rank,
             world_size=topo.size, timeout=_TIMEOUT)
         _state.topology = topo
         _state.config = Config.from_env()

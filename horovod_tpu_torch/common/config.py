@@ -2,7 +2,8 @@
 
 The subset of ``horovod_tpu.common.config`` that the PyTorch port's data
 plane reads: the fusion threshold, the bucket count, the wire compression,
-and the hierarchical ladder's switch and DCN-tier bucket cap, with the
+the hierarchical ladder's switch and DCN-tier bucket cap, the sharded
+layout and the latency-hiding switch, with the
 same env knobs and the same defaults, so one env var tunes both packages
 the same way. Three knobs are read where the JAX package's compiled plane
 reads them, when the wires are chosen: HOROVOD_DCN_COMPRESSION
@@ -78,6 +79,10 @@ class Config:
     # that puts DistributedOptimizer on the reduce-scatter exchange.
     mesh: str = ""                                      # HOROVOD_MESH
     shard_params: bool = False                          # HOROVOD_SHARD_PARAMS
+    # The reference's switch for XLA's latency-hiding scheduler; here it
+    # starts each bucket's exchange from the gradient hooks as soon as the
+    # bucket's last gradient lands (optimizer.py).
+    latency_hiding: bool = False                        # HOROVOD_LATENCY_HIDING
 
     @classmethod
     def from_env(cls) -> "Config":
@@ -95,4 +100,5 @@ class Config:
                 "HOROVOD_DCN_FUSION_THRESHOLD", 0)),
             mesh=os.environ.get("HOROVOD_MESH", "").strip(),
             shard_params=_env_bool("HOROVOD_SHARD_PARAMS"),
+            latency_hiding=_env_bool("HOROVOD_LATENCY_HIDING"),
         )

@@ -165,7 +165,12 @@ def pipeline_lm_loss_and_grads(stage: PipelineStage, tokens_micro: torch.Tensor,
     the stage's ``.grad`` (adding to what is there) and sums the outer
     leaves' gradients over ``group``; the blocks' stay on their stage.
     Returns ``(loss, {name: grad})``: the loss is the last stage's value,
-    the same on every stage.
+    the same on every stage. The sum runs in a tensor hook on each outer
+    leaf, before its gradient accumulates, so that a gradient hook that
+    fires after accumulation (the latency-hiding ``DistributedOptimizer``'s)
+    sees the summed gradient. Every stage reaches every outer leaf in the
+    same place of the same graph, so the ranks issue these allreduces and
+    the ticks' P2P calls in one order.
 
     The loss is the mean next-token cross entropy over all ``n_micro * mb
     * T`` rows in one call (targets rolled within each row; on a sequence
@@ -177,10 +182,24 @@ def pipeline_lm_loss_and_grads(stage: PipelineStage, tokens_micro: torch.Tensor,
     # The cross entropy keeps what its backward needs: holding the float32
     # logits through the backward too would add their size to the peak.
     del logits
-    loss.backward()
     named = list(stage.named_parameters())
-    for name, p in named:
-        if _block_index(name) is None:
+    outer = [p for name, p in named if _block_index(name) is None]
+    summed = set()
+
+    def sum_over_pp(p):
+        def hook(grad):
+            summed.add(id(p))
+            return allreduce_(grad.clone(), ReduceOp.SUM, group)
+        return hook
+
+    handles = [p.register_hook(sum_over_pp(p)) for p in outer]
+    try:
+        loss.backward()
+    finally:
+        for h in handles:
+            h.remove()
+    for p in outer:
+        if id(p) not in summed:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
             allreduce_(p.grad, ReduceOp.SUM, group)

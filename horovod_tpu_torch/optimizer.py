@@ -22,14 +22,39 @@ gradients into the rows' ``.grad``, steps them and zeroes their pad tail;
 the caller refreshes the model's parameters with ``gather_params`` at the
 start of each step. ``broadcast_sharded_state`` gives every batch replica
 root's rows and optimizer state.
+
+Each exchange runs bucket by bucket: fuse the bucket's gradients, cast
+to its wire dtype, start its collective (a flat, ``group=`` or shard-1
+ZeRO bucket is one ``all_reduce(async_op=True)``; the ladder and ZeRO's
+reduce-scatter then batch allreduce run as a chain), then ``synchronize()``
+waits for each, divides for AVERAGE at the wire dtype, casts back and
+unfuses. HOROVOD_LATENCY_HIDING (the reference's switch for XLA's
+latency-hiding scheduler, read at ``init``) starts the buckets during the
+backward pass: each parameter gets a post-accumulate-grad hook, and a
+bucket starts as soon as its last gradient has landed and every bucket
+before it in the launch order has started. The launch order is plan order
+on the first exchange; from the second on it is the order in which the
+buckets completed on the first rank's first backward pass (agreed over the
+exchange's groups at the first ``synchronize``), so every rank issues the
+same collectives in the same order and each bucket can start while later
+gradients are still being computed. On the card the chains run on a
+communication stream that waits for the backward's stream at launch.
+Without the hooks, ``synchronize()`` starts every bucket in plan order:
+the same buffers, calls and divisions, so the result is the same bit for
+bit. A gradient must be final when it lands: code that changes ``.grad``
+after the backward pass does so in a tensor hook instead
+(``models/pipeline_lm.py`` sums its outer leaves over the pipeline that
+way).
 """
 
 from __future__ import annotations
 
 import sys
+import weakref
 from typing import Iterable, Mapping, Optional
 
 import torch
+import torch.distributed as dist
 
 from .common import basics
 from .compression import Compression
@@ -114,7 +139,14 @@ class DistributedOptimizer:
     target of ``sharded.gather_params``. ``shard_plan`` (None: planned
     here from those parameters and the layout's shard size) and each
     bucket's wire dtype (``.wires``) are fixed here. SUM and AVERAGE only,
-    and one backward pass per step."""
+    and one backward pass per step.
+
+    With HOROVOD_LATENCY_HIDING on (``basics.config().latency_hiding`` when
+    this is built) the exchange starts from the gradient hooks (see the
+    module docstring). ``launch_order`` is the order the buckets start in;
+    ``last_launches`` holds the last exchange's buckets in that order, each
+    as ``(bucket, leaves landed)``: how many parameters' gradients had
+    landed when a hook started it, or None where ``synchronize`` did."""
 
     def __init__(self, optimizer: torch.optim.Optimizer,
                  named_parameters: Iterable[tuple[str, torch.Tensor]],
@@ -146,11 +178,29 @@ class DistributedOptimizer:
         owned = [p for g in optimizer.param_groups for p in g["params"]]
         if self.sharded:
             self._init_sharded(owned, shard_plan, layout)
-            return
+        else:
+            self._init_flat(owned, hierarchical, groups, dcn_compression,
+                            dcn_threshold)
+        self.latency_hiding = basics.config().latency_hiding
+        self.last_launches: list[tuple[int, Optional[int]]] = []
+        self.launch_order = list(range(self.plan.num_buckets))
+        # Only the hooks see the landing order worth agreeing on.
+        self._agreed = not self.latency_hiding or self.plan.num_buckets < 2
+        self._comm = None
+        self._bucket_of = [0] * len(self.params)
+        for b, bucket in enumerate(self.plan.buckets):
+            for d in bucket:
+                self._bucket_of[d.index] = b
+        self._reset()
+        if self.latency_hiding:
+            self._init_hooks()
+
+    def _init_flat(self, owned, hierarchical, groups, dcn_compression,
+                   dcn_threshold) -> None:
         if {id(p) for p in self.params} != {id(p) for p in owned}:
             raise ValueError(
                 "named_parameters must list exactly the optimizer's parameters")
-        self.hierarchical = _resolved_hierarchical(hierarchical, op)
+        self.hierarchical = _resolved_hierarchical(hierarchical, self.op)
         self.groups, pad_to = None, 1
         threshold = self.threshold
         if self.hierarchical:
@@ -164,7 +214,7 @@ class DistributedOptimizer:
                                       pad_to)
         # (ICI, DCN) wire dtype per bucket, chosen once: the plan and the
         # knobs are fixed from here on.
-        self.wires = fusion.tier_wires(self.plan, op, self.compression,
+        self.wires = fusion.tier_wires(self.plan, self.op, self.compression,
                                        self.compression_min_bytes,
                                        self.hierarchical, dcn_compression)
 
@@ -198,27 +248,140 @@ class DistributedOptimizer:
         self.wires = sh.shard_wires(shard_plan, self.op, self.compression,
                                     self.compression_min_bytes)
 
+    # ------------------------------------------------------- the exchange
+
+    def _init_hooks(self) -> None:
+        # The ladder and ZeRO's pair are chains of dependent collectives:
+        # on the card they run on their own stream, so that neither the
+        # backward's stream nor the host waits for them before synchronize.
+        chained = self.hierarchical or (self.sharded
+                                        and self.shard_plan.shard_size > 1)
+        dev = self.params[0].device if self.params else None
+        self._comm = torch.cuda.Stream(dev) \
+            if chained and dev is not None and dev.type == "cuda" else None
+        me = weakref.ref(self)      # the hooks outlive no optimizer
+
+        def landed(i):
+            def hook(_):
+                opt = me()
+                if opt is not None:
+                    opt._landed(i)
+            return hook
+
+        for i, p in enumerate(self.params):
+            if p.requires_grad:
+                p.register_post_accumulate_grad_hook(landed(i))
+
+    def _reset(self) -> None:
+        self._seen = [0] * len(self.params)         # passes landed, per leaf
+        self._landed_leaves = 0                     # leaves on their k-th pass
+        self._missing = [len(b) for b in self.plan.buckets]
+        self._ready = []                            # buckets, as they completed
+        self._next = 0                              # position in launch_order
+        self._inflight = []
+        self._launches = []
+
+    def _landed(self, i: int) -> None:
+        """Leaf ``i``'s gradient has accumulated: on its k-th pass it
+        counts towards its bucket, and every complete bucket from the next
+        one to launch on starts, in launch order."""
+        k = self.backward_passes_per_step
+        if self._seen[i] == k:
+            raise RuntimeError(
+                "Gradient ready before optimizer.step(); call synchronize()")
+        self._seen[i] += 1
+        if self._seen[i] < k:
+            return
+        self._landed_leaves += 1
+        b = self._bucket_of[i]
+        self._missing[b] -= 1
+        if not self._missing[b]:
+            self._ready.append(b)
+        order = self.launch_order
+        while self._next < len(order) and not self._missing[order[self._next]]:
+            self._launch(order[self._next], True)
+
+    def _launch(self, b: int, in_hook: bool) -> None:
+        """Start bucket ``b``'s exchange: fuse its gradients (divided by k
+        first), cast to its wire dtype, issue its collective or chain."""
+        grads = [p.grad for p in self.params]
+        if self.backward_passes_per_step > 1:
+            for d in self.plan.buckets[b]:
+                grads[d.index].div_(self.backward_passes_per_step)
+        buf = fusion.fuse_bucket(grads, self.plan, b)
+        wire = self.wires[b] if self.sharded else self.wires[0][b]
+        shipped = buf.to(wire) if wire is not None else buf
+        if self.hierarchical:
+            out = self._chain(lambda: collectives.hierarchical_allreduce(
+                shipped, self.groups, average=self.op == ReduceOp.AVERAGE,
+                dcn_wire_dtype=self.wires[1][b]))
+        elif self.sharded and self.shard_plan.shard_size > 1:
+            out = self._chain(lambda: sh.scatter_bucket(
+                shipped, buf.dtype, self.layout, self.op))
+        else:
+            group = self.layout.batch_group if self.sharded else self.group
+            out = collectives.allreduce_async_(shipped, self.op, group)
+        # ``shipped`` stays referenced until synchronize: the collective
+        # reads it on another stream than the one it was made on.
+        self._inflight.append((b, buf.dtype, shipped, out))
+        self._launches.append((b, self._landed_leaves if in_hook else None))
+        self._next += 1
+
+    def _chain(self, run):
+        if self._comm is None:
+            return run()
+        self._comm.wait_stream(torch.cuda.current_stream(self._comm.device))
+        with torch.cuda.stream(self._comm):
+            return run()
+
+    def _agree(self) -> None:
+        """Launch from now on in the order the buckets completed here (those
+        that never did last, in plan order), as the first rank of the
+        exchange's groups saw it."""
+        done = set(self._ready)
+        order = torch.tensor(
+            self._ready + [b for b in range(self.plan.num_buckets) if b not in done],
+            dtype=torch.int64, device=self.params[0].device)
+        if self.hierarchical:
+            groups = (self.groups.ici_group, self.groups.dcn_group)
+        elif self.sharded:
+            groups = (self.layout.batch_group, self.layout.shard_group)
+        else:
+            groups = (self.group,)
+        # Root's order along one group, then along the other: the groups
+        # tile the world, so every rank ends with the first rank's.
+        for g in groups:
+            if dist.get_world_size(g) > 1:
+                collectives.broadcast(order, 0, g)
+        self.launch_order = order.tolist()
+        self._agreed = True
+
     def synchronize(self) -> None:
         """Allreduce every parameter's gradient (a missing one counts as 0);
-        sharded, reduce-scatter them into the rows' ``.grad``."""
-        grads = []
+        sharded, reduce-scatter them into the rows' ``.grad``: start the
+        buckets no hook has started, in launch order, then wait for each
+        and unfuse it."""
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-            grads.append(p.grad)
-        if self.sharded:
-            reduced = sh.reduce_scatter_gradients(grads, self.shard_plan,
-                                                  self.layout, self.op, self.wires)
-            for row, g in zip(self.rows, reduced):
-                row.grad = g
-            return
-        if self.backward_passes_per_step > 1:
-            for g in grads:
-                g.div_(self.backward_passes_per_step)
-        fusion.fused_allreduce_(grads, self.plan, self.op,
-                                hierarchical=self.hierarchical,
-                                groups=self.groups, wires=self.wires,
-                                group=self.group)
+        order = self.launch_order
+        while self._next < len(order):
+            self._launch(order[self._next], False)
+        if self._comm is not None:
+            torch.cuda.current_stream(self._comm.device).wait_stream(self._comm)
+        grads = [p.grad for p in self.params]
+        for b, dtype, _, out in self._inflight:
+            if isinstance(out, collectives.Pending):
+                out = out.wait()
+            reduced = out.to(dtype)
+            if self.sharded:
+                self.rows[b].grad = reduced
+            else:
+                fusion.unfuse_bucket_(reduced, self.plan, b, grads)
+        self.last_launches = self._launches
+        if not self._agreed:
+            self._agree()
+        self._reset()
 
     def step(self) -> bool:
         """Allreduce and step; returns whether this call stepped."""
@@ -234,6 +397,10 @@ class DistributedOptimizer:
 
     def zero_grad(self) -> None:
         if self._passes == 0:
+            if any(self._seen):
+                raise RuntimeError(
+                    "zero_grad() called after gradients landed and before "
+                    "step(); call step() or synchronize() first")
             self.optimizer.zero_grad()
             if self.sharded:            # the model's full gradients
                 for p in self.params:

@@ -53,6 +53,30 @@ def allreduce_(tensor: torch.Tensor, op: ReduceOp = ReduceOp.AVERAGE,
     return tensor
 
 
+class Pending:
+    """An allreduce in flight: ``wait()`` makes the caller's stream (on the
+    card; the host on gloo) wait for it, divides for AVERAGE and returns
+    the tensor."""
+
+    def __init__(self, work, tensor: torch.Tensor, divisor: Optional[int]):
+        self.work, self.tensor, self.divisor = work, tensor, divisor
+
+    def wait(self) -> torch.Tensor:
+        self.work.wait()
+        if self.divisor is not None:
+            self.tensor.div_(self.divisor)
+        return self.tensor
+
+
+def allreduce_async_(tensor: torch.Tensor, op: ReduceOp = ReduceOp.AVERAGE,
+                     group: Group = None) -> Pending:
+    """``allreduce_`` issued with ``async_op=True``: nothing waits for it
+    until ``wait()``, which divides for AVERAGE as ``allreduce_`` does."""
+    work = dist.all_reduce(tensor, op=_DIST_OPS[op], group=group, async_op=True)
+    divisor = dist.get_world_size(group) if op == ReduceOp.AVERAGE else None
+    return Pending(work, tensor, divisor)
+
+
 def allreduce(tensor: torch.Tensor, op: ReduceOp = ReduceOp.AVERAGE,
               group: Group = None) -> torch.Tensor:
     """Allreduce into a new tensor (default: average, as hvd.allreduce)."""

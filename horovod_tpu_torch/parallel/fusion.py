@@ -50,6 +50,7 @@ class FusionPlan:
 
     buckets: tuple[tuple[_Leaf, ...], ...]
     pad_to: int = 1     # each buffer's length is a multiple (the ladder's RS)
+    reverse_order: bool = False     # the K-bucket plan, last leaves first
 
     @property
     def num_buckets(self) -> int:
@@ -86,7 +87,8 @@ def build_plan(leaves: Sequence, threshold: int = DEFAULT_FUSION_THRESHOLD,
     descs = _leaf_descs(leaves)
     if num_buckets > 1:
         buckets = _reverse_order_buckets(descs, num_buckets, threshold)
-        return FusionPlan(tuple(tuple(b) for b in buckets), pad_to)
+        return FusionPlan(tuple(tuple(b) for b in buckets), pad_to,
+                          reverse_order=True)
     buckets: list[list[_Leaf]] = []
     cur: dict[str, list[_Leaf]] = {}
     cur_bytes: dict[str, int] = {}
@@ -151,28 +153,38 @@ def _reverse_order_buckets(descs: Sequence[_Leaf], num_buckets: int,
     return buckets
 
 
+def fuse_bucket(tensors: Sequence[torch.Tensor], plan: FusionPlan,
+                b: int) -> torch.Tensor:
+    """Bucket ``b``'s flat buffer of ``tensors`` (a copy, even for a single
+    leaf), zero padded to a multiple of ``plan.pad_to``."""
+    bucket = plan.buckets[b]
+    parts = [tensors[d.index].reshape(-1) for d in bucket]
+    pad = -sum(d.size for d in bucket) % plan.pad_to
+    if pad:
+        parts.append(parts[0].new_zeros(pad))
+    return torch.cat(parts)
+
+
 def fuse(tensors: Sequence[torch.Tensor], plan: FusionPlan) -> list:
-    """One flat buffer per bucket (a copy, even for a single leaf), zero
-    padded to a multiple of ``plan.pad_to``."""
-    buffers = []
-    for bucket in plan.buckets:
-        parts = [tensors[d.index].reshape(-1) for d in bucket]
-        pad = -sum(d.size for d in bucket) % plan.pad_to
-        if pad:
-            parts.append(parts[0].new_zeros(pad))
-        buffers.append(torch.cat(parts))
-    return buffers
+    """One flat buffer per bucket: ``fuse_bucket`` of each."""
+    return [fuse_bucket(tensors, plan, b) for b in range(plan.num_buckets)]
+
+
+def unfuse_bucket_(buf: torch.Tensor, plan: FusionPlan, b: int,
+                   out: Sequence[torch.Tensor]) -> None:
+    """Copy bucket ``b``'s buffer's slices back into the leaves of ``out``
+    (a pad tail is left out)."""
+    offset = 0
+    for d in plan.buckets[b]:
+        out[d.index].copy_(buf[offset:offset + d.size].view(d.shape))
+        offset += d.size
 
 
 def unfuse_(buffers: Sequence[torch.Tensor], plan: FusionPlan,
             out: Sequence[torch.Tensor]) -> None:
-    """Copy each buffer's slices back into the leaves of ``out`` (a pad
-    tail is left out)."""
-    for bucket, buf in zip(plan.buckets, buffers):
-        offset = 0
-        for d in bucket:
-            out[d.index].copy_(buf[offset:offset + d.size].view(d.shape))
-            offset += d.size
+    """``unfuse_bucket_`` of each bucket's buffer."""
+    for b, buf in enumerate(buffers):
+        unfuse_bucket_(buf, plan, b, out)
 
 
 def wire_dtype_for_bucket(compression, dtype: torch.dtype, nbytes: int, op,

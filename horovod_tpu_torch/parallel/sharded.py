@@ -222,17 +222,23 @@ def reduce_scatter_gradients(grads: Sequence[torch.Tensor], plan: ShardPlan,
     if plan.shard_size == 1:
         reduced = collectives.bucketed_allreduce(shipped, op, layout.batch_group)
         return [r.to(b.dtype) for r, b in zip(reduced, buffers)]
-    world = layout.shard_size * layout.batch_size
-    out = []
-    for s, b in zip(shipped, buffers):
-        chunk = collectives.reducescatter(s, layout.shard_group)
-        if layout.batch_size > 1:
-            collectives.allreduce_(chunk, ReduceOp.SUM, layout.batch_group)
-        chunk = chunk.to(b.dtype)
-        if op == ReduceOp.AVERAGE:
-            chunk.div_(world)
-        out.append(chunk)
-    return out
+    return [scatter_bucket(s, b.dtype, layout, op)
+            for s, b in zip(shipped, buffers)]
+
+
+def scatter_bucket(shipped: torch.Tensor, dtype: torch.dtype, layout,
+                   op: ReduceOp = ReduceOp.AVERAGE) -> torch.Tensor:
+    """One bucket's exchange at ``shard_size > 1``: reduce-scatter (sum)
+    the buffer ``shipped`` (at its wire dtype) over the shard group, sum
+    the chunk over the batch group, cast it back to ``dtype`` and for
+    AVERAGE divide by batch x shard. Each step reads the one before."""
+    chunk = collectives.reducescatter(shipped, layout.shard_group)
+    if layout.batch_size > 1:
+        collectives.allreduce_(chunk, ReduceOp.SUM, layout.batch_group)
+    chunk = chunk.to(dtype)
+    if op == ReduceOp.AVERAGE:
+        chunk.div_(layout.shard_size * layout.batch_size)
+    return chunk
 
 
 def mask_pad_(rows: ShardedBuckets, plan: ShardPlan, shard_rank: int) -> None:

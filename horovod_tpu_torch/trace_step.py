@@ -20,6 +20,9 @@ options. ``--steps-per-dispatch K`` trains through the graphed loop and
 traces its fourth dispatch, K steps replayed from one CUDA graph; the
 JSON line then says whether the profiler saw the kernels of the replays
 (``graph_kernels_seen``): a trace without them shows the device idle.
+Where the traced step ran NCCL kernels, the line carries ``overlap``:
+``metrics.overlap.parse_overlap``'s report of how much of their time ran
+under compute.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from .common import basics
+from .metrics.overlap import chrome_events, parse_overlap
 from .train import TrainConfig, train
 from .train_cnn import CNNConfig, train_cnn
 
@@ -70,6 +74,15 @@ def kernel_class(name: str) -> str:
         if any(k in lowered for k in keys):
             return cls
     return "other"
+
+
+def overlap_field(events: list) -> dict:
+    """``{"overlap": parse_overlap(events)}`` when the Chrome trace's
+    ``events`` hold an NCCL kernel, else ``{}``."""
+    if any(e.get("cat") == "kernel" and "nccl" in e.get("name", "").lower()
+           for e in events):
+        return {"overlap": parse_overlap(events)}
+    return {}
 
 
 def main(argv=None) -> None:
@@ -142,6 +155,7 @@ def main(argv=None) -> None:
             "classes": dict(sorted(by_class.items(), key=lambda kv: -kv[1]["ms"])),
             "top": [{"name": n[:120], "ms": t / 1e3, "calls": c}
                     for n, (t, c) in ranked[:TOP]],
+            **overlap_field(chrome_events(prof)),
         }))
     finally:
         basics.shutdown()

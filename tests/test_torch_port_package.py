@@ -47,6 +47,7 @@ def test_import_pulls_in_no_jax():
             "horovod_tpu_torch.models.moe, "
             "horovod_tpu_torch.parallel.pipeline, "
             "horovod_tpu_torch.models.pipeline_lm, "
+            "horovod_tpu_torch.metrics.overlap, "
             "horovod_tpu_torch.transformer_benchmark\n"
             "bad = [m for m in set(sys.modules) - before if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
@@ -116,6 +117,30 @@ def test_trace_kernel_classes(name, cls):
     assert kernel_class(name) == cls
 
 
+def test_trace_overlap_field():
+    """``trace_step``'s JSON line carries ``parse_overlap``'s report when the
+    traced step ran an NCCL kernel, and no field when it ran none."""
+    from horovod_tpu_torch.metrics.overlap import parse_overlap
+    from horovod_tpu_torch.trace_step import overlap_field
+
+    def kernel(name, ts, dur):
+        return {"ph": "X", "cat": "kernel", "name": name, "pid": 0, "tid": 7,
+                "ts": ts, "dur": dur, "args": {"device": 0, "stream": 7}}
+
+    events = [kernel("nvjet_tst_256x128_64x4_1x2_h_ssched", 0.0, 100.0),
+              kernel("ncclDevKernel_AllReduce_Sum_f32_RING_LL", 60.0, 80.0),
+              kernel("fwd_tc_kernel<128, 0>", 150.0, 10.0),
+              {"ph": "X", "cat": "cpu_op", "name": "aten::mm", "pid": 1,
+               "tid": 1, "ts": 0.0, "dur": 500.0}]
+    field = overlap_field(events)
+    assert field == {"overlap": parse_overlap(events)}
+    rep = field["overlap"]
+    assert rep["ok"] and rep["collectives"] == 1
+    assert (rep["collective_ms"], rep["hidden_ms"], rep["overlap_efficiency"]) == \
+        (0.08, 0.04, 0.5)
+    assert overlap_field(events[:1] + events[2:]) == {}
+
+
 def test_topology_from_horovod_env(monkeypatch):
     from horovod_tpu.common import topology as jax_topology
 
@@ -150,19 +175,23 @@ def test_config_matches_jax(monkeypatch):
     for env in ({}, {"HOROVOD_FUSION_THRESHOLD": "1234", "HOROVOD_NUM_BUCKETS": "3",
                      "HOROVOD_COMPRESSION": "bf16",
                      "HOROVOD_COMPRESSION_MIN_BYTES": "10",
-                     "HOROVOD_MESH": " 2x2 ", "HOROVOD_SHARD_PARAMS": "1"},
-                {"HOROVOD_MESH": "4×2x1", "HOROVOD_SHARD_PARAMS": "no"},
-                {"HOROVOD_MESH": "", "HOROVOD_SHARD_PARAMS": ""},
-                {"HOROVOD_SHARD_PARAMS": "TRUE"}):
+                     "HOROVOD_MESH": " 2x2 ", "HOROVOD_SHARD_PARAMS": "1",
+                     "HOROVOD_LATENCY_HIDING": "1"},
+                {"HOROVOD_MESH": "4×2x1", "HOROVOD_SHARD_PARAMS": "no",
+                 "HOROVOD_LATENCY_HIDING": "no"},
+                {"HOROVOD_MESH": "", "HOROVOD_SHARD_PARAMS": "",
+                 "HOROVOD_LATENCY_HIDING": ""},
+                {"HOROVOD_SHARD_PARAMS": "TRUE", "HOROVOD_LATENCY_HIDING": "True"}):
         for k in ("HOROVOD_FUSION_THRESHOLD", "HOROVOD_NUM_BUCKETS",
                   "HOROVOD_COMPRESSION", "HOROVOD_COMPRESSION_MIN_BYTES",
-                  "HOROVOD_MESH", "HOROVOD_SHARD_PARAMS"):
+                  "HOROVOD_MESH", "HOROVOD_SHARD_PARAMS", "HOROVOD_LATENCY_HIDING"):
             monkeypatch.delenv(k, raising=False)
         for k, v in env.items():
             monkeypatch.setenv(k, v)
         got, want = config.Config.from_env(), JaxConfig.from_env()
         for field in ("fusion_threshold", "num_buckets", "compression",
-                      "compression_min_bytes", "mesh", "shard_params"):
+                      "compression_min_bytes", "mesh", "shard_params",
+                      "latency_hiding"):
             assert getattr(got, field) == getattr(want, field), field
 
 
@@ -190,6 +219,28 @@ def test_world_of_one_collectives(cpu_world):
     y = x.clone()
     assert hvd.broadcast(y, 0) is y and torch.equal(y, x)
     assert hvd.metric_average(2.5) == 2.5
+
+
+def test_world_of_one_binds_its_own_store(monkeypatch):
+    """A world of one takes no port chosen ahead of the bind: its store binds
+    port 0, and init/shutdown repeat in one process."""
+    for k in ("HOROVOD_RANK", "HOROVOD_SIZE", "RANK", "WORLD_SIZE",
+              "MASTER_ADDR", "MASTER_PORT", "HOROVOD_COORD_ADDR"):
+        monkeypatch.delenv(k, raising=False)
+    args = basics._rendezvous(topology.detect())
+    assert set(args) == {"store"} and args["store"].port > 0
+    del args
+    monkeypatch.setenv("HOROVOD_COORD_ADDR", "127.0.0.1:29999")
+    assert basics._rendezvous(topology.detect()) == {
+        "init_method": "tcp://127.0.0.1:29999"}
+    monkeypatch.delenv("HOROVOD_COORD_ADDR")
+    for _ in range(3):
+        hvd.init(device="cpu")
+        try:
+            assert torch.equal(hvd.allreduce(torch.ones(2), hvd.ReduceOp.SUM),
+                               torch.ones(2))
+        finally:
+            hvd.shutdown()
 
 
 def test_backward_passes_per_step(cpu_world):

@@ -160,7 +160,26 @@ prints no result):
     steps with the hooks on, as phase 13; (c) ``metrics.overlap``'s
     ``record_plan`` and a ``measure_overlap`` report of 2 hooked steps
     (``ok: false`` where NCCL launches no kernel in a world of one);
-21. the ``{"kernels": [...]}`` line (all six kernels, each with its
+21. checkpoint and resume of the full-width model (world of one over
+    NCCL; checkpoints in a temporary directory, deleted after each part):
+    (a) 3 steps, ``checkpoint.save``, a fresh run drawn from seed 1,
+    ``restore`` in place into its live tensors, the broadcasts, 3 steps,
+    against 6 steps that never stopped: every loss, parameter and Adam
+    moment bit-equal, B1-B3 12 launches a step; (e) ``export_for_inference``
+    of that state (Adam dropped), loaded by ``load_for_inference`` in a
+    fresh ``python3 -c`` process that never calls ``init()``: its logits
+    bit-equal to the trainer's forward; (d) the commit's costs: bytes on
+    disk, ``save`` and ``restore`` seconds, the digest's seconds,
+    ``AsyncCheckpointer.submit``'s
+    stall against its background commit, 3 steps with the commit in flight
+    against 3 without, and the async commit restored bit-equal to the
+    synchronous one; (b) the graphed loop (``steps_per_dispatch=4``): 1
+    dispatch, a checkpoint with the ``DeviceCache`` counter, a seed-1 run
+    captured first and restored in place after the capture, 1 dispatch,
+    against 2 dispatches, bit-equal; (c) ``TrainConfig(sharded=True)`` at
+    ``HOROVOD_MESH=1x1``, 3 steps, ``save_sharded``, restored into the flat
+    run, 3 steps, bit-equal to the flat run of (a);
+22. the ``{"kernels": [...]}`` line (all six kernels, each with its
     launches on every path above; phases 10 and 14 run none of them),
     then ``{"ok": true, ...}`` last.
 
@@ -2245,6 +2264,373 @@ def overlap_phase(torch, fa, rf, basics, train_mod, loop_mod, bench, card, dev,
                              f"in its agreed order {order}: {captured}")
 
 
+# Phase 21. Checkpoint and resume at full width, in a world of one over
+# NCCL. A resumed run repeats the operations of the run that never stopped
+# on the same values (the restore writes every parameter, Adam moment and
+# step counter back in place; the tokens and the cache draws are the same),
+# so every resume is expected bit-equal to it: each loss, parameter and
+# Adam moment, exactly.
+CKPT_STEPS = 3
+
+
+def ckpt_tree(s, **extra) -> dict:
+    """The checkpointed state of a ``train.setup`` run: the model's state
+    dict as live tensors, its optimizer (Adam's state and param groups),
+    and ``extra``."""
+    return {"model": s.model.state_dict(), "opt": s.opt, **extra}
+
+
+def host_state(s) -> dict:
+    """Every parameter and Adam state tensor of ``s``, copied to the host."""
+    out = {f"param {n}": p.detach().cpu().clone() for n, p in s.model.named_parameters()}
+    for i, st in s.opt.optimizer.state_dict()["state"].items():
+        out.update({f"adam {i} {k}": v.detach().cpu().clone() for k, v in st.items()})
+    return out
+
+
+def hold_resumed(label, losses, want_losses, state, want_state) -> None:
+    differ = [k for k in want_state if not torch_equal(state[k], want_state[k])]
+    log(f"  {label}: losses {losses} vs {want_losses}; tensors that differ: "
+        f"{len(differ)} of {len(want_state)} (parameters and Adam moments)")
+    if losses != want_losses or differ or state.keys() != want_state.keys():
+        raise AssertionError(f"{label}: not bit-equal (differing {differ[:5]})")
+
+
+def restore_in_place(torch, ckpt, path, tree, step) -> dict:
+    """``ckpt.restore`` into ``tree``, raising unless every tensor, an
+    optimizer's state included, kept its storage."""
+    def ptrs(t):
+        out = []
+        for x in ckpt._leaves(t):
+            opt = ckpt._optimizer(x)
+            for y in ckpt._leaves(opt.state_dict()["state"] if opt is not None else x):
+                if torch.is_tensor(y):
+                    out.append(y.data_ptr())
+        return out
+
+    before = ptrs(tree)
+    got = ckpt.restore(path, template=tree, step=step)
+    if ptrs(got) != before or ptrs(tree) != before:
+        raise AssertionError("restore did not write into the live tensors")
+    return got
+
+
+def eager_resume(torch, fa, rf, basics, train_mod, ckpt, config, dev, tmp, paths):
+    """21a. Returns the resumed run (its model and optimizer after
+    2 x CKPT_STEPS steps), the tokens, and the straight run's losses and
+    host state."""
+    n = CKPT_STEPS
+    tokens = train_mod.make_batch(config, 0, dev)
+    s = train_mod.setup(config, dev.type)
+    straight = [s.step(tokens).item() for _ in range(2 * n)]
+    want = host_state(s)
+    del s
+    basics.shutdown()
+    s = train_mod.setup(config, dev.type)
+    first = [s.step(tokens).item() for _ in range(n)]
+    ckpt.save(tmp, ckpt_tree(s, step=n), step=n)
+    del s
+    basics.shutdown()
+    s = train_mod.setup(dataclasses.replace(config, seed=1), dev.type)
+    if torch_equal(s.model.embed.weight.detach().cpu(), want["param embed.weight"]):
+        raise AssertionError("the seed-1 run drew the seed-0 weights")
+    ckpt.init_optimizer_state(s.opt)
+    got = restore_in_place(torch, ckpt, tmp, ckpt_tree(s, step=0), ckpt.latest_step(tmp))
+    if got["step"] != n:
+        raise AssertionError(f"restored step {got['step']}, saved {n}")
+    train_mod.hvd_opt.broadcast_parameters(s.model.state_dict(), root_rank=0)
+    train_mod.hvd_opt.broadcast_optimizer_state(s.opt, root_rank=0)
+    read_counts(fa, rf)
+    resumed = first + [s.step(tokens).item() for _ in range(n)]
+    counts = read_counts(fa, rf)
+    hold_counts(f"{n} resumed steps", counts, {k: config.layers * n for k in KERNELS})
+    paths[f"21a: {n} steps resumed from a checkpoint"] = counts
+    hold_resumed(f"saved after {n} steps, restored into a seed-1 run, {n} more, "
+                 f"vs {2 * n} straight", resumed, straight, host_state(s), want)
+    return s, tokens, straight, want
+
+
+SERVE = """
+import json, os, sys
+import torch
+import torch.distributed as dist
+from horovod_tpu_torch import checkpoint
+from horovod_tpu_torch.common import basics
+from horovod_tpu_torch.train import TrainConfig, build_model
+dev = torch.device(os.environ["CK_DEVICE"])
+model = build_model(TrainConfig(**json.loads(os.environ["CK_CONFIG"])), dev)
+checkpoint.load_for_inference(os.environ["CK_PATH"],
+                              template={"model": model.state_dict()})
+tokens = torch.load(os.environ["CK_TOKENS"], weights_only=True).to(dev)
+with torch.no_grad():
+    logits = model(tokens)
+if basics.is_initialized() or dist.is_initialized():
+    sys.exit("the serving process initialized a process group")
+torch.save(logits.cpu(), os.environ["CK_OUT"])
+"""
+
+
+def export_check(torch, fa, rf, ckpt, s, tokens, config, dev, tmp, paths) -> None:
+    """21e. The exported model's logits in a fresh process that never calls
+    ``init()``, against the trainer's forward on the same tokens."""
+    serving = ckpt.export_for_inference(os.path.join(tmp, "serve"),
+                                        ckpt_tree(s, step=2 * CKPT_STEPS),
+                                        drop=("opt", "step"))
+    if list(serving) != ["model"]:
+        raise AssertionError(f"export kept {list(serving)}")
+    read_counts(fa, rf)
+    with torch.no_grad():
+        want = s.model(tokens).cpu()
+    counts = read_counts(fa, rf)
+    hold_counts("the trainer's forward", counts, {"flash_fwd": config.layers})
+    paths["21e: the trainer's forward beside the exported model's"] = counts
+    torch.save(tokens.cpu(), os.path.join(tmp, "tokens.pt"))
+    fields = {f.name: getattr(config, f.name) for f in dataclasses.fields(config)}
+    env = dict(os.environ, CK_PATH=os.path.join(tmp, "serve"),
+               CK_TOKENS=os.path.join(tmp, "tokens.pt"),
+               CK_OUT=os.path.join(tmp, "logits.pt"), CK_DEVICE=str(dev),
+               CK_CONFIG=json.dumps(fields),
+               PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    for k in ("HOROVOD_RANK", "HOROVOD_SIZE", "MASTER_ADDR", "MASTER_PORT",
+              "HOROVOD_COORD_ADDR", "RANK", "WORLD_SIZE"):
+        env.pop(k, None)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", SERVE], env=env, capture_output=True,
+                          text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"the serving process failed:\n{proc.stderr[-3000:]}")
+    got = torch.load(os.path.join(tmp, "logits.pt"), weights_only=True)
+    same = torch_equal(got, want)
+    log(f"  exported ({', '.join(serving)}; Adam and the step dropped) and loaded "
+        f"in a fresh process without init() ({time.perf_counter() - t0:.1f} s): "
+        f"logits {tuple(got.shape)} bit-equal to the trainer's: {same}")
+    if not same:
+        raise AssertionError(f"exported logits differ: max |err| "
+                             f"{(got - want).abs().max().item()}")
+
+
+def tree_bytes(path) -> int:
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _, files in os.walk(path) for f in files)
+
+
+def commit_costs(torch, ckpt, ckpt_async, s, tokens, dev, tmp, card) -> None:
+    """21d. Bytes, save and restore seconds, the digest's seconds, the
+    async submit's stall against its background commit, and the step time
+    with a commit in flight against without; the async commit restores
+    bit-equal to the synchronous one."""
+    from horovod_tpu_torch.metrics import registry
+
+    step = 2 * CKPT_STEPS
+    tree = ckpt_tree(s, step=step)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    ckpt.save(os.path.join(tmp, "sync"), tree, step=step)
+    save_s = time.perf_counter() - t0
+    nbytes = tree_bytes(os.path.join(tmp, "sync", f"step_{step}"))
+    t0 = time.perf_counter()
+    restore_in_place(torch, ckpt, os.path.join(tmp, "sync"), tree, step)
+    torch.cuda.synchronize(dev)
+    restore_s = time.perf_counter() - t0
+    log(f"  checkpoint of {sum(p.numel() for p in s.model.parameters())} "
+        f"parameters with Adam: {nbytes} B on disk; save {save_s:.3f} s "
+        f"({nbytes / save_s / 1e9:.3f} GB/s, host copy + torch.save + fsync + "
+        f"rename), restore in place {restore_s:.3f} s; on {card}")
+
+    def timed_steps(k):
+        out = []
+        for _ in range(k):
+            torch.cuda.synchronize(dev)
+            t = time.perf_counter()
+            s.step(tokens)
+            torch.cuda.synchronize(dev)
+            out.append(1e3 * (time.perf_counter() - t))
+        return out
+
+    commit = registry().histogram("horovod_ckpt_commit_seconds")
+    before = commit.sum
+    writer = ckpt_async.AsyncCheckpointer(os.path.join(tmp, "async"))
+    try:
+        t0 = time.perf_counter()
+        writer.submit(tree, step=step)
+        submit_s = time.perf_counter() - t0
+        during = timed_steps(CKPT_STEPS)
+        in_flight = not writer.wait(0)
+        if not writer.wait(600):
+            raise AssertionError("the background commit did not finish in 600 s")
+    finally:
+        writer.close()
+    commit_s = commit.sum - before
+    after = timed_steps(CKPT_STEPS)
+    log(f"  AsyncCheckpointer: submit {submit_s:.3f} s on the training thread "
+        f"(the host snapshot), background commit {commit_s:.3f} s; "
+        f"{CKPT_STEPS} steps with the commit in flight {[round(t, 2) for t in during]} "
+        f"ms (still in flight after them: {in_flight}), {CKPT_STEPS} without "
+        f"{[round(t, 2) for t in after]} ms; on {card}")
+    a = ckpt.restore(os.path.join(tmp, "sync"), step=step, device="cpu")
+    t0 = time.perf_counter()
+    ckpt._digest(a)
+    digest_s = time.perf_counter() - t0
+    log(f"  the cross-rank digest's SHA-256 of the restored state (a world of one "
+        f"skips it; every rank of a larger world pays it in restore): "
+        f"{digest_s:.3f} s, {nbytes / digest_s / 1e9:.3f} GB/s; on {card}")
+    b = ckpt.restore(os.path.join(tmp, "async"), step=step, device="cpu")
+    leaves_a, leaves_b = ckpt._leaves(a), ckpt._leaves(b)
+    same = len(leaves_a) == len(leaves_b) and all(
+        torch_equal(x, y) if torch.is_tensor(x) else x == y
+        for x, y in zip(leaves_a, leaves_b))
+    log(f"  the async commit restores bit-equal to the synchronous one: {same} "
+        f"({len(leaves_a)} leaves)")
+    if not same:
+        raise AssertionError("the async commit differs from the synchronous one")
+
+
+def graphed_resume(torch, fa, rf, basics, train_mod, loop_mod, ckpt, config, dev,
+                   tmp, paths) -> None:
+    """21b. Two dispatches of K steps from one captured graph against one
+    dispatch, a checkpoint with the cache's counter, a fresh run from seed
+    1 captured first and restored in place after the capture, and one
+    dispatch."""
+    gconfig = dataclasses.replace(config, steps_per_dispatch=GRAPH_K)
+
+    def run(cfg, cache_cfg):
+        """The run's setup and loop, captured on the card; the launches of
+        the capture alone (the warm-up's are read away first)."""
+        s = train_mod.setup(cfg, dev.type)
+        loop = loop_mod.make_scan_train_loop(
+            s.step, train_mod.make_cache(cache_cfg, None, dev), GRAPH_K, optimizer=s.opt)
+        loop.warm_up()
+        read_counts(fa, rf)
+        loop.capture()
+        return s, loop, read_counts(fa, rf)
+
+    def dispatch(loop):
+        loop()
+        return loop.losses.tolist()
+
+    s, loop, _ = run(gconfig, gconfig)
+    straight = dispatch(loop) + dispatch(loop)
+    want = {**host_state(s), "counter": loop.counter.cpu().clone()}
+    del s, loop
+    basics.shutdown()
+    s, loop, _ = run(gconfig, gconfig)
+    first = dispatch(loop)
+    ckpt.save(tmp, ckpt_tree(s, counter=loop.counter), step=GRAPH_K)
+    del s, loop
+    basics.shutdown()
+    s, loop, counts = run(dataclasses.replace(gconfig, seed=1), gconfig)
+    ckpt.init_optimizer_state(s.opt)      # the capture's warm-up made it on the card
+    restore_in_place(torch, ckpt, tmp, ckpt_tree(s, counter=loop.counter), GRAPH_K)
+    train_mod.hvd_opt.broadcast_parameters(s.model.state_dict(), root_rank=0)
+    train_mod.hvd_opt.broadcast_optimizer_state(s.opt, root_rank=0)
+    resumed = first + dispatch(loop)
+    replays = read_counts(fa, rf)
+    hold_counts("at the resumed loop's capture (one step)", counts,
+                {k: config.layers for k in KERNELS})
+    hold_counts("in its replays (no Python runs)", replays, {})
+    paths[f"21b: capture of the resumed loop, K = {GRAPH_K}"] = counts
+    hold_resumed(f"graphed K = {GRAPH_K}: 1 dispatch, saved, a seed-1 run captured "
+                 f"then restored in place, 1 dispatch, vs 2 dispatches", resumed,
+                 straight, {**host_state(s), "counter": loop.counter.cpu().clone()},
+                 want)
+    del s, loop
+    basics.shutdown()
+
+
+def zero_to_flat(torch, fa, rf, basics, train_mod, ckpt, config, dev, tmp,
+                 straight, want, paths) -> None:
+    """21c. ZeRO at HOROVOD_MESH=1x1 for CKPT_STEPS steps, ``save_sharded``,
+    restored into the flat data-parallel run, CKPT_STEPS more, against the
+    flat run that never stopped (21a's)."""
+    from horovod_tpu_torch.parallel import sharded as sh
+
+    n = CKPT_STEPS
+    tokens = train_mod.make_batch(config, 0, dev)
+    os.environ["HOROVOD_MESH"] = "1x1"
+    try:
+        z = train_mod.setup(dataclasses.replace(config, sharded=True), dev.type)
+    finally:
+        os.environ.pop("HOROVOD_MESH")
+    first = [z.step(tokens).item() for _ in range(n)]
+    rows, st = z.opt.rows, z.opt.optimizer.state
+    tree = {"params": rows,
+            "exp_avg": sh.ShardedBuckets([st[r]["exp_avg"] for r in rows]),
+            "exp_avg_sq": sh.ShardedBuckets([st[r]["exp_avg_sq"] for r in rows]),
+            "step": st[rows[0]]["step"]}
+    ckpt.save_sharded(tmp, tree, z.opt.shard_plan, step=n, layout=z.opt.layout)
+    buckets = z.opt.shard_plan.num_buckets
+    del z, tree, rows, st
+    basics.shutdown()
+    s = train_mod.setup(dataclasses.replace(config, seed=1), dev.type)
+    ckpt.init_optimizer_state(s.opt)
+    params, st = s.opt.params, s.opt.optimizer.state
+    flat = {"params": params, "exp_avg": [st[p]["exp_avg"] for p in params],
+            "exp_avg_sq": [st[p]["exp_avg_sq"] for p in params],
+            "step": st[params[0]]["step"]}
+    restore_in_place(torch, ckpt, tmp, flat, n)
+    with torch.no_grad():
+        for p in params[1:]:
+            st[p]["step"].copy_(st[params[0]]["step"])
+    train_mod.hvd_opt.broadcast_parameters(s.model.state_dict(), root_rank=0)
+    train_mod.hvd_opt.broadcast_optimizer_state(s.opt, root_rank=0)
+    read_counts(fa, rf)
+    resumed = first + [s.step(tokens).item() for _ in range(n)]
+    counts = read_counts(fa, rf)
+    hold_counts(f"{n} flat steps after the ZeRO restore", counts,
+                {k: config.layers * n for k in KERNELS})
+    paths[f"21c: {n} flat steps restored from a ZeRO checkpoint"] = counts
+    hold_resumed(f"ZeRO (1x1, {buckets} buckets) {n} steps, save_sharded, restored "
+                 f"into the flat run, {n} more, vs {2 * n} flat", resumed, straight,
+                 host_state(s), want)
+    del s
+    basics.shutdown()
+
+
+def checkpoint_phase(torch, fa, rf, basics, train_mod, loop_mod, card, dev,
+                     paths) -> None:
+    """Phase 21: 21a, 21e and 21d on one run's state, then 21b and 21c."""
+    import shutil
+    import tempfile
+
+    from horovod_tpu_torch import checkpoint as ckpt
+    from horovod_tpu_torch import ckpt_async
+
+    config = train_mod.TrainConfig()
+
+    def part(label, fn, *args):
+        log(f"  {label}")
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+        try:
+            return fn(*args, tmp)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+
+    # 21a, then 21e and 21d on the resumed run's state.
+    def a_e_d(tmp):
+        s, tokens, straight, want = eager_resume(
+            torch, fa, rf, basics, train_mod, ckpt, config, dev,
+            os.path.join(tmp, "a"), paths)
+        shutil.rmtree(os.path.join(tmp, "a"))
+        log(f"  (21e) export for inference, {CKPT_STEPS * 2} steps' state")
+        export_check(torch, fa, rf, ckpt, s, tokens, config, dev, tmp, paths)
+        shutil.rmtree(os.path.join(tmp, "serve"))
+        log("  (21d) commit costs at full width")
+        commit_costs(torch, ckpt, ckpt_async, s, tokens, dev, tmp, card)
+        del s
+        basics.shutdown()
+        return straight, want
+
+    straight, want = part(f"(21a) eager: {CKPT_STEPS} steps, save, a fresh "
+                          f"seed-1 run, restore, {CKPT_STEPS} steps", a_e_d)
+    part(f"(21b) graphed, K = {GRAPH_K}", lambda tmp: graphed_resume(
+        torch, fa, rf, basics, train_mod, loop_mod, ckpt, config, dev, tmp, paths))
+    part("(21c) ZeRO into flat", lambda tmp: zero_to_flat(
+        torch, fa, rf, basics, train_mod, ckpt, config, dev, tmp, straight, want,
+        paths))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def config_label(config) -> str:
     return "TrainConfig(sp=1)" if config.sp else "TrainConfig()"
 
@@ -2423,6 +2809,11 @@ def main() -> int:
         f"(HOROVOD_LATENCY_HIDING=1, {OVERLAP_BUCKETS} buckets) against the serial "
         f"exchange, {OVERLAP_STEPS} steps each; the graphed loop with the hooks on")
     overlap_phase(torch, fa, rf, basics, train_mod, loop_mod, bench, card, dev, paths)
+
+    log(f"[21] checkpoint and resume at full width: eager, graphed (K = {GRAPH_K}) "
+        f"and ZeRO into flat, each bit-equal to the run that never stopped; the "
+        f"commit's costs; export for inference")
+    checkpoint_phase(torch, fa, rf, basics, train_mod, loop_mod, card, dev, paths)
 
     kernels = []
     for source, names in SOURCES.items():

@@ -22,20 +22,32 @@ pair, over the model group of ``sharded_groups``; mixture of experts is
 ``TransformerLM(moe_experts=...)`` (``models/moe.py``, ``ops/moe.py``),
 its experts sharded with ``ep_group``.
 
+``init(comm=[...])`` forms a sub-world of the launched ranks.
+``checkpoint`` saves on rank 0 with a crash-consistent commit and
+restores on every rank with a cross-rank digest, in place into the live
+tensors (``save``/``restore``, ``save_sharded``/``restore_sharded``,
+``export_for_inference``/``load_for_inference``, ``latest_step``,
+``broadcast_resume_state``); ``ckpt_async.AsyncCheckpointer`` commits off
+the step path; ``callbacks`` holds the Keras-style warmup, metric
+averaging and broadcast callbacks; ``broadcast_object`` and
+``allgather_object`` move picklable objects.
+
 Entry points run on the card unless the caller passes ``device="cpu"``.
 The flash-attention kernels (``ops/flash_attention.py``) are CUDA C++
 built from ``csrc/`` on first use.
 """
 
-from .common.basics import (cross_rank, cross_size, device, init,
-                            is_initialized, local_rank, local_size, rank,
-                            shutdown, size)
+from . import callbacks, checkpoint, metrics
+from .common.basics import (HorovodInternalError, cross_rank, cross_size,
+                            device, init, is_initialized, local_rank,
+                            local_size, rank, shutdown, size)
 from .compression import Compression
 from .optimizer import (DistributedOptimizer, broadcast_optimizer_state,
                         broadcast_parameters, broadcast_sharded_state,
                         metric_average)
-from .parallel.collectives import (ReduceOp, allgather, allreduce, alltoall,
-                                   broadcast, bucketed_allreduce,
+from .parallel.collectives import (ReduceOp, allgather, allgather_object,
+                                   allreduce, alltoall, broadcast,
+                                   broadcast_object, bucketed_allreduce,
                                    grouped_allreduce, hierarchical_allgather,
                                    hierarchical_allreduce, reducescatter,
                                    sparse_allreduce)
@@ -46,13 +58,16 @@ from .parallel.mesh import (BATCH_AXIS, DCN_AXIS, FSDP_AXIS, HVD_AXIS,
 
 __all__ = [
     "BATCH_AXIS", "Compression", "DCN_AXIS", "DistributedOptimizer", "DpFsdp",
-    "FSDP_AXIS", "HVD_AXIS", "Hierarchy", "ICI_AXIS", "MODEL_AXIS", "ReduceOp",
-    "SHARD_AXIS", "ShardedLayout", "allgather", "allreduce", "alltoall",
-    "broadcast", "broadcast_optimizer_state", "broadcast_parameters",
-    "broadcast_sharded_state", "bucketed_allreduce", "cross_rank",
+    "FSDP_AXIS", "HVD_AXIS", "Hierarchy", "HorovodInternalError", "ICI_AXIS",
+    "MODEL_AXIS", "ReduceOp", "SHARD_AXIS", "ShardedLayout", "allgather",
+    "allgather_object", "allreduce", "alltoall", "broadcast",
+    "broadcast_object", "broadcast_optimizer_state", "broadcast_parameters",
+    "broadcast_sharded_state", "bucketed_allreduce", "callbacks",
+    "checkpoint", "cross_rank",
     "cross_size", "device", "grouped_allreduce", "hierarchical_allgather",
     "hierarchical_allreduce", "hierarchical_groups", "init", "is_initialized",
-    "local_rank", "local_size", "metric_average", "parse_mesh_spec", "rank",
+    "local_rank", "local_size", "metric_average", "metrics", "parse_mesh_spec",
+    "rank",
     "reducescatter", "sharded_groups", "shutdown", "size", "sparse_allreduce",
     "training_groups",
 ]

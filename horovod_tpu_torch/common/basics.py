@@ -10,6 +10,14 @@ The rendezvous address is, in order: torchrun's ``MASTER_ADDR`` and
 one, a store of its own on ``127.0.0.1`` that binds a port the kernel picks
 (port 0), so no other socket can take the port between its choice and the
 bind.
+
+``init(comm=[...])`` forms a sub-world of the launched ranks, as the
+reference's ``horovod_init`` with a ranks list does: the members are
+re-indexed (rank ``ranks.index(rank)``, size ``len(ranks)``), the member at
+``ranks[0]`` becomes rank 0 and hosts the rendezvous, and each member sees
+the one-rank-per-host view (local rank 0, local size 1). The GPU is still
+chosen by the launched local rank, before the re-indexing: two members on
+one host would otherwise both take ``cuda:0``, which NCCL refuses.
 """
 
 from __future__ import annotations
@@ -17,11 +25,12 @@ from __future__ import annotations
 import os
 import threading
 from datetime import timedelta
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 import torch.distributed as dist
 
+from ..utils.logging import log
 from .config import Config
 from .topology import Topology, detect
 
@@ -29,6 +38,11 @@ from .topology import Topology, detect
 class NotInitializedError(RuntimeError):
     def __init__(self) -> None:
         super().__init__("Horovod has not been initialized; use hvd.init().")
+
+
+class HorovodInternalError(RuntimeError):
+    """A collective contract was broken: ranks disagree, or a peer did not
+    take part in time."""
 
 
 class _State:
@@ -77,21 +91,61 @@ def _rendezvous(topo: Topology) -> dict:
         "horovod launcher (HOROVOD_COORD_ADDR)")
 
 
-def init(device=None) -> None:
+def _subworld(topo: Topology, comm) -> Topology:
+    """``topo`` re-indexed to the sub-world of the launched ranks ``comm``,
+    with the reference's checks and words (``horovod_tpu.common.basics``
+    ``init``). A ``comm`` naming the whole world is plain ``init``."""
+    if not isinstance(comm, (list, tuple)):
+        raise ValueError(
+            "comm must be a list of ranks on TPU (MPI communicators do not exist here)"
+        )
+    ranks = sorted(set(comm))
+    if any(not (0 <= r < topo.size) for r in ranks):
+        raise ValueError(
+            f"comm {ranks} contains ranks outside the launched world "
+            f"of size {topo.size}")
+    if topo.rank not in ranks and topo.size > 1:
+        raise ValueError(
+            f"rank {topo.rank} is not a member of comm {ranks}: this "
+            "process cannot participate in the sub-world's "
+            "collectives. Only member processes may call "
+            "init(comm=...); non-members should skip Horovod work "
+            "(or exit) — they must NOT fall back to init(), which "
+            "would target the same coordinator address.")
+    if topo.size == 1 or len(ranks) == topo.size:
+        return topo
+    if ranks[0] != 0:
+        # The sub-world's rank 0 hosts the rendezvous at the launcher's
+        # address, which names the original rank 0's host.
+        log("warning",
+            f"init(comm={ranks}): member rank {ranks[0]} will "
+            "bind the coordinator at HOROVOD_COORD_ADDR. If it "
+            "is not on the same host as the original rank 0, "
+            "re-export HOROVOD_COORD_ADDR on every member to an "
+            "address local to that member before init.")
+    me = ranks.index(topo.rank)
+    return Topology(rank=me, size=len(ranks), local_rank=0, local_size=1,
+                    cross_rank=me, cross_size=len(ranks))
+
+
+def init(device=None, comm: Optional[Sequence[int]] = None) -> None:
     """Join the job. ``device`` is ``"cuda"`` (default) or ``"cpu"``; the
-    backend follows it (NCCL or gloo). Idempotent until ``shutdown()``."""
+    backend follows it (NCCL or gloo). ``comm``, a list of launched ranks,
+    forms a sub-world of them (see the module docstring); only its members
+    may call. Idempotent until ``shutdown()``."""
     with _state.lock:
         if _state.topology is not None:
             return
         device = resolve_device(device)
-        topo = detect()
+        launched = detect()
+        topo = launched if comm is None else _subworld(launched, comm)
         if device.type == "cuda":
-            if topo.local_rank >= torch.cuda.device_count():
+            if launched.local_rank >= torch.cuda.device_count():
                 raise RuntimeError(
-                    f"local rank {topo.local_rank} has no GPU: "
+                    f"local rank {launched.local_rank} has no GPU: "
                     f"{torch.cuda.device_count()} visible")
-            torch.cuda.set_device(topo.local_rank)
-            device = torch.device("cuda", topo.local_rank)
+            torch.cuda.set_device(launched.local_rank)
+            device = torch.device("cuda", launched.local_rank)
         dist.init_process_group(
             "nccl" if device.type == "cuda" else "gloo",
             **_rendezvous(topo), rank=topo.rank,
@@ -155,3 +209,11 @@ def device() -> torch.device:
 def config() -> Config:
     _topo()
     return _state.config
+
+
+def store() -> dist.Store:
+    """The rendezvous store of the world's process group: a key-value store
+    every rank reaches over TCP, whose ``wait`` takes a timeout of its own
+    (a collective on the device does not)."""
+    _topo()
+    return dist.distributed_c10d._get_default_store()

@@ -2,7 +2,8 @@
 and the hierarchical ladder), broadcast, the allgathers, reduce-scatter,
 all-to-all, the sparse allreduce, and the point-to-point
 ``ppermute``/``ring_shift`` of sequence parallelism (``PPermute``, the
-differentiable ``ppermute`` of pipeline parallelism).
+differentiable ``ppermute`` of pipeline parallelism), and the host-side
+``broadcast_object``/``allgather_object`` of picklable Python objects.
 
 The counterparts of ``horovod_tpu.parallel.collectives``, where a mesh
 axis becomes a process group: ``group=None`` is the whole world, and the
@@ -22,6 +23,8 @@ from typing import Optional, Sequence
 
 import torch
 import torch.distributed as dist
+
+from ..common import basics
 
 
 class ReduceOp(Enum):
@@ -266,3 +269,29 @@ def ring_shift(tensors: Sequence[torch.Tensor],
     if n == 1:
         return list(tensors)
     return ppermute(tensors, [(i, (i + shift) % n) for i in range(n)], group)
+
+
+def broadcast_object(obj, root_rank: int = 0, name: Optional[str] = None):
+    """Every rank returns ``root_rank``'s ``obj``, a picklable Python object
+    (non-root ranks' ``obj`` is ignored), through
+    ``torch.distributed.broadcast_object_list`` over the world. In a world
+    of one it returns ``obj`` at once. ``name`` is accepted as the JAX
+    package's is; calls pair up by their order on each rank. Host-side
+    only, and it unpickles root's bytes: use it within one job."""
+    if basics.size() == 1:
+        return obj
+    box = [obj if basics.rank() == root_rank else None]
+    dist.broadcast_object_list(box, src=root_rank)
+    return box[0]
+
+
+def allgather_object(obj, name: Optional[str] = None) -> list:
+    """``[obj of rank 0, obj of rank 1, ...]`` on every rank, through
+    ``torch.distributed.all_gather_object``; the objects may differ in size.
+    In a world of one ``[obj]`` at once. ``name`` as in
+    :func:`broadcast_object`."""
+    if basics.size() == 1:
+        return [obj]
+    out = [None] * basics.size()
+    dist.all_gather_object(out, obj)
+    return out

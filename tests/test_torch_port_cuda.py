@@ -13,7 +13,10 @@ full-width TransformerLM on four GPUs, ZeRO 2x2 and 1x4 and FSDP 4
 against flat DP (tests/torch_port_sharded_worker.py); tensor parallelism
 (tp = 4) and expert parallelism (ep = 4: ``moe_apply`` and the MoE
 TransformerLM) at full width on four GPUs against one rank
-(tests/torch_port_tp_worker.py).
+(tests/torch_port_tp_worker.py); checkpoint and resume over NCCL on four
+GPUs: save and restore with the cross-rank digest, ``save_sharded`` at
+2x2 into 1x4 and flat, and an ``init(comm=[1, 3])`` sub-world
+(tests/torch_port_ckpt_worker.py).
 
 Needs an NVIDIA Hopper GPU and nvcc; elsewhere every test skips. Run on
 the card with (conftest.py imports jax, which the GPU machine need not
@@ -768,3 +771,24 @@ def test_overlap_world_hooked_exchange_matches_serial(overlap_world):
     n, out = overlap_world
     print(out)
     assert f"ok overlap world {n}" in out
+
+
+# ------------------------------------------------------ checkpoint and resume
+
+@pytest.fixture(scope="module")
+def ckpt_world(tmp_path_factory):
+    return _world("torch_port_ckpt_worker.py", 600, needs=4, CKPT_MODE="cuda",
+                  CKPT_DIR=str(tmp_path_factory.mktemp("ckpt_world")),
+                  CKPT_SUB_PORT=str(free_port()))
+
+
+def test_ckpt_world_save_restore_sharded_and_subworld_over_nccl(ckpt_world):
+    """On four cards over NCCL, each check bit for bit: ``save`` (the
+    barrier with ``device_ids``) and ``restore(verify=True)`` in place, the
+    digest raising on every rank when one rank's read is perturbed, the
+    resume-state and object broadcasts, ``save_sharded`` at 2x2 restored
+    into 1x4 and into the flat leaves, and ``init(comm=[1, 3])`` with each
+    member on the GPU of its launched local rank."""
+    n, out = ckpt_world
+    print(out)
+    assert f"ok ckpt world {n}" in out

@@ -25,6 +25,7 @@ def _sources():
             if f.endswith(".py"):
                 yield os.path.join(root, f)
     yield os.path.join(REPO, "chip_smoke.py")
+    yield os.path.join(REPO, "examples", "torch_imagenet_resnet50.py")
 
 
 def test_import_pulls_in_no_jax():
@@ -48,7 +49,16 @@ def test_import_pulls_in_no_jax():
             "horovod_tpu_torch.parallel.pipeline, "
             "horovod_tpu_torch.models.pipeline_lm, "
             "horovod_tpu_torch.metrics.overlap, "
-            "horovod_tpu_torch.transformer_benchmark\n"
+            "horovod_tpu_torch.transformer_benchmark, "
+            "horovod_tpu_torch.checkpoint, horovod_tpu_torch.callbacks, "
+            "horovod_tpu_torch.ckpt_async, horovod_tpu_torch.ckpt_async.writer, "
+            "horovod_tpu_torch.metrics.registry, "
+            "horovod_tpu_torch.metrics.schema, "
+            "horovod_tpu_torch.metrics.aggregate, "
+            "horovod_tpu_torch.utils.logging\n"
+            "import runpy\n"
+            "runpy.run_path('examples/torch_imagenet_resnet50.py', "
+            "run_name='not_main')\n"
             "bad = [m for m in set(sys.modules) - before if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
             "print(json.dumps(sorted(bad)))\n")

@@ -179,7 +179,30 @@ prints no result):
     against 2 dispatches, bit-equal; (c) ``TrainConfig(sharded=True)`` at
     ``HOROVOD_MESH=1x1``, 3 steps, ``save_sharded``, restored into the flat
     run, 3 steps, bit-equal to the flat run of (a);
-22. the ``{"kernels": [...]}`` line (all six kernels, each with its
+22. tuning and measurement of the training path at full width (world of
+    one over NCCL): (a) ``autotune.tune`` through ``train.TuneStepFactory``
+    over fusion thresholds 4, 64 and 256 MiB x 1 and 4 buckets x wires
+    "none" and "bf16", one GP/EI round, each candidate's step captured in
+    a CUDA graph (K = 4): the knob curve, the best config, each
+    candidate's bucket count (held to the fusion plan), peak memory (held
+    within 1 GB of the first's, and the memory allocated after the sweep
+    within 0.1 GB of before it), B1-B3's launches at each capture, and the
+    first dispatch's losses ("none" bit-equal, each bf16 candidate within
+    1e-2 and not equal, its buckets at bf16); (b)
+    ``control.TrainingController`` driving ``train.TrainRecapture`` for 12
+    windows of one dispatch (canary 2, no cooldown): each decision with its
+    recapture time, at least one held, and the 12 windows' losses
+    bit-equal to the same loop with no controller; (c)
+    ``utils/roofline.profile_device_ops`` of the eager step and of the
+    graphed dispatch (``format_report``, the peaks read from the device
+    with their inputs, B1-B3's FLOPs counted from their launches and held
+    to their shapes', the whole step's share of the device-read bf16
+    peak), and ``utils/timeline.trace`` over one graphed dispatch, whose
+    Chrome trace names B1-B3's kernels or is said not to; (d)
+    ``tune(mesh_shapes=("1x1",))``, ZeRO through the factory, eager, 3
+    steps a call, bit-equal to the flat candidate, eager on the same plain
+    Adam;
+23. the ``{"kernels": [...]}`` line (all six kernels, each with its
     launches on every path above; phases 10 and 14 run none of them),
     then ``{"ok": true, ...}`` last.
 
@@ -239,15 +262,15 @@ BF16_RTOL, BF16_ROW_ATOL, BF16_RELNORM = 2.0 ** -7, 1e-2, 1e-2
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # H100 SXM, dense
 PEAK_BYTES = 3.35e12
 KERNELS = {
-    # name: (TPU kernel it replaces, products per live (q, k) pair)
-    "flash_fwd": ("horovod_tpu/ops/flash_attention.py:53", 2),
-    "flash_bwd_dq": ("horovod_tpu/ops/flash_attention.py:96", 3),
-    "flash_bwd_dkv": ("horovod_tpu/ops/flash_attention.py:131", 4),
+    # name: the TPU kernel it replaces
+    "flash_fwd": "horovod_tpu/ops/flash_attention.py:53",
+    "flash_bwd_dq": "horovod_tpu/ops/flash_attention.py:96",
+    "flash_bwd_dkv": "horovod_tpu/ops/flash_attention.py:131",
 }
 RING_KERNELS = {
-    "ring_flash_fwd": ("horovod_tpu/ops/ring_flash.py:65", 2),
-    "ring_flash_bwd_dq": ("horovod_tpu/ops/ring_flash.py:106", 3),
-    "ring_flash_bwd_dkv": ("horovod_tpu/ops/ring_flash.py:137", 4),
+    "ring_flash_fwd": "horovod_tpu/ops/ring_flash.py:65",
+    "ring_flash_bwd_dq": "horovod_tpu/ops/ring_flash.py:106",
+    "ring_flash_bwd_dkv": "horovod_tpu/ops/ring_flash.py:137",
 }
 SOURCES = {"flash_attention.cu": list(KERNELS), "ring_flash.cu": list(RING_KERNELS)}
 RING_N = 4
@@ -269,7 +292,14 @@ WHOLE_RING = (1, 1024, 8, 8, 128, "bfloat16")
 NO_LIVE_KEY = (2, 96, 4, 2, 0, 1)
 
 
+# A phase's or sub-phase's heading ("[4] ...", "  (22a) ...") is printed
+# with the seconds since main() started, which sets this.
+_STARTED = []
+
+
 def log(msg: str) -> None:
+    if _STARTED and re.match(r"\s*(\[\d+\]|\(\d+[a-z]\)) ", msg):
+        msg = f"{msg} (at {time.perf_counter() - _STARTED[0]:.1f} s)"
     print(msg, flush=True)
 
 
@@ -360,6 +390,12 @@ def gpu_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
+def time_plain(torch, fn) -> float:
+    """``time_ms`` of a plain version, which takes milliseconds a call: the
+    median of 10 single calls (a launch's host cost is lost in them)."""
+    return time_ms(torch, fn, reps=10, warmup=1, inner=1)
+
+
 def time_ms(torch, fn, reps: int = 30, warmup: int = 3, inner: int = 10) -> float:
     """Time of one call of ``fn``: the median over ``reps`` runs of
     ``inner`` calls back to back, CUDA events around each run, after
@@ -381,26 +417,19 @@ def time_ms(torch, fn, reps: int = 30, warmup: int = 3, inner: int = 10) -> floa
     return statistics.median(times)
 
 
-def flops(name, b, t, h, d, causal):
-    """2 flops per multiply-add over the live (q, k) pairs of each product."""
-    pairs = t * (t + 1) // 2 if causal else t * t
-    return 2 * d * pairs * KERNELS[name][1] * b * h
+def bound(entry, dtype_name):
+    """(FLOPs, ms, 'bytes' | 'operations') of one launch: the least time
+    the card could take for it. ``entry`` is a ``launch_log`` entry (the
+    kernel, its q and kv rows, T, D, the itemsize, and causal or the ring
+    step's (q, k) positions); ``roofline.launch_cost`` counts its operations,
+    2 per multiply-add over the live (q, k) pairs of each product, and its
+    bytes, each input read once and each output written once."""
+    from horovod_tpu_torch.utils.roofline import launch_cost
 
-
-def bound(name, b, t, h, hkv, d, causal, dtype_name, itemsize):
-    """(ms, 'bytes' | 'operations'): the least time the card could take.
-    Operations: the flops of ``flops``; bytes: each input read once, each
-    output written once."""
-    q_bytes, kv_bytes, row_bytes = (b * h * t * d * itemsize,
-                                    b * hkv * t * d * itemsize, b * h * t * 4)
-    moved = {
-        "flash_fwd": 2 * q_bytes + 2 * kv_bytes + row_bytes,
-        "flash_bwd_dq": 3 * q_bytes + 2 * kv_bytes + 2 * row_bytes,
-        "flash_bwd_dkv": 2 * q_bytes + 4 * kv_bytes + 2 * row_bytes,
-    }[name]
-    t_ops = flops(name, b, t, h, d, causal) / PEAK_FLOPS[dtype_name] * 1e3
+    _, f, moved = launch_cost(entry)
+    t_ops = f / PEAK_FLOPS[dtype_name] * 1e3
     t_bytes = moved / PEAK_BYTES * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    return (f, t_ops, "operations") if t_ops >= t_bytes else (f, t_bytes, "bytes")
 
 
 def check(torch, label, got, want, autograd=False, quiet=False,
@@ -537,10 +566,11 @@ def time_kernels(torch, fa, inputs, shape):
     }
     rows = {}
     for name, (kernel, plain) in calls.items():
-        ms, plain_ms = time_ms(torch, kernel), time_ms(torch, plain)
+        ms, plain_ms = time_ms(torch, kernel), time_plain(torch, plain)
         single_ms = time_ms(torch, kernel, inner=1)
-        bound_ms, bound_by = bound(name, b, t, h, hkv, d, causal, dtype_name, itemsize)
-        tflops = flops(name, b, t, h, d, causal) / ms / 1e9
+        f, bound_ms, bound_by = bound((name, b * h, b * hkv, t, d, itemsize, causal),
+                                      dtype_name)
+        tflops = f / ms / 1e9
         rows[name] = {"ms": ms, "single_ms": single_ms, "plain_ms": plain_ms,
                       "bound_ms": bound_ms, "bound_by": bound_by,
                       "library_ms": library[name][0],
@@ -770,27 +800,6 @@ def check_no_live_key(torch, rf, dev, d):
         f"by B4 and B5; the rest within the rules")
 
 
-def ring_flops(name, b, h, d, live_pairs):
-    return 2 * d * live_pairs * RING_KERNELS[name][1] * b * h
-
-
-def ring_bound(name, b, t, h, hkv, d, live_pairs, dtype_name, itemsize):
-    """(ms, 'bytes' | 'operations') of one ring step: operations over the
-    live pairs actually computed; bytes of q, k, v (and dO, L, delta), the
-    positions, and the float32 carries read and written back."""
-    flops = ring_flops(name, b, h, d, live_pairs)
-    q_bytes, kv_bytes = b * h * t * d * itemsize, b * hkv * t * d * itemsize
-    row, pos = b * h * t * 4, 2 * t * 4
-    moved = pos + {
-        "ring_flash_fwd": q_bytes + 2 * kv_bytes + 2 * b * h * t * d * 4 + 4 * row,
-        "ring_flash_bwd_dq": 2 * q_bytes + 2 * kv_bytes + 2 * row + 2 * b * h * t * d * 4,
-        "ring_flash_bwd_dkv": 2 * q_bytes + 2 * kv_bytes + 2 * row + 4 * b * hkv * t * d * 4,
-    }[name]
-    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
-    t_bytes = moved / PEAK_BYTES * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
-
-
 def time_ring_kernels(torch, rf, dev):
     """B4-B6 at the layer's shape for a diagonal and a past ring step."""
     import torch.nn.functional as F
@@ -818,11 +827,11 @@ def time_ring_kernels(torch, rf, dev):
                                    lambda: rf.rf_dkv_plain(*bwd, dk, dv, h, hkv)),
         }
         for name, (kernel, plain) in calls.items():
-            ms, plain_ms = time_ms(torch, kernel), time_ms(torch, plain)
+            ms, plain_ms = time_ms(torch, kernel), time_plain(torch, plain)
             single_ms = time_ms(torch, kernel, inner=1)
-            bound_ms, bound_by = ring_bound(name, b, t, h, hkv, d, live,
-                                            dtype_name, itemsize)
-            tflops = ring_flops(name, b, h, d, live) / ms / 1e9
+            f, bound_ms, bound_by = bound(
+                (name, b * h, b * hkv, t, d, itemsize, (qpos, kpos)), dtype_name)
+            tflops = f / ms / 1e9
             rows.setdefault(name, {})[step] = {
                 "ms": ms, "single_ms": single_ms, "plain_ms": plain_ms,
                 "bound_ms": bound_ms,
@@ -2631,6 +2640,332 @@ def checkpoint_phase(torch, fa, rf, basics, train_mod, loop_mod, card, dev,
     torch.cuda.empty_cache()
 
 
+# Phase 22. Tuning and measurement of the training path, at full width in
+# a world of one over NCCL. In a world of one the exchange moves no value:
+# whatever the fusion threshold, bucket count, ladder or mesh, a step with
+# the wire at full width is the same arithmetic, so every such candidate,
+# the controller's run and ZeRO at 1x1 are held bit-equal to the plain run.
+# A bf16 wire rounds each gradient once: phase 5's loss limit (1e-2).
+TUNE_THRESHOLDS = (4 << 20, 64 << 20, 256 << 20)
+TUNE_BUCKETS = (1, 4)
+TUNE_WIRES = ("none", "bf16")
+TUNE_WINDOW = dict(warmup=1, iters=2, reps=2)
+TUNE_PEAK_SPREAD, TUNE_LEAK = 1e9, 0.1e9       # bytes
+CONTROL_WINDOWS = 12
+
+
+class CountedFactory:
+    """A step factory that reads the kernels' launch counts of each
+    candidate: those since the previous candidate's build, read when the
+    next one is built and at ``finish()``."""
+
+    def __init__(self, factory, fa, rf) -> None:
+        self.factory, self.fa, self.rf, self.counts = factory, fa, rf, []
+
+    def __call__(self, fusion_threshold, **knobs):
+        self.finish()
+        return self.factory(fusion_threshold, **knobs)
+
+    def finish(self):
+        counts = read_counts(self.fa, self.rf)
+        if len(self.counts) < len(self.factory.records):
+            self.counts.append(counts)
+
+
+def planned_buckets(torch, train_mod, config, threshold, num_buckets) -> int:
+    """The port's fusion plan for the config's model, from its shapes alone
+    (the model built on the meta device)."""
+    from horovod_tpu_torch.convert import jax_ordered
+    from horovod_tpu_torch.models.transformer import TransformerLM
+    from horovod_tpu_torch.parallel import fusion
+
+    with torch.device("meta"):
+        model = TransformerLM(vocab=config.vocab, dim=config.dim,
+                              heads=config.heads, layers=config.layers,
+                              mlp_ratio=config.mlp_ratio,
+                              dtype=getattr(torch, config.dtype))
+    params = [p for _, p in jax_ordered(model.named_parameters())]
+    return fusion.build_plan(params, threshold, num_buckets).num_buckets
+
+
+def held_memory(torch, dev) -> int:
+    """``memory_allocated`` once the dropped objects are freed and without
+    cuBLAS's workspaces, which it keeps for each stream it ran on for the
+    life of the process (64-96 MiB a stream here), not for a candidate."""
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated(dev)
+
+
+def tune_sweep(torch, fa, rf, basics, train_mod, card, dev, paths):
+    """22a: ``tune`` over thresholds x buckets x wires, graphed."""
+    from horovod_tpu_torch import autotune
+
+    from horovod_tpu_torch.loop import WARMUP_STEPS
+
+    config = train_mod.TrainConfig(steps_per_dispatch=GRAPH_K)
+    captured_steps = WARMUP_STEPS + 1
+    basics.init("cuda")
+    before = held_memory(torch, dev)
+    factory = CountedFactory(train_mod.TuneStepFactory(config), fa, rf)
+    read_counts(fa, rf)
+    t0 = time.perf_counter()
+    report = autotune.tune(factory, thresholds=TUNE_THRESHOLDS,
+                           num_buckets=TUNE_BUCKETS, compressions=TUNE_WIRES,
+                           gp_rounds=1, **TUNE_WINDOW)
+    factory.factory.close()
+    factory.finish()
+    sweep_s = time.perf_counter() - t0
+    records = factory.factory.records
+    after = held_memory(torch, dev)
+    log(f"  {len(records)} candidates in {sweep_s:.1f} s ({TUNE_WINDOW}, "
+        f"{GRAPH_K} steps a dispatch), on {card}; knob curve (steps/s are "
+        f"dispatches of {GRAPH_K} steps a second):")
+    for line in report.knob_curve().splitlines():
+        log(f"    {line}")
+    best = report.best
+    log(f"  best {best.config}: {best.steps_per_s * GRAPH_K:.3f} steps/s, "
+        f"{1e3 / (best.steps_per_s * GRAPH_K):.2f} ms a step")
+    rates = {(m.fusion_threshold, m.num_buckets, m.compression): m.steps_per_s
+             for m in report.table}
+    first_peak = records[0]["peak_bytes"]
+    for r, counts in zip(records, factory.counts):
+        want = planned_buckets(torch, train_mod, config, r["fusion_threshold"],
+                               r["num_buckets"])
+        rate = rates[(r["fusion_threshold"], r["num_buckets"], r["compression"])]
+        log(f"  {r['fusion_threshold'] >> 20:>4} MiB x {r['num_buckets']} x "
+            f"{r['compression']:<4}: {r['planned_buckets']} buckets (plan "
+            f"{want}; {r['wires'].count('bfloat16')} ship at bf16), build + capture {r['build_s']:.2f} s, peak "
+            f"{r['peak_bytes'] / 1e9:.3f} GB, {rate * GRAPH_K:.3f} steps/s "
+            f"({1e3 / (rate * GRAPH_K):.2f} ms a step), first dispatch's "
+            f"losses {r['losses']}")
+        if r["planned_buckets"] != want:
+            raise AssertionError(f"candidate {r}: {r['planned_buckets']} buckets, "
+                                 f"the fusion plan has {want}")
+        hold_counts(f"candidate {r['fusion_threshold'] >> 20} MiB x "
+                    f"{r['num_buckets']} x {r['compression']} ({captured_steps} "
+                    f"steps: warm-up and capture; replays run no Python)",
+                    counts, {k: config.layers * captured_steps for k in KERNELS})
+        if abs(r["peak_bytes"] - first_peak) > TUNE_PEAK_SPREAD:
+            raise AssertionError(f"candidate {r}: peak {r['peak_bytes']} B, the "
+                                 f"first's {first_peak} B: memory accumulates")
+    paths["22a: tune, one candidate's warm-up and capture"] = factory.counts[0]
+    none = [r["losses"] for r in records if r["compression"] == "none"]
+    if any(losses != none[0] for losses in none):
+        raise AssertionError(f"'none' candidates' first dispatches differ: {none}")
+    bf16 = [r["losses"] for r in records if r["compression"] == "bf16"]
+    gaps = [max(abs(a - b) / abs(b) for a, b in zip(losses, none[0]))
+            for losses in bf16]
+    log(f"  {len(none)} 'none' candidates bit-equal; each bf16 candidate against "
+        f"them: loss {min(gaps):.3e}-{max(gaps):.3e} relative (limit 1e-2; above "
+        f"0, or the wire was not applied)")
+    if not max(gaps) <= 1e-2:
+        raise AssertionError(f"bf16 candidates' losses {max(gaps)} from 'none'")
+    if not min(gaps) > 0:
+        raise AssertionError("a bf16 candidate's losses equal the 'none' ones: "
+                             "the wire was not applied")
+    for r in records:
+        if ("bfloat16" in r["wires"]) != (r["compression"] == "bf16"):
+            raise AssertionError(f"candidate {r['compression']}: bucket wires "
+                                 f"{r['wires']}")
+    log(f"  memory allocated before the sweep {before / 1e9:.3f} GB, after "
+        f"{after / 1e9:.3f} GB; peaks {min(r['peak_bytes'] for r in records) / 1e9:.3f}"
+        f"-{max(r['peak_bytes'] for r in records) / 1e9:.3f} GB")
+    if abs(after - before) > TUNE_LEAK:
+        raise AssertionError(f"the sweep kept {after - before} B allocated")
+    return best
+
+
+def controller_run(torch, fa, rf, basics, train_mod, card, dev, paths):
+    """22b: ``TrainingController`` driving ``TrainRecapture``, against the
+    same loop with no controller."""
+    from horovod_tpu_torch.control import TrainingController
+    from horovod_tpu_torch.loop import WARMUP_STEPS
+    from horovod_tpu_torch.metrics.registry import MetricsRegistry
+
+    config = train_mod.TrainConfig(steps_per_dispatch=GRAPH_K)
+    read_counts(fa, rf)
+    job = train_mod.TrainRecapture(config, "cuda")
+    tc = TrainingController(rejit=job.rejit, canary_steps=2, cooldown_s=0.0,
+                            reg=MetricsRegistry())
+    losses, rates = [], []
+    for _ in range(CONTROL_WINDOWS):
+        t0 = time.perf_counter()
+        job()
+        torch.cuda.synchronize(dev)
+        rate = GRAPH_K / (time.perf_counter() - t0)
+        losses.append(job.loop.losses.tolist())
+        rates.append(rate)
+        tc.on_step(rate)
+    counts = read_counts(fa, rf)
+    for d in tc.loop.history:
+        log(f"  decision: {d['verdict']} {d['knob']} {d['prev']} -> {d['value']} "
+            f"({d['reason']}; canary mean {d['canary_mean']} vs baseline "
+            f"{d['baseline']} steps/s)")
+    for change, secs in job.recaptures:
+        log(f"  recapture {change}: {secs:.3f} s (rebuild, warm-up, capture)")
+    log(f"  windows' steps/s {[round(r, 3) for r in rates]} on {card}; final "
+        f"knobs {job.knobs}")
+    if not tc.loop.history:
+        raise AssertionError("the controller decided nothing in "
+                             f"{CONTROL_WINDOWS} windows")
+    captures = 1 + len(job.recaptures)
+    hold_counts(f"controller run ({captures} captures, each after "
+                f"{WARMUP_STEPS} warm-up steps)", counts,
+                {k: config.layers * (WARMUP_STEPS + 1) * captures for k in KERNELS})
+    paths[f"22b: controller, {CONTROL_WINDOWS} windows, every capture"] = counts
+    del job, tc
+    basics.shutdown()
+    gc.collect()
+    torch.cuda.empty_cache()
+    plain = train_mod.TrainRecapture(config, "cuda")
+    read_counts(fa, rf)
+    want = []
+    for _ in range(CONTROL_WINDOWS):
+        plain()
+        want.append(plain.loop.losses.tolist())
+    if losses != want:
+        raise AssertionError(f"controller run's losses {losses} differ from the "
+                             f"plain run's {want}")
+    log(f"  {CONTROL_WINDOWS} windows ({CONTROL_WINDOWS * GRAPH_K} steps) "
+        f"bit-equal to the run without a controller; last losses {want[-1]}")
+    return plain, statistics.median(rates)
+
+
+def roofline_and_timeline(torch, fa, rf, basics, train_mod, card, dev, paths,
+                          plain, step_rate):
+    """22c: the roofline of the eager step and of the graphed dispatch, and
+    the timeline's device pane over one dispatch."""
+    import shutil
+    import tempfile
+
+    from horovod_tpu_torch.utils import roofline, timeline
+
+    peaks = roofline.device_peaks(dev)
+    log(f"  device peaks: {peaks.describe()}; nvidia-smi max clocks (SM, "
+        f"memory): {roofline.smi_max_clocks(dev.index or 0)}; on {card}")
+    box = [plain.loop.counter.clone()]
+
+    def eager_step():
+        x, y, box[0] = plain.cache.sample(box[0])
+        plain.s.step(x, y)
+
+    eager_step()
+    read_counts(fa, rf)
+    eager = roofline.profile_device_ops(eager_step, steps=2, peaks=peaks)
+    counts = read_counts(fa, rf)
+    graph = roofline.profile_device_ops(plain, steps=1, peaks=peaks,
+                                        costs=eager.get("kernel_costs"))
+    read_counts(fa, rf)
+    b, t, h, hkv, d = SLICE_SHAPE
+    layers = train_mod.TrainConfig().layers
+    per_step = {k: layers * bound((k, b * h, b * hkv, t, d, 2, True), "bfloat16")[0]
+                for k in KERNELS}
+    for label, rep, steps in (("eager step", eager, 1), (f"graphed dispatch "
+                              f"({GRAPH_K} steps)", graph, GRAPH_K)):
+        log(f"  roofline, {label}:")
+        for line in roofline.format_report(rep).splitlines():
+            log(f"    {line}")
+        if not rep.get("ok"):
+            continue
+        counted = rep["port_kernel_tflop_per_step"]
+        log(f"  B1-B3 TFLOP counted a call: {counted}; from the launch "
+            f"shapes, {steps} x 12 layers: "
+            f"{ {k: round(v * steps / 1e12, 4) for k, v in per_step.items()} }; "
+            f"unattributed {rep['unattributed_ms_per_step']} ms a call")
+        share = rep["model_tflop_per_step"] * 1e12 / steps * step_rate \
+            / peaks.bf16_flops
+        log(f"  whole step: {rep['model_tflop_per_step'] / steps:.3f} TFLOP at "
+            f"{step_rate:.3f} steps/s (22b's median window) = "
+            f"{share * 100:.1f}% of the device-read {peaks.bf16_flops / 1e12:.1f} "
+            f"TFLOP/s ({share * peaks.bf16_flops / 989e12 * 100:.1f}% of 989)")
+        for k, v in per_step.items():
+            if abs(counted.get(k, 0.0) * 1e12 - v * steps) > 1e-6 * v * steps:
+                raise AssertionError(f"{label}: {k} counted {counted.get(k)} "
+                                     f"TFLOP, the shapes give {v * steps / 1e12}")
+    if not eager.get("ok"):
+        raise AssertionError(f"no roofline of the eager step: {eager}")
+    hold_counts("the profiled eager steps", counts,
+                {k: 2 * layers for k in KERNELS})
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+    try:
+        with timeline.trace(tmp):
+            plain()
+            torch.cuda.synchronize(dev)
+        path = os.path.join(tmp, timeline.DEVICE_TRACE)
+        with open(path) as f:
+            text = f.read()
+        seen = {k: tc in text for k, tc in (("flash_fwd", "fwd_tc_kernel<128, 0>"),
+                                            ("flash_bwd_dq", "dq_tc_kernel<128, 0>"),
+                                            ("flash_bwd_dkv", "dkv_tc_kernel<128, 0>"))}
+        log(f"  timeline.trace over one graphed dispatch: {path}, "
+            f"{len(text)} B; B1-B3's kernels named: {seen}")
+        if not all(seen.values()):
+            log("  the replays' kernels were not seen by the profiler "
+                "(graph_kernels_seen: false)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    read_counts(fa, rf)
+
+
+def zero_tune(torch, fa, rf, basics, train_mod, dev, paths):
+    """22d: ``tune(mesh_shapes=("1x1",))`` through ZeRO against the flat
+    candidate, both eager on a plain Adam (the graphed flat step's
+    capturable Adam rounds otherwise), 3 steps a call."""
+    from horovod_tpu_torch import autotune
+
+    config = train_mod.TrainConfig(steps_per_dispatch=3)
+    factory = CountedFactory(train_mod.TuneStepFactory(config, "cuda",
+                                                       graphed=False), fa, rf)
+    read_counts(fa, rf)
+    window = dict(warmup=1, iters=1, reps=1, gp_rounds=0)
+    flat = autotune.tune(factory, thresholds=(64 << 20,), **window)
+    zero = autotune.tune(factory, thresholds=(64 << 20,), mesh_shapes=("1x1",),
+                         **window)
+    factory.factory.close()
+    factory.finish()
+    a, b = factory.factory.records
+    log(f"  flat: {a['planned_buckets']} buckets, losses {a['losses']}, "
+        f"{flat.best.steps_per_s * 3:.3f} steps/s; ZeRO 1x1: "
+        f"{b['planned_buckets']} buckets, losses {b['losses']}, "
+        f"{zero.best.steps_per_s * 3:.3f} steps/s, best config {zero.best.config}")
+    if a["losses"] != b["losses"] or a["planned_buckets"] != b["planned_buckets"]:
+        raise AssertionError("ZeRO at 1x1 is not bit-equal to the flat candidate")
+    for counts, r in zip(factory.counts, (a, b)):
+        hold_counts(f"{'ZeRO 1x1' if r['mesh_shape'] else 'flat'}, 2 calls of 3 "
+                    f"eager steps", counts, {k: config.layers * 6 for k in KERNELS})
+    paths["22d: tune, ZeRO 1x1, 2 calls of 3 steps"] = factory.counts[1]
+    basics.shutdown()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def tuning_phase(torch, fa, rf, basics, train_mod, card, dev, paths) -> None:
+    """Phase 22: 22a, 22b, 22c on 22b's plain run, 22d."""
+    log(f"  (22a) tune: thresholds {[t >> 20 for t in TUNE_THRESHOLDS]} MiB x "
+        f"buckets {TUNE_BUCKETS} x wires {TUNE_WIRES}, one GP/EI round, graphed "
+        f"K = {GRAPH_K}")
+    tune_sweep(torch, fa, rf, basics, train_mod, card, dev, paths)
+    basics.shutdown()
+    log(f"  (22b) TrainingController over TrainRecapture, {CONTROL_WINDOWS} "
+        f"windows of one dispatch, canary 2, no cooldown")
+    plain, step_rate = controller_run(torch, fa, rf, basics, train_mod, card,
+                                      dev, paths)
+    log("  (22c) roofline of the eager step and the graphed dispatch; the "
+        "timeline's device pane")
+    roofline_and_timeline(torch, fa, rf, basics, train_mod, card, dev, paths,
+                          plain, step_rate)
+    del plain
+    basics.shutdown()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("  (22d) tune(mesh_shapes=('1x1',)) through ZeRO against the flat "
+        "candidate, eager, 3 steps a call")
+    zero_tune(torch, fa, rf, basics, train_mod, dev, paths)
+
+
 def config_label(config) -> str:
     return "TrainConfig(sp=1)" if config.sp else "TrainConfig()"
 
@@ -2652,6 +2987,7 @@ def main() -> int:
     from horovod_tpu_torch import transformer_benchmark as bench
 
     t_start = time.perf_counter()
+    _STARTED.append(t_start)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -2815,10 +3151,16 @@ def main() -> int:
         f"commit's costs; export for inference")
     checkpoint_phase(torch, fa, rf, basics, train_mod, loop_mod, card, dev, paths)
 
+    log(f"[22] tuning and measurement of the training path at full width: "
+        f"tune (graphed, K = {GRAPH_K}), the TrainingController over the "
+        f"recapture hook, the roofline on the device-read peaks, the "
+        f"timeline's device pane, ZeRO 1x1 through the tuner")
+    tuning_phase(torch, fa, rf, basics, train_mod, card, dev, paths)
+
     kernels = []
     for source, names in SOURCES.items():
         for kname in names:
-            replaces = {**KERNELS, **RING_KERNELS}[kname][0]
+            replaces = {**KERNELS, **RING_KERNELS}[kname]
             row = {"name": kname, "route": "cuda",
                    "source": f"horovod_tpu_torch/csrc/{source}",
                    "replaces": replaces, "launches": counts[kname],

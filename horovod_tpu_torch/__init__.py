@@ -32,6 +32,12 @@ the step path; ``callbacks`` holds the Keras-style warmup, metric
 averaging and broadcast callbacks; ``broadcast_object`` and
 ``allgather_object`` move picklable objects.
 
+``autotune.tune`` measures the exchange's knobs by rebuilding the step
+per candidate (``train.TuneStepFactory``); ``control.TrainingController``
+retunes them while a job runs, through ``train.TrainRecapture``'s
+``rejit``; ``utils/roofline.py`` and ``utils/timeline.py`` say where the
+step's device time goes.
+
 Entry points run on the card unless the caller passes ``device="cpu"``.
 The flash-attention kernels (``ops/flash_attention.py``) are CUDA C++
 built from ``csrc/`` on first use.

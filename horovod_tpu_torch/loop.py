@@ -29,6 +29,21 @@ from .data import DeviceCache
 
 WARMUP_STEPS = 3
 
+# One warm-up stream per device: cuBLAS keeps a workspace for every stream
+# it has run on until the process ends, so a stream made per capture would
+# leave one behind at each capture (a graph captured again per autotune
+# candidate or controller change).
+_WARMUP_STREAMS: dict = {}
+
+
+def warmup_stream(device: torch.device) -> torch.cuda.Stream:
+    """The side stream the warm-up runs on: one per device, for the
+    process."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _WARMUP_STREAMS:
+        _WARMUP_STREAMS[index] = torch.cuda.Stream(device)
+    return _WARMUP_STREAMS[index]
+
 
 class TrainingState:
     """The parameters and optimizer state of ``optimizer`` and a step
@@ -104,7 +119,7 @@ class ScanTrainLoop:
                                "CPU the loop runs eagerly")
         t0 = time.perf_counter()
         before = TrainingState(self.optimizer, self.counter)
-        side = torch.cuda.Stream(self.device)
+        side = warmup_stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(side):
             for _ in range(WARMUP_STEPS):

@@ -37,6 +37,12 @@ _SOURCE = "flash_attention.cu"
 launches = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 
 
+# While a list: each launch of a kernel here or in ``ring_flash`` appends
+# (name, q rows, kv rows, T, D, itemsize, causal or (q positions, k
+# positions)), from which ``utils/roofline.py`` counts the work it did.
+launch_log: list | None = None
+
+
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
@@ -211,9 +217,11 @@ _ERRORS = {1000: "arguments no kernel takes",
            1001: "a TMA tensor map did not encode"}
 
 
-def _launch(fn, name: str, dev, *args, counts: dict = launches) -> None:
+def _launch(fn, name: str, dev, *args, counts: dict = launches,
+            geometry: tuple = ()) -> None:
     """Launch on ``dev``'s current stream, with ``dev`` made the current
-    device only for the call, and count it in ``counts[name]``."""
+    device only for the call, and count it in ``counts[name]`` (and its
+    ``geometry`` in ``launch_log`` while that is a list)."""
     with torch.cuda.device(dev):
         stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
         err = fn(*args, stream)
@@ -221,6 +229,8 @@ def _launch(fn, name: str, dev, *args, counts: dict = launches) -> None:
         why = _ERRORS.get(err, "CUDA error")
         raise RuntimeError(f"{name} kernel launch failed: {why} ({err})")
     counts[name] += 1
+    if launch_log is not None:
+        launch_log.append((name, *geometry))
 
 
 def _ptr(x: torch.Tensor):
@@ -238,7 +248,8 @@ def flash_fwd(qr, kr, vr, h: int, hkv: int, causal: bool):
     lse = torch.empty(rows, t, device=qr.device, dtype=torch.float32)
     _launch(_library().hvd_flash_fwd, "flash_fwd", qr.device,
             _ptr(qr), _ptr(kr), _ptr(vr), _ptr(out), _ptr(lse), rows, h, hkv,
-            t, d, int(causal), code)
+            t, d, int(causal), code,
+            geometry=(rows, kr.shape[0], t, d, qr.element_size(), causal))
     return out, lse
 
 
@@ -252,7 +263,8 @@ def flash_bwd_dq(qr, kr, vr, dor, lse, delta, h: int, hkv: int, causal: bool):
     dq = torch.empty_like(qr)
     _launch(_library().hvd_flash_bwd_dq, "flash_bwd_dq", qr.device,
             _ptr(qr), _ptr(kr), _ptr(vr), _ptr(dor), _ptr(lse), _ptr(delta),
-            _ptr(dq), rows, h, hkv, t, d, int(causal), code)
+            _ptr(dq), rows, h, hkv, t, d, int(causal), code,
+            geometry=(rows, kr.shape[0], t, d, qr.element_size(), causal))
     return dq
 
 
@@ -268,7 +280,8 @@ def flash_bwd_dkv(qr, kr, vr, dor, lse, delta, h: int, hkv: int, causal: bool):
     dk, dv = torch.empty_like(kr), torch.empty_like(vr)
     _launch(_library().hvd_flash_bwd_dkv, "flash_bwd_dkv", qr.device,
             _ptr(qr), _ptr(kr), _ptr(vr), _ptr(dor), _ptr(lse), _ptr(delta),
-            _ptr(dk), _ptr(dv), rows_kv, h, hkv, t, d, int(causal), code)
+            _ptr(dk), _ptr(dv), rows_kv, h, hkv, t, d, int(causal), code,
+            geometry=(qr.shape[0], rows_kv, t, d, qr.element_size(), causal))
     return dk, dv
 
 

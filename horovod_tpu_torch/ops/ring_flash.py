@@ -168,7 +168,8 @@ def rf_fwd(qr, kr, vr, acc, m, l, qpos, kpos, h: int, hkv: int):
     rows, t, d = qr.shape
     ptrs = [fa._ptr(x) for x in (qr, kr, vr, acc, m, l, qpos, kpos)]
     fa._launch(_library().hvd_ring_flash_fwd, "ring_flash_fwd", qr.device,
-               *ptrs, rows, h, hkv, t, d, code, counts=launches)
+               *ptrs, rows, h, hkv, t, d, code, counts=launches,
+               geometry=(rows, kr.shape[0], t, d, qr.element_size(), (qpos, kpos)))
     return acc, m, l
 
 
@@ -181,7 +182,8 @@ def rf_bwd_dq(qr, kr, vr, dor, lse, delta, qpos, kpos, dq, h: int, hkv: int):
     rows, t, d = qr.shape
     ptrs = [fa._ptr(x) for x in (qr, kr, vr, dor, lse, delta, qpos, kpos, dq)]
     fa._launch(_library().hvd_ring_flash_dq, "ring_flash_bwd_dq", qr.device,
-               *ptrs, rows, h, hkv, t, d, code, counts=launches)
+               *ptrs, rows, h, hkv, t, d, code, counts=launches,
+               geometry=(rows, kr.shape[0], t, d, qr.element_size(), (qpos, kpos)))
     return dq
 
 
@@ -200,7 +202,9 @@ def rf_bwd_dkv(qr, kr, vr, dor, lse, delta, qpos, kpos, dk, dv, h: int,
         lse, delta = fa._tma_rows(t, lse, delta)
     ptrs = [fa._ptr(x) for x in (qr, kr, vr, dor, lse, delta, qpos, kpos, dk, dv)]
     fa._launch(_library().hvd_ring_flash_dkv, "ring_flash_bwd_dkv", qr.device,
-               *ptrs, rows_kv, h, hkv, t, d, code, counts=launches)
+               *ptrs, rows_kv, h, hkv, t, d, code, counts=launches,
+               geometry=(qr.shape[0], rows_kv, t, d, qr.element_size(),
+                         (qpos, kpos)))
     return dk, dv
 
 

@@ -191,6 +191,7 @@ class DistributedOptimizer:
         for b, bucket in enumerate(self.plan.buckets):
             for d in bucket:
                 self._bucket_of[d.index] = b
+        self._hooks = []
         self._reset()
         if self.latency_hiding:
             self._init_hooks()
@@ -268,9 +269,15 @@ class DistributedOptimizer:
                     opt._landed(i)
             return hook
 
-        for i, p in enumerate(self.params):
-            if p.requires_grad:
-                p.register_post_accumulate_grad_hook(landed(i))
+        self._hooks = [p.register_post_accumulate_grad_hook(landed(i))
+                       for i, p in enumerate(self.params) if p.requires_grad]
+
+    def remove_hooks(self) -> None:
+        """Take this optimizer's gradient hooks off the parameters, before
+        another optimizer is built over them (``train.TrainRecapture``)."""
+        for handle in self._hooks:
+            handle.remove()
+        self._hooks = []
 
     def _reset(self) -> None:
         self._seen = [0] * len(self.params)         # passes landed, per leaf

@@ -50,6 +50,8 @@ drawn from (seed, dp index).
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import gc
 import time
 from dataclasses import dataclass, field
 from typing import Callable, ContextManager, Optional
@@ -59,6 +61,7 @@ import torch.distributed as dist
 
 from . import optimizer as hvd_opt
 from .common import basics
+from .compression import Compression, normalize
 from .convert import jax_ordered
 from .data import DeviceCache
 from .loop import make_scan_train_loop
@@ -69,8 +72,8 @@ from .models.transformer import (TransformerLM, chunked_lm_loss, init_weights,
                                  next_tokens, token_loss, tp_state_dict)
 from .parallel import fsdp
 from .parallel import sharded as sh
-from .parallel.mesh import (DpFsdp, DpSp, dp_sp_groups, sharded_groups,
-                            training_groups)
+from .parallel.mesh import (DpFsdp, DpSp, dp_sp_groups, hierarchical_groups,
+                            parse_mesh_spec, sharded_groups, training_groups)
 from .parallel.pipeline import stage_of
 from .parallel.tensor import model_size
 
@@ -282,40 +285,40 @@ def adam(params, config: TrainConfig, capturable: bool = False):
                             foreach=True)
 
 
-def setup(config: TrainConfig, device=None) -> Setup:
+def setup(config: TrainConfig, device=None, *,
+          fusion_threshold: Optional[int] = None,
+          num_buckets: Optional[int] = None,
+          compression: Optional[str] = None,
+          hierarchical: Optional[bool] = None, groups=None,
+          layout=None) -> Setup:
     """init -> model -> broadcasts -> the train step. Adam is built
     ``capturable`` when ``config.steps_per_dispatch`` is set and the device
     is the card, so that its step can be captured in a CUDA graph.
     Sharded: init -> model -> ``broadcast_parameters`` of the full
     parameters -> this rank's rows -> Adam on the rows ->
-    ``DistributedOptimizer(sharded=True)`` -> ``broadcast_sharded_state``."""
+    ``DistributedOptimizer(sharded=True)`` -> ``broadcast_sharded_state``.
+
+    The exchange's knobs default to the environment's
+    (HOROVOD_FUSION_THRESHOLD, HOROVOD_NUM_BUCKETS, HOROVOD_COMPRESSION,
+    HOROVOD_HIERARCHICAL_ALLREDUCE); ``compression`` is a
+    HOROVOD_COMPRESSION name or spec, ``groups`` the ladder's
+    ``Hierarchy``, and ``layout`` a ``ShardedLayout`` that puts the step
+    on ZeRO over it."""
     basics.init(device)
     dev = basics.device()
-    sharded = basics.config().shard_params if config.sharded is None \
-        else config.sharded
+    sharded = layout is not None or (basics.config().shard_params
+                                     if config.sharded is None else config.sharded)
     if sharded and (config.sp is not None or config.steps_per_dispatch is not None):
         raise ValueError("sharded training does not combine with sp or "
                          "steps_per_dispatch yet")
     sp = dp_sp_groups(config.sp) if config.sp is not None else None
     model = build_model(config, dev, sp.group if sp else None)
     named = jax_ordered(model.named_parameters())
-    params = [p for _, p in named]
     hvd_opt.broadcast_parameters(named, root_rank=0)
-    if sharded:
-        layout = sharded_groups()
-        plan = sh.build_shard_plan(params, layout.shard_size,
-                                   basics.config().fusion_threshold,
-                                   basics.config().num_buckets)
-        rows = sh.shard_params(params, plan, layout.shard_rank)
-        opt = hvd_opt.DistributedOptimizer(adam(rows, config), named,
-                                           sharded=True, shard_plan=plan,
-                                           layout=layout)
-        hvd_opt.broadcast_sharded_state(opt)
-    else:
-        capturable = config.steps_per_dispatch is not None and dev.type == "cuda"
-        opt = hvd_opt.DistributedOptimizer(adam(params, config, capturable),
-                                           named, sharded=False)
-        hvd_opt.broadcast_optimizer_state(opt, root_rank=0)
+    opt = build_optimizer(config, named, sharded, fusion_threshold=fusion_threshold,
+                          num_buckets=num_buckets, compression=compression,
+                          hierarchical=hierarchical, groups=groups,
+                          layout=layout)
     positions = None
     if sp is not None:
         _, positions = make_shard(config, sp, dev)
@@ -323,6 +326,45 @@ def setup(config: TrainConfig, device=None) -> Setup:
     return Setup(model=model, opt=opt, sp=sp,
                  step=make_train_step(model, opt, positions, config.loss_chunk),
                  tokens_per_step=tokens_local * basics.size())
+
+
+def build_optimizer(config: TrainConfig, named, sharded: bool, adam_opt=None, *,
+                    fusion_threshold=None, num_buckets=None, compression=None,
+                    hierarchical=None, groups=None,
+                    layout=None) -> hvd_opt.DistributedOptimizer:
+    """The ``DistributedOptimizer`` of ``setup`` over the model's
+    ``named`` parameters, with the knobs ``setup`` takes, and its state
+    broadcast from rank 0. ``adam_opt``, flat only: the running job's Adam
+    over the parameters, kept with its state (which every rank already
+    shares) in place of a new one."""
+    wire = None if compression is None \
+        else Compression.by_name(normalize(compression))
+    if sharded:
+        params = [p for _, p in named]
+        layout = layout if layout is not None else sharded_groups()
+        plan = sh.build_shard_plan(params, layout.shard_size,
+                                   hvd_opt._resolved_threshold(fusion_threshold),
+                                   hvd_opt._resolved_num_buckets(num_buckets))
+        rows = sh.shard_params(params, plan, layout.shard_rank)
+        opt = hvd_opt.DistributedOptimizer(
+            adam(rows, config), named, compression=wire,
+            fusion_threshold=fusion_threshold, num_buckets=num_buckets,
+            hierarchical=hierarchical, groups=groups, sharded=True,
+            shard_plan=plan, layout=layout)
+        hvd_opt.broadcast_sharded_state(opt)
+        return opt
+    fresh = adam_opt is None
+    if fresh:
+        capturable = (config.steps_per_dispatch is not None
+                      and named[0][1].device.type == "cuda")
+        adam_opt = adam([p for _, p in named], config, capturable)
+    opt = hvd_opt.DistributedOptimizer(
+        adam_opt, named, compression=wire, fusion_threshold=fusion_threshold,
+        num_buckets=num_buckets, hierarchical=hierarchical, groups=groups,
+        sharded=False)
+    if fresh:
+        hvd_opt.broadcast_optimizer_state(opt, root_rank=0)
+    return opt
 
 
 def make_fsdp_train_step(model: TransformerLM, rows: dict, shapes: dict,
@@ -498,3 +540,230 @@ def train(config: TrainConfig, steps: int, device=None,
                 torch.cuda.synchronize(dev)
             times.append(time.perf_counter() - t0)
     return result
+
+
+# The exchange's knobs that a candidate or a running job may change.
+KNOB_NAMES = ("fusion_threshold", "num_buckets", "compression", "hierarchical")
+
+
+def _release(dev) -> None:
+    """Free what the dropped objects held, CUDA graph pools included."""
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+
+
+class TuneStepFactory:
+    """``autotune.tune``'s step factory for the config's TransformerLM: the
+    counterpart of ``bench.py:541-551``'s ``step_factory``.
+
+    ``factory(fusion_threshold, num_buckets=, compression=, hierarchical=,
+    mesh_shape=) -> (run, sync)`` frees the previous candidate (its model,
+    optimizer, fusion buffers, cache and CUDA graph with its memory pool),
+    then builds this one from the config's seed, so every candidate starts
+    from the same weights and draws the same batches. ``mesh_shape`` None is
+    the flat ``DistributedOptimizer``; a HOROVOD_MESH spec puts the step on
+    ZeRO over that layout's ``sharded_groups`` (the model axis must be 1;
+    the ladder has no ZeRO form, in either package, so ``hierarchical`` is
+    ignored there). With ``config.steps_per_dispatch = K`` a flat
+    candidate captures its step in a CUDA graph, where the JAX package
+    re-jits, and ``run`` replays it K times; ZeRO has no graphed step yet,
+    so a mesh candidate runs its K steps eagerly, on a plain Adam. With
+    ``graphed=False`` every candidate does, so that a flat candidate steps
+    as a ZeRO one does: the graph's Adam is ``capturable``, whose update
+    rounds otherwise than the plain one's. ``sync`` fences at a window's
+    end.
+
+    ``records`` holds one dict per candidate: its knobs, ``graphed``, the
+    plan's ``num_buckets``, each bucket's wire dtype (None: as it is), ``build_s`` (setup, warm-up and capture), the
+    per-step ``losses`` of its first ``run`` and, on the card, its
+    ``peak_bytes`` (``max_memory_allocated``, reset before the build).
+    Those of the last candidate are filled in by ``close()``, which frees
+    it. ``ici_size`` sizes the ladder's groups as ``hierarchical_groups``
+    takes it.
+    """
+
+    def __init__(self, config: TrainConfig, device=None,
+                 ici_size: Optional[int] = None, graphed: bool = True) -> None:
+        basics.init(device)
+        self.config = config
+        self.ici_size = ici_size
+        self.graphed = graphed
+        self.records: list[dict] = []
+        self._live = None       # the candidate's Setup, until close()
+        self._first = None      # the losses of its first run, on the device
+        self._layouts: dict = {}
+        self._hierarchy = None
+
+    def _layout(self, spec: str):
+        """The ``ShardedLayout`` of a mesh spec, built once: groups are
+        created on every rank and a captured step must create none."""
+        if spec not in self._layouts:
+            batch, shard, model = parse_mesh_spec(spec, basics.size())
+            if model != 1:
+                raise ValueError(f"mesh {spec!r}: the trainer has no model "
+                                 "axis yet (tensor parallelism is not wired "
+                                 "through setup)")
+            self._layouts[spec] = sharded_groups(batch, shard, 1)
+        return self._layouts[spec]
+
+    def build(self, fusion_threshold: int, num_buckets: Optional[int] = None,
+              compression: Optional[str] = None,
+              hierarchical: Optional[bool] = None,
+              mesh_shape: Optional[str] = None) -> Setup:
+        """Free the previous candidate and set up this one's step."""
+        self.close()
+        dev = basics.device()
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        config, layout, groups = self.config, None, None
+        if mesh_shape or not self.graphed:     # eager: a plain Adam
+            config = dataclasses.replace(config, steps_per_dispatch=None)
+        if mesh_shape:
+            layout = self._layout(mesh_shape)
+            config = dataclasses.replace(config, sharded=True)
+        elif hierarchical:
+            if self._hierarchy is None:
+                self._hierarchy = hierarchical_groups(self.ici_size)
+            groups = self._hierarchy
+        s = setup(config, None, fusion_threshold=fusion_threshold,
+                  num_buckets=num_buckets, compression=compression,
+                  hierarchical=hierarchical, groups=groups, layout=layout)
+        self.records.append({
+            "fusion_threshold": fusion_threshold, "num_buckets": num_buckets,
+            "compression": compression, "hierarchical": hierarchical,
+            "mesh_shape": mesh_shape, "planned_buckets": s.opt.plan.num_buckets,
+            "wires": [None if w is None else str(w).removeprefix("torch.")
+                      for w in (s.opt.wires if s.opt.sharded else s.opt.wires[0])],
+            "graphed": config.steps_per_dispatch is not None,
+            "build_s": None, "losses": None, "peak_bytes": None})
+        self._live, self._t0 = s, t0
+        return s
+
+    def __call__(self, fusion_threshold: int, **knobs):
+        s = self.build(fusion_threshold, **knobs)
+        record, dev = self.records[-1], basics.device()
+        cache = make_cache(self.config, s.sp, dev)
+        k = self.config.steps_per_dispatch or 1
+        if record["graphed"]:
+            loop = make_scan_train_loop(s.step, cache, k, optimizer=s.opt)
+            if dev.type == "cuda":
+                loop.capture()
+            losses = loop.losses
+
+            def dispatch():
+                loop()
+        else:
+            ctr = [cache.counter()]
+            losses = torch.zeros(k, device=dev)
+
+            def dispatch():
+                for i in range(k):
+                    x, y, ctr[0] = cache.sample(ctr[0])
+                    losses[i] = s.step(x, y)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        record["build_s"] = time.perf_counter() - self._t0
+
+        def run():
+            dispatch()
+            if self._first is None:
+                self._first = losses.detach().clone()
+
+        def sync():
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+
+        return run, sync
+
+    def close(self) -> None:
+        """Fill in the live candidate's record and free it."""
+        if self._live is None:
+            return
+        dev = basics.device()
+        record = self.records[-1]
+        if self._first is not None:
+            record["losses"] = self._first.tolist()
+        if dev.type == "cuda":
+            record["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+        self._live.opt.remove_hooks()
+        self._live = self._first = None
+        _release(dev)
+
+
+class TrainRecapture:
+    """A graphed training job whose exchange knobs change while it runs:
+    the ``rejit`` hook of ``control.TrainingController``.
+
+    ``job()`` runs one dispatch of ``config.steps_per_dispatch`` steps and
+    returns its mean loss, as ``loop.ScanTrainLoop`` does. ``rejit({knob:
+    value})`` (``KNOB_NAMES``; a compression name or spec) rebuilds the
+    ``DistributedOptimizer`` over the same model and the same Adam, so the
+    parameters and every moment and step count stay, drops the old graph
+    and its pool, and captures the step again from the ``DeviceCache``
+    counter where it stood: the warm-up restores parameters, Adam state and
+    counter, so the job then runs exactly the steps it would have run
+    without the change. The mesh has no such path (moving the Adam state
+    between layouts is not ported), and the engine-only knobs have no
+    actuator here: ``rejit`` raises on them, which vetoes the proposal.
+    ``recaptures`` holds ``(change, seconds)`` per call. On the CPU the
+    loop runs eagerly and a rejit only rebuilds the optimizer.
+    """
+
+    def __init__(self, config: TrainConfig, device=None, **knobs) -> None:
+        if not config.steps_per_dispatch:
+            raise ValueError("TrainRecapture drives the graphed loop: set "
+                             "config.steps_per_dispatch")
+        unknown = set(knobs) - set(KNOB_NAMES)
+        if unknown:
+            raise ValueError(f"unknown knobs {sorted(unknown)}")
+        self.config = config
+        self.s = setup(config, device, **knobs)
+        self.dev = basics.device()
+        self.knobs = {"fusion_threshold": self.s.opt.threshold,
+                      "num_buckets": self.s.opt.num_buckets,
+                      "compression": knobs.get("compression") or
+                      basics.config().compression,
+                      "hierarchical": self.s.opt.hierarchical}
+        self.cache = make_cache(config, self.s.sp, self.dev)
+        self.recaptures: list[tuple[dict, float]] = []
+        self.loop = self._capture(self.cache.counter())
+
+    def _capture(self, counter: torch.Tensor):
+        loop = make_scan_train_loop(self.s.step, self.cache,
+                                    self.config.steps_per_dispatch,
+                                    optimizer=self.s.opt)
+        loop.counter.copy_(counter)
+        if self.dev.type == "cuda":
+            loop.capture()
+        return loop
+
+    def __call__(self) -> torch.Tensor:
+        return self.loop()
+
+    def rejit(self, change: dict) -> None:
+        unknown = set(change) - set(KNOB_NAMES)
+        if unknown:
+            raise ValueError(f"a running job cannot change {sorted(unknown)} "
+                             f"(it takes {', '.join(KNOB_NAMES)})")
+        t0 = time.perf_counter()
+        knobs = {**self.knobs, **change}
+        counter = self.loop.counter.clone()
+        old = self.s.opt
+        old.remove_hooks()
+        named = jax_ordered(self.s.model.named_parameters())
+        groups = old.groups if knobs["hierarchical"] else None
+        opt = build_optimizer(self.config, named, False, old.optimizer,
+                              groups=groups, **knobs)
+        positions = None if self.s.sp is None \
+            else make_shard(self.config, self.s.sp, self.dev)[1]
+        self.s = dataclasses.replace(self.s, opt=opt, step=make_train_step(
+            self.s.model, opt, positions, self.config.loss_chunk))
+        self.loop = None
+        del old
+        _release(self.dev)
+        self.loop = self._capture(counter)
+        self.knobs = knobs
+        self.recaptures.append((dict(change), time.perf_counter() - t0))

@@ -16,13 +16,19 @@ dispatch of its own, eager. ``--remat``, ``--loss-chunk`` and
 ``--bf16-logits`` are the model's long-context options. The defaults are
 ``TrainConfig``'s: 8 heads of 128 (the JAX example's default is 16 of 64).
 
-The rate is the median-window one of ``horovod_tpu.jax.autotune``'s
-``measure_steps_per_s``, copied here: ``--num-iters`` dispatches per
-window, one host sync at each window's end, the median of 3 windows after
-``--num-warmup`` dispatches. MFU is against the H100's dense bf16 peak of
-989 TFLOP/s, printed beside the card's name and power limit; on the CPU
-there is no MFU. Run it with one process per card (torchrun or the horovod
-launcher) for data parallelism, and ``--sp N`` for rings of N cards.
+The rate is the median-window one of ``autotune.measure_steps_per_s``,
+the JAX package's method: ``--num-iters`` dispatches per window, one host
+sync at each window's end, the median of 3 windows after
+``--num-warmup`` dispatches. MFU is against the card's dense bf16 peak as
+``utils/roofline.device_peaks`` reads it from the device (SMs x SM clock x
+4096 FLOP per clock), or ``--peak-tflops``; both peaks are printed with
+their inputs beside NVIDIA's data-sheet 989 TFLOP/s, and the card's name
+and power limit. On the CPU there is no MFU. ``--profile`` then runs
+``utils/roofline.profile_device_ops`` on the step and prints its report
+(a graphed step's work is counted from one eager step's profile and the
+capture's launches). Run it with one process per card (torchrun or the
+horovod launcher) for data parallelism, and ``--sp N`` for rings of N
+cards.
 """
 
 from __future__ import annotations
@@ -30,38 +36,15 @@ from __future__ import annotations
 import argparse
 import json
 import subprocess
-import time
-from typing import Callable, Optional
+from typing import Optional
 
 import torch
 
+from .autotune import measure_steps_per_s
 from .common import basics
 from .loop import make_scan_train_loop
 from .train import TrainConfig, make_cache, setup
-
-H100_BF16_PEAK = 989e12   # FLOP/s, dense, NVIDIA's data sheet (SXM, 700 W)
-
-
-def measure_steps_per_s(run_step: Callable[[], None], warmup: int = 2,
-                        iters: int = 5, reps: int = 3,
-                        sync: Optional[Callable[[], None]] = None) -> float:
-    """Median-window step rate: ``warmup`` calls, then ``reps`` windows of
-    ``iters`` calls with one ``sync`` at each window's end; the rate of the
-    median window. ``run_step`` may block itself (then omit ``sync``) or
-    dispatch asynchronously with ``sync`` as the window's fence."""
-    fence = sync or (lambda: None)
-    for _ in range(warmup):
-        run_step()
-    fence()
-    windows = []
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            run_step()
-        fence()
-        windows.append(time.perf_counter() - t0)
-    windows.sort()
-    return iters / windows[len(windows) // 2]
+from .utils import roofline
 
 
 def model_flops_per_token(args) -> float:
@@ -122,6 +105,13 @@ def parse_args(argv=None):
     parser.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     parser.add_argument("--json", action="store_true",
                         help="also print a machine-readable JSON line")
+    parser.add_argument("--profile", action="store_true",
+                        help="after measuring, profile the step and print "
+                             "its roofline (horovod_tpu_torch/utils/"
+                             "roofline.py)")
+    parser.add_argument("--peak-tflops", type=float, default=None,
+                        help="the dense bf16 peak MFU divides by (default: "
+                             "read from the device)")
     args = parser.parse_args(argv)
     if args.bf16_logits and args.loss_chunk:
         parser.error("--bf16-logits does not reach the --loss-chunk path "
@@ -142,12 +132,19 @@ def config_of(args) -> TrainConfig:
         steps_per_dispatch=args.scan_steps if args.scan_steps > 1 else None)
 
 
-def measure(args) -> tuple[float, float, int]:
-    """(tokens/s over all ranks, the last loss, world size)."""
+def measure(args) -> tuple[float, float, int, Optional[dict]]:
+    """(tokens/s over all ranks, the last loss, world size, the roofline
+    report with ``--profile`` or None)."""
     config = config_of(args)
     s = setup(config, args.device)
     dev = basics.device()
     cache = make_cache(config, s.sp, dev)
+    ctr = [cache.counter()]
+
+    def eager_step():
+        x, y, ctr[0] = cache.sample(ctr[0])
+        return s.step(x, y)
+
     if config.steps_per_dispatch:
         loop = make_scan_train_loop(s.step, cache, config.steps_per_dispatch,
                                     optimizer=s.opt)
@@ -155,13 +152,7 @@ def measure(args) -> tuple[float, float, int]:
             loop.capture()
         steps_per_call = config.steps_per_dispatch
     else:
-        ctr = [cache.counter()]
-
-        def loop():
-            x, y, ctr[0] = cache.sample(ctr[0])
-            return s.step(x, y)
-
-        steps_per_call = 1
+        loop, steps_per_call = eager_step, 1
     loss = [None]
 
     def run():
@@ -173,21 +164,41 @@ def measure(args) -> tuple[float, float, int]:
 
     rate = measure_steps_per_s(run, warmup=args.num_warmup,
                                iters=args.num_iters, reps=3, sync=sync)
+    rep = None
+    if args.profile:
+        # Every rank runs the profiled steps (they hold collectives).
+        costs = None
+        if loop is not eager_step and dev.type == "cuda":
+            eager_step()           # the replays' work, from an eager step
+            costs = roofline.profile_device_ops(eager_step, steps=1)\
+                .get("kernel_costs")
+        rep = roofline.profile_device_ops(run, steps=3, sync=sync, costs=costs)
     return (s.tokens_per_step * rate * steps_per_call, float(loss[0]),
-            basics.size())
+            basics.size(), rep)
 
 
-def report(args, tok_s: float, loss: float, n_dev: int) -> None:
+def peak_flops(args) -> tuple[float, str]:
+    """(the dense bf16 peak MFU divides by, where it came from)."""
+    if args.peak_tflops:
+        return args.peak_tflops * 1e12, "--peak-tflops"
+    peaks = roofline.device_peaks(basics.device())
+    return peaks.bf16_flops, peaks.describe()
+
+
+def report(args, tok_s: float, loss: float, n_dev: int,
+           rep: Optional[dict] = None) -> None:
     if basics.rank() != 0:
         return
     flops_tok = model_flops_per_token(args)
     kv = args.kv_heads if args.kv_heads else args.heads
     on_card = basics.device().type == "cuda"
+    peak, source = None, None
     if on_card:
         name, limit = card()
-        mfu = tok_s / n_dev * flops_tok / H100_BF16_PEAK
-        mfu_note = (f"MFU {mfu * 100:.1f}% of the H100's dense bf16 peak "
-                    f"(989 TFLOP/s) on {name}, power limit {limit}")
+        peak, source = peak_flops(args)
+        mfu = tok_s / n_dev * flops_tok / peak
+        mfu_note = (f"MFU {mfu * 100:.1f}% of {peak / 1e12:.1f} TFLOP/s dense "
+                    f"bf16 ({source}) on {name}, power limit {limit}")
     else:
         name, limit, mfu = "cpu", None, None
         mfu_note = "no MFU on the CPU"
@@ -196,10 +207,14 @@ def report(args, tok_s: float, loss: float, n_dev: int) -> None:
           f"bf16_logits={args.bf16_logits}, scan_steps={args.scan_steps}")
     print(f"Tokens/sec on {n_dev} device(s): {tok_s:.0f} "
           f"({tok_s / n_dev:.0f} per device); {mfu_note}; loss {loss:.3f}")
+    if args.profile:
+        print(roofline.format_report(rep) if rep is not None
+              else "roofline: unavailable (no report)")
     if args.json:
         print(json.dumps({
             "metric": "torch_transformer_tokens_per_sec", "value": tok_s,
             "unit": "tok/s", "per_device": tok_s / n_dev, "mfu": mfu,
+            "peak_flops": peak, "peak_source": source,
             "device": name, "power_limit": limit, "devices": n_dev,
             "seq_len": args.seq_len, "remat": args.remat, "loss_chunk": args.loss_chunk,
             "bf16_logits": args.bf16_logits, "scan_steps": args.scan_steps,
@@ -209,8 +224,7 @@ def report(args, tok_s: float, loss: float, n_dev: int) -> None:
 def main(argv=None) -> None:
     args = parse_args(argv)
     try:
-        tok_s, loss, n_dev = measure(args)
-        report(args, tok_s, loss, n_dev)
+        report(args, *measure(args))
     finally:
         basics.shutdown()
 

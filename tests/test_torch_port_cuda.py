@@ -16,7 +16,9 @@ TransformerLM) at full width on four GPUs against one rank
 (tests/torch_port_tp_worker.py); checkpoint and resume over NCCL on four
 GPUs: save and restore with the cross-rank digest, ``save_sharded`` at
 2x2 into 1x4 and flat, and an ``init(comm=[1, 3])`` sub-world
-(tests/torch_port_ckpt_worker.py).
+(tests/torch_port_ckpt_worker.py); ``autotune.tune`` over the ZeRO
+layouts and the ladder of four GPUs laid out 2 x 2, each candidate's
+updates against flat DP's (tests/torch_port_autotune_worker.py).
 
 Needs an NVIDIA Hopper GPU and nvcc; elsewhere every test skips. Run on
 the card with (conftest.py imports jax, which the GPU machine need not
@@ -792,3 +794,25 @@ def test_ckpt_world_save_restore_sharded_and_subworld_over_nccl(ckpt_world):
     n, out = ckpt_world
     print(out)
     assert f"ok ckpt world {n}" in out
+
+
+# ------------------------------------------------------ tuning on four cards
+
+@pytest.fixture(scope="module")
+def autotune_world():
+    return _world("torch_port_autotune_worker.py", 1200, needs=4,
+                  AUTOTUNE_MODE="cuda")
+
+
+def test_autotune_world_meshes_and_ladder_match_flat_dp(autotune_world):
+    """On four cards over NCCL, laid out 2 x 2, the full-width flash
+    TransformerLM: ``autotune.tune`` over ``mesh_shapes=("4x1", "2x2",
+    "1x4")`` (ZeRO) and ``hierarchicals=(False, True)``, and over the flat
+    optimizer with and without the ladder, each candidate's step ms per
+    rank printed; every candidate's updates after 3 steps within 1e-2
+    relative norm of flat DP's, the flat ladder's step-1 gradients within
+    1e-5, ZeRO at 4x1 bit-equal to flat DP and ZeRO 2x2 to the flat
+    ladder (tests/torch_port_autotune_worker.py)."""
+    n, out = autotune_world
+    print(out)
+    assert f"ok autotune world {n}" in out

@@ -17,6 +17,9 @@ from launch_util import REPO
 
 PKG = os.path.join(REPO, "horovod_tpu_torch")
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "horovod_tpu")
+EXAMPLES = [os.path.join(REPO, "examples", f"torch_{name}.py") for name in (
+    "imagenet_resnet50", "mnist", "mnist_advanced", "synthetic_benchmark",
+    "word2vec", "transformer_long_context")]
 
 
 def _sources():
@@ -25,7 +28,7 @@ def _sources():
             if f.endswith(".py"):
                 yield os.path.join(root, f)
     yield os.path.join(REPO, "chip_smoke.py")
-    yield os.path.join(REPO, "examples", "torch_imagenet_resnet50.py")
+    yield from EXAMPLES
 
 
 def test_import_pulls_in_no_jax():
@@ -55,10 +58,15 @@ def test_import_pulls_in_no_jax():
             "horovod_tpu_torch.metrics.registry, "
             "horovod_tpu_torch.metrics.schema, "
             "horovod_tpu_torch.metrics.aggregate, "
-            "horovod_tpu_torch.utils.logging\n"
+            "horovod_tpu_torch.utils.logging, horovod_tpu_torch.autotune, "
+            "horovod_tpu_torch.autotune_gp, horovod_tpu_torch.control, "
+            "horovod_tpu_torch.control.core, "
+            "horovod_tpu_torch.control.training, "
+            "horovod_tpu_torch.utils.roofline, "
+            "horovod_tpu_torch.utils.timeline\n"
             "import runpy\n"
-            "runpy.run_path('examples/torch_imagenet_resnet50.py', "
-            "run_name='not_main')\n"
+            f"for path in {EXAMPLES!r}:\n"
+            "    runpy.run_path(path, run_name='not_main')\n"
             "bad = [m for m in set(sys.modules) - before if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
             "print(json.dumps(sorted(bad)))\n")

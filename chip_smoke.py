@@ -202,7 +202,27 @@ prints no result):
     ``tune(mesh_shapes=("1x1",))``, ZeRO through the factory, eager, 3
     steps a call, bit-equal to the flat candidate, eager on the same plain
     Adam;
-23. the ``{"kernels": [...]}`` line (all six kernels, each with its
+23. the launcher and elastic training (world of one over NCCL): the run
+    that never stopped, in this process (``train.setup``, 5 steps of phase
+    4's model and batch, losses held to phase 4's bit for bit, parameters
+    kept on the host); ``python -m horovod_tpu_torch.runner --check-build``
+    printed; (a) ``python -m horovod_tpu_torch.runner -np 1 -- python
+    chip_smoke.py --launched-worker ...`` (``run_command``, the CLI's
+    path): the worker's ``init()`` from the launcher's env and 3 steps of
+    the same model, its losses bit-equal to the first 3, its B1-B3
+    launches, the seconds from the launch to its exit; (b)
+    ``run_elastic(num_proc=1)`` of ``elastic_worker``: the model, its
+    ``DistributedOptimizer`` and ``step`` in an
+    ``ElasticState(checkpoint_dir=...)`` with a checkpoint every 3rd
+    commit, the worker killed at step 2's commit, after its checkpoint
+    (``HOROVOD_FAULT_INJECT_STEP``), respawned by the driver (blacklist
+    threshold 2), cold-started by ``load_checkpoint()``: it must resume
+    from step 2 (raising at 0), its remaining losses and final parameters
+    bit-equal to the run that never stopped; the commits' seconds (the
+    host snapshot of 216,556,544 parameters and Adam's moments), the
+    driver's generations, the failure-to-resumed seconds, the phase's
+    seconds;
+24. the ``{"kernels": [...]}`` line (all six kernels, each with its
     launches on every path above; phases 10 and 14 run none of them),
     then ``{"ok": true, ...}`` last.
 
@@ -2966,6 +2986,247 @@ def tuning_phase(torch, fa, rf, basics, train_mod, card, dev, paths) -> None:
     zero_tune(torch, fa, rf, basics, train_mod, dev, paths)
 
 
+LAUNCH_STEPS = 3
+ELASTIC_STEPS = 5
+ELASTIC_FAULT_STEP = 2
+# The construction is commit 1 and step i's commit is commit i + 1, so the
+# 3rd commit, step 2's, writes the checkpoint the worker is killed after.
+ELASTIC_CKPT_EVERY = 3
+
+
+def launched_worker(out: str) -> int:
+    """23a's worker, started by ``python -m horovod_tpu_torch.runner``:
+    ``init()`` from the launcher's env, ``LAUNCH_STEPS`` steps of phase 4's
+    model and batch; its losses and launches go to ``out`` (JSON)."""
+    from horovod_tpu_torch import train as train_mod
+    from horovod_tpu_torch.common import basics
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    config = train_mod.TrainConfig()
+    s = train_mod.setup(config, "cuda")
+    tokens = train_mod.make_batch(config, basics.rank(), basics.device())
+    fa.reset_launches()
+    losses = [s.step(tokens).item() for _ in range(LAUNCH_STEPS)]
+    with open(out, "w") as f:
+        json.dump({"losses": losses, "launches": dict(fa.launches),
+                   "rank": basics.rank(), "size": basics.size(),
+                   "coord_addr": os.environ.get("HOROVOD_COORD_ADDR")}, f)
+    basics.shutdown()
+    return 0
+
+
+def elastic_worker(ckpt_dir: str, out: str) -> dict:
+    """23b's training function, shipped by ``run_elastic`` by reference
+    (``chip_smoke.elastic_worker``): phase 4's model and batch under
+    ``hvd.elastic.run``, a commit after every step, a checkpoint every
+    ``ELASTIC_CKPT_EVERY``-th commit; a respawned worker cold-starts from
+    the checkpoint. The model and its optimizer are built without a
+    collective (a joiner meets the others first in ``ElasticState.sync``).
+    Writes the final parameters to ``out``; returns its losses, the step it
+    resumed from, the load's and each commit's seconds, the wall-clock
+    time it resumed at and its B1-B3 launches."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import train as train_mod
+    from horovod_tpu_torch.convert import jax_ordered
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    hvd.init("cuda")
+    dev = hvd.device()
+    config = train_mod.TrainConfig()
+    model = train_mod.build_model(config, dev)
+    opt = hvd.DistributedOptimizer(train_mod.adam(model.parameters(), config),
+                                   jax_ordered(model.named_parameters()))
+    step = train_mod.make_train_step(model, opt)
+    tokens = train_mod.make_batch(config, hvd.rank(), dev)
+    state = hvd.elastic.ElasticState(
+        checkpoint_dir=ckpt_dir, checkpoint_every=ELASTIC_CKPT_EVERY,
+        model=model, opt=opt, step=0, losses=[])
+    t0 = time.perf_counter()
+    resumed = state.load_checkpoint()
+    load_s = time.perf_counter() - t0
+    resumed_step = int(state.step) if resumed else 0
+    resumed_at = time.time()
+    fa.reset_launches()
+    commits = []
+
+    @hvd.elastic.run
+    def train(state):
+        while state.step < ELASTIC_STEPS:
+            state.losses = state.losses + [step(tokens).item()]
+            state.step += 1
+            torch.cuda.synchronize(dev)
+            t = time.perf_counter()
+            state.commit()
+            commits.append((int(state.step), time.perf_counter() - t))
+        return state.step
+
+    train(state)
+    torch.save({n: p.detach().cpu() for n, p in model.named_parameters()}, out)
+    return {"losses": list(state.losses), "resumed_step": resumed_step,
+            "load_s": load_s, "resumed_at": resumed_at, "commits": commits,
+            "launches": dict(fa.launches), "rank": hvd.rank(),
+            "generation": int(os.environ.get("HOROVOD_ELASTIC_GENERATION", 0))}
+
+
+def launcher_env() -> dict:
+    """This process's env for the launched workers, with the repo on their
+    path and no launched-world identity of its own."""
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    for k in ("HOROVOD_RANK", "HOROVOD_SIZE", "HOROVOD_LOCAL_RANK",
+              "HOROVOD_LOCAL_SIZE", "MASTER_ADDR", "MASTER_PORT",
+              "HOROVOD_COORD_ADDR", "RANK", "WORLD_SIZE"):
+        env.pop(k, None)
+    return env
+
+
+def launched_run(config, tmp, want_losses, card, paths, check_build) -> None:
+    """23a: ``--check-build``'s output (``check_build``, a running
+    process), then one worker through the CLI."""
+    env = launcher_env()
+    stdout, stderr = check_build.communicate(timeout=300)
+    if check_build.returncode != 0:
+        raise AssertionError(f"--check-build failed:\n{stderr[-3000:]}")
+    for line in stdout.splitlines():
+        log(f"  | {line}")
+    out = os.path.join(tmp, "launched.json")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "horovod_tpu_torch.runner", "-np", "1", "--",
+         sys.executable, os.path.abspath(__file__), "--launched-worker", out],
+        env=env, capture_output=True, text=True, timeout=600)
+    launch_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"the launched worker failed ({proc.returncode}):"
+                             f"\n{proc.stderr[-3000:]}")
+    with open(out) as f:
+        got = json.load(f)
+    log(f"  (23a) python -m horovod_tpu_torch.runner -np 1: rank {got['rank']} "
+        f"of {got['size']} at {got['coord_addr']}, losses {got['losses']} vs "
+        f"{want_losses[:LAUNCH_STEPS]}; launch to exit {launch_s:.1f} s ({card})")
+    if got["size"] != 1 or got["losses"] != want_losses[:LAUNCH_STEPS]:
+        raise AssertionError("the launched worker's losses are not bit-equal "
+                             "to the in-process run's")
+    counts = {k: got["launches"].get(k, 0) for k in {**KERNELS, **RING_KERNELS}}
+    hold_counts("in the launched worker", counts,
+                {k: config.layers * LAUNCH_STEPS for k in KERNELS})
+    paths[f"23a: {LAUNCH_STEPS} steps in the worker that "
+          f"python -m horovod_tpu_torch.runner launched"] = counts
+
+
+def elastic_run(torch, config, tmp, want_losses, want_params, card,
+                paths) -> None:
+    """23b: the elastic job, killed after a checkpointed commit, respawned,
+    resumed from the checkpoint."""
+    import importlib
+
+    from horovod_tpu_torch.runner import run_elastic
+
+    # Shipped by reference: the workers import chip_smoke from their path.
+    worker = importlib.import_module("chip_smoke").elastic_worker
+    events = os.path.join(tmp, "events.jsonl")
+    out = os.path.join(tmp, "elastic_params.pt")
+    saved = dict(os.environ)
+    os.environ.clear()
+    os.environ.update(launcher_env())
+    try:
+        results = run_elastic(
+            worker, args=(os.path.join(tmp, "ckpt"), out),
+            num_proc=1, timeout=900,
+            env={"HOROVOD_FAULT_INJECT_STEP": str(ELASTIC_FAULT_STEP),
+                 "HOROVOD_FAULT_INJECT_INDEX": "0",
+                 "HOROVOD_ELASTIC_BLACKLIST_THRESHOLD": "2",
+                 "HOROVOD_CKPT_ASYNC": "0",
+                 "HOROVOD_ELASTIC_EVENT_LOG": events})
+    finally:
+        os.environ.clear()
+        os.environ.update(saved)
+    (got,) = results
+    with open(events) as f:
+        log_events = [json.loads(line) for line in f]
+    failed = [e for e in log_events if e["event"] == "worker_failed"]
+    gens = [e["generation"] for e in log_events
+            if e["event"] == "rendezvous_complete"]
+    log(f"  (23b) run_elastic(num_proc=1): driver events "
+        f"{[e['event'] for e in log_events]}; generations {gens}")
+    log(f"  respawned worker resumed from step {got['resumed_step']} "
+        f"(load_checkpoint {got['load_s']:.3f} s), losses {got['losses']} vs "
+        f"{want_losses}")
+    if got["resumed_step"] <= 0:
+        raise AssertionError("the respawned worker did not resume from the "
+                             "checkpoint (step 0)")
+    if len(failed) != 1 or gens != [1, 2]:
+        raise AssertionError(f"expected one failure and generations [1, 2]: "
+                             f"{failed}, {gens}")
+    recovered = got["resumed_at"] - failed[0]["time_unix_s"]
+    commits = ", ".join(f"step {st} {sec:.3f} s" for st, sec in got["commits"])
+    n_params = sum(p.numel() for p in want_params.values())
+    log(f"  commits (host snapshot of {n_params:,} "
+        f"parameters and Adam's moments; step "
+        f"{ELASTIC_CKPT_EVERY} also writes the checkpoint): {commits}; "
+        f"failure seen by the driver to resumed from the checkpoint "
+        f"{recovered:.1f} s ({card})")
+    params = torch.load(out, weights_only=True)
+    differ = [k for k in want_params if not torch_equal(params[k], want_params[k])]
+    log(f"  final parameters: {len(differ)} of {len(want_params)} differ from "
+        f"the run that never stopped")
+    if got["losses"] != want_losses or differ:
+        raise AssertionError(f"the resumed elastic run is not bit-equal to the "
+                             f"run that never stopped ({differ[:5]})")
+    counts = {k: got["launches"].get(k, 0) for k in {**KERNELS, **RING_KERNELS}}
+    resumed = ELASTIC_STEPS - got["resumed_step"]
+    hold_counts("in the respawned elastic worker", counts,
+                {k: config.layers * resumed for k in KERNELS})
+    paths[f"23b: {resumed} steps of the elastic worker respawned after the "
+          f"fault"] = counts
+
+
+def launcher_phase(torch, fa, rf, basics, train_mod, card, paths,
+                   want_losses) -> None:
+    """Phase 23, on phase 4's model."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    config = train_mod.TrainConfig()
+    # --check-build probes the GPUs in a child of its own: it runs beside
+    # the in-process steps, which it does not time.
+    check_build = subprocess.Popen(
+        [sys.executable, "-m", "horovod_tpu_torch.runner", "--check-build"],
+        env=launcher_env(), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    try:
+        basics.shutdown()
+        s = train_mod.setup(config, "cuda")
+        dev = basics.device()
+        tokens = train_mod.make_batch(config, 0, dev)
+        read_counts(fa, rf)
+        losses = [s.step(tokens).item() for _ in range(ELASTIC_STEPS)]
+        counts = read_counts(fa, rf)
+        want_params = {n: p.detach().cpu()
+                       for n, p in s.model.named_parameters()}
+        log(f"  the run that never stopped, in this process: losses {losses}")
+        if want_losses is not None and \
+                losses != list(want_losses[:ELASTIC_STEPS]):
+            raise AssertionError(f"the in-process run's losses {losses} are "
+                                 f"not phase 4's {want_losses}")
+        hold_counts(f"{ELASTIC_STEPS} steps in this process", counts,
+                    {k: config.layers * ELASTIC_STEPS for k in KERNELS})
+        paths[f"23: {ELASTIC_STEPS} steps of the run that never stopped"] = counts
+        del s, tokens
+        basics.shutdown()
+        gc.collect()
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory() as tmp:
+            launched_run(config, tmp, losses, card, paths, check_build)
+            elastic_run(torch, config, tmp, losses, want_params, card, paths)
+    finally:
+        if check_build.poll() is None:
+            check_build.kill()
+            check_build.communicate()
+    log(f"  phase 23 took {time.perf_counter() - t_phase:.1f} s ({card})")
+
+
 def config_label(config) -> str:
     return "TrainConfig(sp=1)" if config.sp else "TrainConfig()"
 
@@ -3157,6 +3418,12 @@ def main() -> int:
         f"timeline's device pane, ZeRO 1x1 through the tuner")
     tuning_phase(torch, fa, rf, basics, train_mod, card, dev, paths)
 
+    log("[23] the launcher and elastic training at full width: the CLI's "
+        "run_command of a worker, run_elastic killed after a checkpointed "
+        "commit and respawned, each bit-equal to the run that never stopped")
+    launcher_phase(torch, fa, rf, basics, train_mod, card, paths,
+                   result.losses)
+
     kernels = []
     for source, names in SOURCES.items():
         for kname in names:
@@ -3181,4 +3448,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--launched-worker"]:
+        sys.exit(launched_worker(sys.argv[2]))
     sys.exit(main())

@@ -5,7 +5,7 @@ on restore, output on rank 0).
 
     torchrun --nproc-per-node 2 examples/torch_imagenet_resnet50.py \
         --epochs 4 --checkpoint-dir /tmp/cktorch
-    python -m horovod_tpu.runner -np 2 -- \
+    python -m horovod_tpu_torch.runner -np 2 -- \
         python examples/torch_imagenet_resnet50.py --device cpu
 
 It runs on the card by default (``--device cpu`` for the CPU). The model,

@@ -8,7 +8,7 @@ Runs on synthetic digits (nothing is downloaded), on the card unless
 ``--device cpu``:
 
     torchrun --nproc-per-node 2 examples/torch_mnist.py
-    python -m horovod_tpu.runner -np 2 -- python examples/torch_mnist.py --device cpu
+    python -m horovod_tpu_torch.runner -np 2 -- python examples/torch_mnist.py --device cpu
 
 Each rank trains on its slice of a global batch of 32 per rank; rank 0
 prints the rank-averaged loss of each epoch.

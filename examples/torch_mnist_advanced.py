@@ -9,7 +9,7 @@ epoch-end metrics are averaged with ``metric_average``; the augmentation
 is a random shift of up to 2 pixels on the host. Synthetic digits,
 nothing downloaded; on the card unless ``--device cpu``:
 
-    python -m horovod_tpu.runner -np 2 -- \
+    python -m horovod_tpu_torch.runner -np 2 -- \
         python examples/torch_mnist_advanced.py --device cpu
 """
 

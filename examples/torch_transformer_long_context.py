@@ -11,7 +11,7 @@ consecutive ranks; each ring trains on its own batch.
 
     torchrun --nproc-per-node 4 examples/torch_transformer_long_context.py \
         --dp 2 --seq-len 8192
-    python -m horovod_tpu.runner -np 2 -- python \
+    python -m horovod_tpu_torch.runner -np 2 -- python \
         examples/torch_transformer_long_context.py --dp 1 --device cpu \
         --seq-len 256 --dim 64 --layers 2 --dtype float32
 """

@@ -12,7 +12,7 @@ as the JAX example's devices share it, so for the same world size the two
 train the same tables on the same data. On the card unless ``--device
 cpu``:
 
-    python -m horovod_tpu.runner -np 2 -- \
+    python -m horovod_tpu_torch.runner -np 2 -- \
         python examples/torch_word2vec.py --device cpu
 """
 

@@ -32,6 +32,11 @@ the step path; ``callbacks`` holds the Keras-style warmup, metric
 averaging and broadcast callbacks; ``broadcast_object`` and
 ``allgather_object`` move picklable objects.
 
+``python -m horovod_tpu_torch.runner`` launches a job (``runner``: ``run``,
+``run_command``, ``run_elastic``, remote hosts through ``hvd-agent``);
+``elastic`` keeps a job of the flat exchange alive across the loss of a
+worker (``ElasticState``, ``elastic.run``), re-forming the world.
+
 ``autotune.tune`` measures the exchange's knobs by rebuilding the step
 per candidate (``train.TuneStepFactory``); ``control.TrainingController``
 retunes them while a job runs, through ``train.TrainRecapture``'s
@@ -43,7 +48,7 @@ The flash-attention kernels (``ops/flash_attention.py``) are CUDA C++
 built from ``csrc/`` on first use.
 """
 
-from . import callbacks, checkpoint, metrics
+from . import callbacks, checkpoint, elastic, metrics, runner
 from .common.basics import (HorovodInternalError, cross_rank, cross_size,
                             device, init, is_initialized, local_rank,
                             local_size, rank, shutdown, size)
@@ -69,7 +74,7 @@ __all__ = [
     "allgather_object", "allreduce", "alltoall", "broadcast",
     "broadcast_object", "broadcast_optimizer_state", "broadcast_parameters",
     "broadcast_sharded_state", "bucketed_allreduce", "callbacks",
-    "checkpoint", "cross_rank",
+    "checkpoint", "cross_rank", "elastic", "runner",
     "cross_size", "device", "grouped_allreduce", "hierarchical_allgather",
     "hierarchical_allreduce", "hierarchical_groups", "init", "is_initialized",
     "local_rank", "local_size", "metric_average", "metrics", "parse_mesh_spec",

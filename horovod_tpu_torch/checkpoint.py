@@ -49,7 +49,6 @@ a process that never calls ``init()``.
 from __future__ import annotations
 
 import hashlib
-import itertools
 import os
 import shutil
 from datetime import timedelta
@@ -385,23 +384,52 @@ def save_local(path: str, state: Any, step: Optional[int] = None) -> None:
 
 def _barrier() -> None:
     dev = basics.device()
-    if dev.type == "cuda":
-        dist.barrier(device_ids=[dev.index])
-    else:
-        dist.barrier()
+    with collectives.backend_errors("checkpoint barrier"):
+        if dev.type == "cuda":
+            dist.barrier(device_ids=[dev.index])
+        else:
+            dist.barrier()
+
+
+def _verify_timeout() -> float:
+    return float(os.environ.get("HOROVOD_CKPT_VERIFY_TIMEOUT", "120"))
+
+
+def _store_barrier() -> None:
+    """``save``'s completion wait under HOROVOD_ELASTIC, where the process
+    group's timeout is the stall time, which a large commit may outlast:
+    rank 0 sets a key of the rendezvous store once its commit is done, and
+    the other ranks wait for it at most ``HOROVOD_CKPT_VERIFY_TIMEOUT``
+    seconds (default 120)."""
+    key = f"ckpt.saved.{basics.world_sequence()}"
+    store = basics.store()
+    if basics.rank() == 0:
+        store.set(key, "1")
+        return
+    timeout = _verify_timeout()
+    try:
+        store.wait([key], timedelta(seconds=timeout))
+    except RuntimeError as exc:
+        raise HorovodInternalError(
+            f"rank 0's checkpoint commit did not complete within "
+            f"{timeout:.0f}s (HOROVOD_CKPT_VERIFY_TIMEOUT)") from exc
 
 
 def save(path: str, state: Any, step: Optional[int] = None, force: bool = True) -> None:
-    """Write a checkpoint from rank 0 only; the other ranks wait in a
-    barrier until rank 0's commit is done (the reference's contract: 'save
-    checkpoints only on worker 0 to prevent other workers from corrupting
-    them'). Not initialized means a process of its own, which writes.
-    ``force`` is accepted as the JAX package's is: a commit always
+    """Write a checkpoint from rank 0 only; the other ranks wait until rank
+    0's commit is done (the reference's contract: 'save checkpoints only on
+    worker 0 to prevent other workers from corrupting them'): in a barrier
+    of the world, or under HOROVOD_ELASTIC on a key of the rendezvous store
+    (``_store_barrier``). Not initialized means a process of its own, which
+    writes. ``force`` is accepted as the JAX package's is: a commit always
     replaces the checkpoint at ``path``."""
     if not basics.is_initialized() or basics.rank() == 0:
         save_local(path, state, step)
     if basics.is_initialized() and basics.size() > 1:
-        _barrier()
+        if basics.config().elastic:
+            _store_barrier()
+        else:
+            _barrier()
 
 
 def _device(device) -> torch.device:
@@ -457,11 +485,6 @@ def _digest(state: Any) -> str:
     return h.hexdigest()
 
 
-# Calls of the digest exchange in this process: every rank restores in the
-# same order, so the n-th call of each rank meets the others' n-th.
-_digest_calls = itertools.count()
-
-
 def _verify_cross_rank_digest(state: Any, tag: str) -> None:
     """Every rank's SHA-256 of the restored state, exchanged through the
     world's rendezvous store (``basics.store``) with a wait bounded by
@@ -472,11 +495,11 @@ def _verify_cross_rank_digest(state: Any, tag: str) -> None:
     if not basics.is_initialized() or basics.size() == 1:
         return
     mine = _digest(state)
-    base = f"ckpt.digest.{next(_digest_calls)}.{tag}"
+    base = f"ckpt.digest.{basics.world_sequence()}.{tag}"
     keys = [f"{base}.{r}" for r in range(basics.size())]
     store = basics.store()
     store.set(keys[basics.rank()], mine)
-    timeout = float(os.environ.get("HOROVOD_CKPT_VERIFY_TIMEOUT", "120"))
+    timeout = _verify_timeout()
     try:
         store.wait(keys, timedelta(seconds=timeout))
     except RuntimeError as exc:

@@ -17,11 +17,25 @@ re-indexed (rank ``ranks.index(rank)``, size ``len(ranks)``), the member at
 ``ranks[0]`` becomes rank 0 and hosts the rendezvous, and each member sees
 the one-rank-per-host view (local rank 0, local size 1). The GPU is still
 chosen by the launched local rank, before the re-indexing: two members on
-one host would otherwise both take ``cuda:0``, which NCCL refuses.
+one host would otherwise both take ``cuda:0``, which NCCL refuses. The
+elastic launcher pins each worker to its slot's GPU with
+``HOROVOD_DEVICE_ORDINAL``, so a worker keeps its card across resets.
+
+Under ``HOROVOD_ELASTIC=1`` (set by the elastic launcher) the world may be
+torn down and formed again in one process (``elastic/run.py``): a
+collective waits for a peer at most ``HOROVOD_STALL_SHUTDOWN_TIME`` seconds
+(the process group's timeout); on NCCL its wait then raises in the caller
+(``TORCH_NCCL_BLOCKING_WAIT``) and the watchdog neither aborts nor kills
+the process (``TORCH_NCCL_ASYNC_ERROR_HANDLING=0``, the heartbeat monitor
+off), so the reset path can abort the communicators itself
+(``shutdown(abort=True)``). The layouts a reset cannot carry refuse to
+build there (``require_not_elastic``).
 """
 
 from __future__ import annotations
 
+import errno
+import itertools
 import os
 import threading
 from datetime import timedelta
@@ -51,6 +65,8 @@ class _State:
         self.topology: Optional[Topology] = None
         self.config: Optional[Config] = None
         self.device: Optional[torch.device] = None
+        # The draws of ``world_sequence``, from 0 in every world.
+        self.sequence = itertools.count()
 
 
 _state = _State()
@@ -71,6 +87,30 @@ def resolve_device(device=None) -> torch.device:
 
 # How long a rank waits for the others at rendezvous and in a collective.
 _TIMEOUT = timedelta(minutes=10)
+# How long rank 0 keeps retrying the rendezvous store's bind while its port
+# is still held (EADDRINUSE), as the JAX package's coordinator does.
+_BIND_RETRY_S = 15.0
+# NCCL's settings under HOROVOD_ELASTIC (env defaults, set before the
+# process group is made): a wait past the timeout raises in the caller, and
+# no watchdog tears the process down.
+_ELASTIC_NCCL_ENV = {
+    "TORCH_NCCL_BLOCKING_WAIT": "1",
+    "TORCH_NCCL_ASYNC_ERROR_HANDLING": "0",
+    "TORCH_NCCL_ENABLE_MONITORING": "0",
+    "TORCH_NCCL_DUMP_ON_TIMEOUT": "0",
+}
+
+
+def require_not_elastic(what: str) -> None:
+    """Raise when ``what`` is built under HOROVOD_ELASTIC=1: an elastic
+    reset re-forms only the world and the flat exchange, so a layout with
+    groups of its own, or a captured graph, cannot cross one."""
+    if os.environ.get("HOROVOD_ELASTIC") == "1":
+        raise ValueError(
+            f"{what} does not survive an elastic reset: under "
+            "HOROVOD_ELASTIC=1 the port supports the flat data-parallel "
+            "exchange (with or without HOROVOD_LATENCY_HIDING) on the eager "
+            "step only (ROADMAP.md queue A)")
 
 
 def _rendezvous(topo: Topology) -> dict:
@@ -128,6 +168,32 @@ def _subworld(topo: Topology, comm) -> Topology:
                     cross_rank=me, cross_size=len(ranks))
 
 
+def _init_process_group(backend: str, topo: Topology, timeout) -> None:
+    """``init_process_group`` at ``_rendezvous``'s address. Rank 0 of a
+    launched world binds the store there, and retries while the port is
+    still held (a re-rendezvous binds moments after a previous server
+    closed); a failure of the backend raises ``HorovodInternalError``."""
+    from ..parallel.collectives import backend_errors
+    from .resilience import bind_with_retry
+
+    rendezvous = _rendezvous(topo)
+
+    def bind(_port):
+        try:
+            dist.init_process_group(backend, **rendezvous, rank=topo.rank,
+                                    world_size=topo.size, timeout=timeout)
+        except dist.DistNetworkError as e:
+            if "EADDRINUSE" in str(e):
+                raise OSError(errno.EADDRINUSE, str(e)) from e
+            raise
+
+    with backend_errors("init"):
+        if topo.rank == 0 and "init_method" in rendezvous:
+            bind_with_retry(bind, 0, deadline_s=_BIND_RETRY_S)
+        else:
+            bind(0)
+
+
 def init(device=None, comm: Optional[Sequence[int]] = None) -> None:
     """Join the job. ``device`` is ``"cuda"`` (default) or ``"cpu"``; the
     backend follows it (NCCL or gloo). ``comm``, a list of launched ranks,
@@ -139,31 +205,49 @@ def init(device=None, comm: Optional[Sequence[int]] = None) -> None:
         device = resolve_device(device)
         launched = detect()
         topo = launched if comm is None else _subworld(launched, comm)
+        config = Config.from_env()
+        timeout = _TIMEOUT
+        if config.elastic and config.stall_shutdown_s > 0:
+            timeout = timedelta(seconds=config.stall_shutdown_s)
         if device.type == "cuda":
-            if launched.local_rank >= torch.cuda.device_count():
+            ordinal = int(os.environ.get("HOROVOD_DEVICE_ORDINAL",
+                                         launched.local_rank))
+            if ordinal >= torch.cuda.device_count():
                 raise RuntimeError(
-                    f"local rank {launched.local_rank} has no GPU: "
-                    f"{torch.cuda.device_count()} visible")
-            torch.cuda.set_device(launched.local_rank)
-            device = torch.device("cuda", launched.local_rank)
-        dist.init_process_group(
-            "nccl" if device.type == "cuda" else "gloo",
-            **_rendezvous(topo), rank=topo.rank,
-            world_size=topo.size, timeout=_TIMEOUT)
+                    f"local rank {launched.local_rank} (device ordinal "
+                    f"{ordinal}) has no GPU: {torch.cuda.device_count()} visible")
+            torch.cuda.set_device(ordinal)
+            device = torch.device("cuda", ordinal)
+            if config.elastic:
+                for k, v in _ELASTIC_NCCL_ENV.items():
+                    os.environ.setdefault(k, v)
+        _init_process_group("nccl" if device.type == "cuda" else "gloo",
+                            topo, timeout)
         _state.topology = topo
-        _state.config = Config.from_env()
+        _state.config = config
         _state.device = device
+        _state.sequence = itertools.count()
 
 
-def shutdown() -> None:
-    """Leave the job; ``init()`` may be called again afterwards."""
+def shutdown(abort: bool = False) -> None:
+    """Leave the job: every process group the port made (the world, and the
+    groups of ``parallel.mesh``) and the rendezvous store go with it;
+    ``init()`` may be called again afterwards. ``abort`` (the elastic
+    reset's teardown of a world that lost a peer) aborts NCCL's
+    communicators first, so that no collective still waiting for the dead
+    peer holds the teardown."""
     with _state.lock:
         if _state.topology is None:
             return
-        dist.destroy_process_group()
-        _state.topology = None
-        _state.config = None
-        _state.device = None
+        try:
+            if abort and dist.get_backend() == "nccl":
+                dist.distributed_c10d._abort_process_group()
+            else:
+                dist.destroy_process_group()
+        finally:
+            _state.topology = None
+            _state.config = None
+            _state.device = None
 
 
 def is_initialized() -> bool:
@@ -217,3 +301,12 @@ def store() -> dist.Store:
     (a collective on the device does not)."""
     _topo()
     return dist.distributed_c10d._get_default_store()
+
+
+def world_sequence() -> int:
+    """The next number of a count that every rank of this world draws in
+    the same order, from 0 in every world ``init`` forms: it names the store
+    keys of an exchange every rank makes, so that a worker which joined a
+    re-formed world (elastic) meets the survivors' keys."""
+    _topo()
+    return next(_state.sequence)

@@ -3,7 +3,8 @@
 The subset of ``horovod_tpu.common.config`` that the PyTorch port's data
 plane reads: the fusion threshold, the bucket count, the wire compression,
 the hierarchical ladder's switch and DCN-tier bucket cap, the sharded
-layout and the latency-hiding switch, with the
+layout, the latency-hiding switch, and the elastic switch with the stall
+time that bounds a collective's wait under it, with the
 same env knobs and the same defaults, so one env var tunes both packages
 the same way. Three knobs are read where the JAX package's compiled plane
 reads them, when the wires are chosen: HOROVOD_DCN_COMPRESSION
@@ -35,6 +36,16 @@ def _env_int(name: str, default: int) -> int:
         return default
     try:
         return int(v)
+    except ValueError:
+        return default
+
+
+def _env_float(name: str, default: float) -> float:
+    v = os.environ.get(name)
+    if v is None or v == "":
+        return default
+    try:
+        return float(v)
     except ValueError:
         return default
 
@@ -83,6 +94,13 @@ class Config:
     # starts each bucket's exchange from the gradient hooks as soon as the
     # bucket's last gradient lands (optimizer.py).
     latency_hiding: bool = False                        # HOROVOD_LATENCY_HIDING
+    # Set by the elastic launcher in its workers' env: the world may be
+    # torn down and re-formed (elastic/run.py), so the layouts that it
+    # cannot carry across a reset refuse to build.
+    elastic: bool = False                               # HOROVOD_ELASTIC
+    # Seconds a collective may wait for a peer before it fails: the
+    # process group's timeout under HOROVOD_ELASTIC (0: the default).
+    stall_shutdown_s: float = 0.0                       # HOROVOD_STALL_SHUTDOWN_TIME
 
     @classmethod
     def from_env(cls) -> "Config":
@@ -101,4 +119,7 @@ class Config:
             mesh=os.environ.get("HOROVOD_MESH", "").strip(),
             shard_params=_env_bool("HOROVOD_SHARD_PARAMS"),
             latency_hiding=_env_bool("HOROVOD_LATENCY_HIDING"),
+            elastic=os.environ.get("HOROVOD_ELASTIC") == "1",
+            stall_shutdown_s=max(0.0, _env_float("HOROVOD_STALL_SHUTDOWN_TIME",
+                                                 0.0)),
         )

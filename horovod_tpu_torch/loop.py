@@ -25,6 +25,7 @@ import time
 
 import torch
 
+from .common import basics
 from .data import DeviceCache
 
 WARMUP_STEPS = 3
@@ -170,4 +171,5 @@ def make_scan_train_loop(train_step, cache: DeviceCache,
     ``torch.optim`` one), whose parameters and state the warm-up restores;
     on the card build ``torch.optim.Adam`` with ``capturable=True``.
     """
+    basics.require_not_elastic("make_scan_train_loop() (the CUDA-graphed loop)")
     return ScanTrainLoop(train_step, cache, steps_per_dispatch, optimizer)

@@ -45,6 +45,10 @@ bit. A gradient must be final when it lands: code that changes ``.grad``
 after the backward pass does so in a tensor hook instead
 (``models/pipeline_lm.py`` sums its outer leaves over the pipeline that
 way).
+
+Under HOROVOD_ELASTIC the optimizer takes the flat exchange over the world
+only (``group=None``, neither hierarchical nor sharded), and
+``reset_exchange`` makes it fit for the next world after an elastic reset.
 """
 
 from __future__ import annotations
@@ -175,6 +179,10 @@ class DistributedOptimizer:
         self.group = group
         self._passes = 0
         self.sharded = _resolved_sharded(sharded)
+        if self.sharded or group is not None:
+            basics.require_not_elastic(
+                "DistributedOptimizer(sharded=True)" if self.sharded
+                else "DistributedOptimizer(group=...) (the tp, pp and sp layouts)")
         owned = [p for g in optimizer.param_groups for p in g["params"]]
         if self.sharded:
             self._init_sharded(owned, shard_plan, layout)
@@ -202,6 +210,8 @@ class DistributedOptimizer:
             raise ValueError(
                 "named_parameters must list exactly the optimizer's parameters")
         self.hierarchical = _resolved_hierarchical(hierarchical, self.op)
+        if self.hierarchical:
+            basics.require_not_elastic("DistributedOptimizer(hierarchical=True)")
         self.groups, pad_to = None, 1
         threshold = self.threshold
         if self.hierarchical:
@@ -278,6 +288,21 @@ class DistributedOptimizer:
         for handle in self._hooks:
             handle.remove()
         self._hooks = []
+
+    def reset_exchange(self) -> None:
+        """Make the exchange fit for a new world (an elastic reset): drop
+        every bucket in flight and every gradient, count no pass, and launch
+        in plan order until the first exchange agrees the order again over
+        the new world. The plan stays: the flat plan and its wires depend
+        on the parameters, not on the world's size, and the divisor of
+        AVERAGE is read from the world at each launch."""
+        for p in self.params:
+            p.grad = None
+        self._passes = 0
+        self.last_launches = []
+        self.launch_order = list(range(self.plan.num_buckets))
+        self._agreed = not self.latency_hiding or self.plan.num_buckets < 2
+        self._reset()
 
     def _reset(self) -> None:
         self._seen = [0] * len(self.params)         # passes landed, per leaf

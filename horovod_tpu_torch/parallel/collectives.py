@@ -14,10 +14,19 @@ reduction is issued through ``torch.distributed``, also in a group of one,
 so the single-card run takes the same path as a multi-card one; a
 ``ppermute`` in a group of one makes no call at all (NCCL does not send to
 itself).
+
+A failure of the backend — a peer gone (gloo fails the next collective at
+once), a wait past the process group's timeout (NCCL under
+``HOROVOD_ELASTIC``) — raises ``HorovodInternalError`` from every function
+here, where the collective is issued or waited on (``backend_errors``):
+the one exception ``elastic.run`` heals by a reset. Any other error keeps
+its type.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
 from enum import Enum
 from typing import Optional, Sequence
 
@@ -46,7 +55,41 @@ _DIST_OPS = {
 
 Group = Optional[dist.ProcessGroup]
 
+# How a failed backend shows in a plain RuntimeError, where torch does not
+# raise one of torch.distributed's DistError types (gloo's transport: "...
+# gloo/transport/tcp/pair.cc:... Connection closed by peer ...").
+_BACKEND_FAILURES = ("gloo/transport", "Connection closed by peer",
+                     "Connection reset by peer", "NCCL communicator",
+                     "NCCL error")
 
+
+@contextlib.contextmanager
+def backend_errors(what: str):
+    """Raise a failure of the collective backend inside the block as
+    ``HorovodInternalError`` (the original chained), naming ``what``."""
+    try:
+        yield
+    except basics.HorovodInternalError:
+        raise
+    except RuntimeError as e:
+        if not isinstance(e, dist.DistError) and \
+                not any(m in str(e) for m in _BACKEND_FAILURES):
+            raise
+        raise basics.HorovodInternalError(
+            f"{what}: the collective backend failed, a peer is gone or did "
+            f"not take part in time ({type(e).__name__}: {e})") from e
+
+
+def _backend_errors(fn):
+    """``fn`` with ``backend_errors`` around it."""
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        with backend_errors(fn.__name__):
+            return fn(*args, **kwargs)
+    return wrapper
+
+
+@_backend_errors
 def allreduce_(tensor: torch.Tensor, op: ReduceOp = ReduceOp.AVERAGE,
                group: Group = None) -> torch.Tensor:
     """Allreduce ``tensor`` over ``group`` in place and return it."""
@@ -65,12 +108,14 @@ class Pending:
         self.work, self.tensor, self.divisor = work, tensor, divisor
 
     def wait(self) -> torch.Tensor:
-        self.work.wait()
+        with backend_errors("allreduce wait"):
+            self.work.wait()
         if self.divisor is not None:
             self.tensor.div_(self.divisor)
         return self.tensor
 
 
+@_backend_errors
 def allreduce_async_(tensor: torch.Tensor, op: ReduceOp = ReduceOp.AVERAGE,
                      group: Group = None) -> Pending:
     """``allreduce_`` issued with ``async_op=True``: nothing waits for it
@@ -107,6 +152,7 @@ def _global(group: Group, rank: int) -> int:
     return rank if group is None else dist.get_global_rank(group, rank)
 
 
+@_backend_errors
 def broadcast(tensor: torch.Tensor, root_rank: int = 0,
               group: Group = None) -> torch.Tensor:
     """Overwrite ``tensor`` with the value of ``root_rank`` (a rank within
@@ -115,6 +161,7 @@ def broadcast(tensor: torch.Tensor, root_rank: int = 0,
     return tensor
 
 
+@_backend_errors
 def allgather(tensor: torch.Tensor, group: Group = None) -> torch.Tensor:
     """Concatenate every rank's tensor along dim 0 (shapes must match)."""
     parts = [torch.empty_like(tensor) for _ in range(dist.get_world_size(group))]
@@ -122,6 +169,7 @@ def allgather(tensor: torch.Tensor, group: Group = None) -> torch.Tensor:
     return torch.cat(parts, dim=0)
 
 
+@_backend_errors
 def reducescatter(x: torch.Tensor, group: Group = None,
                   average: bool = False) -> torch.Tensor:
     """Sum ``x`` over ``group`` and hand group rank j the j-th of n equal
@@ -134,6 +182,7 @@ def reducescatter(x: torch.Tensor, group: Group = None,
     return out.div_(n) if average else out
 
 
+@_backend_errors
 def alltoall(x: torch.Tensor, group: Group = None, split_dim: int = 0,
              concat_dim: int = 0) -> torch.Tensor:
     """Cut ``x`` into n pieces along ``split_dim``, send piece j to group
@@ -182,6 +231,7 @@ class PPermute(torch.autograd.Function):
         return ppermute([grad.contiguous()], inverse, ctx.group)[0], None, None
 
 
+@_backend_errors
 def all_gather_into(x: torch.Tensor, group: Group = None) -> torch.Tensor:
     """The group's ``x`` concatenated along dim 0 in one buffer (one
     ``all_gather_into_tensor``: ``lax.all_gather(..., tiled=True)``)."""
@@ -208,6 +258,7 @@ def sparse_allreduce(values: torch.Tensor, indices: torch.Tensor,
     return allgather(values, group), allgather(indices, group)
 
 
+@_backend_errors
 def hierarchical_allreduce(x: torch.Tensor, groups, average: bool = True,
                            dcn_wire_dtype: Optional[torch.dtype] = None
                            ) -> torch.Tensor:
@@ -229,6 +280,7 @@ def hierarchical_allreduce(x: torch.Tensor, groups, average: bool = True,
     return out
 
 
+@_backend_errors
 def ppermute(tensors: Sequence[torch.Tensor], perm: Sequence[tuple[int, int]],
              group: Optional[dist.ProcessGroup] = None) -> list:
     """Send each tensor along ``perm``, pairs ``(source, destination)`` of
@@ -271,6 +323,7 @@ def ring_shift(tensors: Sequence[torch.Tensor],
     return ppermute(tensors, [(i, (i + shift) % n) for i in range(n)], group)
 
 
+@_backend_errors
 def broadcast_object(obj, root_rank: int = 0, name: Optional[str] = None):
     """Every rank returns ``root_rank``'s ``obj``, a picklable Python object
     (non-root ranks' ``obj`` is ignored), through
@@ -285,6 +338,7 @@ def broadcast_object(obj, root_rank: int = 0, name: Optional[str] = None):
     return box[0]
 
 
+@_backend_errors
 def allgather_object(obj, name: Optional[str] = None) -> list:
     """``[obj of rank 0, obj of rank 1, ...]`` on every rank, through
     ``torch.distributed.all_gather_object``; the objects may differ in size.

@@ -66,6 +66,7 @@ def hierarchical_groups(ici_size: Optional[int] = None) -> Hierarchy:
     its gcd with the world size, where it does not divide it), as the
     reference takes the chips of one process. Every rank creates every
     group, in the same order: the ICI groups, then the DCN groups."""
+    basics.require_not_elastic("hierarchical_groups() (the hierarchical layout)")
     world, rank = dist.get_world_size(), dist.get_rank()
     if ici_size is None:
         ici_size = max(basics.local_size(), 1)
@@ -103,6 +104,7 @@ def dp_sp_groups(sp: int) -> DpSp:
     """Cut the world into rings of ``sp`` consecutive ranks. Every rank
     creates every ring's group, in the same order, as
     ``torch.distributed.new_group`` requires."""
+    basics.require_not_elastic("dp_sp_groups() (the sp layout)")
     world, rank = dist.get_world_size(), dist.get_rank()
     if sp < 1 or world % sp:
         raise ValueError(f"sp {sp} must be >= 1 and divide the world size {world}")
@@ -201,6 +203,7 @@ def sharded_groups(batch: Optional[int] = None, shard: Optional[int] = None,
     ``model`` is given (any value, 1 too) or the spec has three sizes.
     Every rank creates every group, in one order: the batch groups, the
     shard groups, then the model groups."""
+    basics.require_not_elastic("sharded_groups() (the sharded and tp layouts)")
     world, rank = dist.get_world_size(), dist.get_rank()
     b_size, s_size, m_size, named = _mesh_sizes(world, batch, shard, model)
     b, s, m = rank // (s_size * m_size), rank // m_size % s_size, rank % m_size
@@ -259,6 +262,7 @@ def training_groups(dp: int, fsdp: int, pp: int = 1, sp: int = 1) -> DpFsdp:
     every group, in one order: the dp groups, the fsdp groups, the pp
     groups, then the sp groups; an axis of size 1 has one group of one
     rank per rank."""
+    basics.require_not_elastic("training_groups() (the FSDP, pp and sp layouts)")
     world, rank = dist.get_world_size(), dist.get_rank()
     sizes = (dp, fsdp, pp, sp)
     if min(sizes) < 1 or math.prod(sizes) != world:

@@ -1,0 +1,239 @@
+"""Per-host agent daemon — the remote-spawn leg of the launcher.
+
+The reference's launcher materializes workers on remote machines through a
+resident execution service: `horovod.spark.run()` spawns a Spark job whose
+executors register back and accept `RunCommandRequest`s from the driver
+(reference spark/__init__.py:61-77, spark/task/task_service.py:53-152); the
+mpirun path reaches remote hosts through the rsh agent
+(spark/driver/mpirun_rsh.py:24-43). Here the resident service is explicit:
+each host runs ONE `hvd-agent` daemon (``python -m horovod_tpu_torch.runner.agent``)
+and the driver contacts every agent over the HMAC-authenticated TCP protocol
+(network.py) to spawn, poll, and kill that host's worker processes.
+
+Orphan policy (three independent layers, each sufficient on its own):
+
+1. Job lifetime is tied to the driver's TCP connection: the driver keeps one
+   persistent connection per agent for the whole job; when it closes for any
+   reason (clean exit, crash, network partition) the agent terminates the
+   job's worker trees (`on_disconnect`).
+2. Workers run a parent-death watchdog (task_main/task_exec): if the agent
+   itself dies, every worker notices its ppid change and exits within ~1 s.
+3. Explicit `kill` requests from the driver's `finally` block.
+
+Security: anyone holding the agent secret can execute arbitrary commands on
+the host (same trust model as sshd with an authorized key). The secret is
+never sent on the wire — both sides prove possession via HMAC over each
+message. Start the agent with `--secret-file` (or HOROVOD_AGENT_SECRET hex).
+
+The port's own copy of ``horovod_tpu.runner.agent``, with the same protocol.
+Its ``telemetry`` and ``ctrl`` requests host modules that are not ported
+yet (the telemetry tree and the control tree): the agent answers them
+with an error that names ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import threading
+from typing import Any, Optional
+
+from .network import BasicService, derive_key
+from .proc_tree import terminate_trees
+from .service import NOT_PORTED, host_hash, not_ported
+
+DEFAULT_AGENT_PORT = 9009
+
+
+class HostAgent(BasicService):
+    """Spawn/poll/kill service for one host's workers.
+
+    Protocol (request ``kind`` → response):
+
+    - ``ping`` → ``{ok, host_hash, jobs}`` — health + identity probe.
+    - ``metrics`` → ``{ok, host_hash, jobs, workers_running,
+      workers_spawned_total, workers_exited_nonzero_total}`` — host-level
+      telemetry for the driver's pod view (docs/metrics.md).
+    - ``spawn`` ``{job_id, workers: [{index, argv, env}], cwd?, extend?}`` →
+      ``{ok, pids}`` — start one process per entry, each in its own session
+      (so `proc_tree.terminate_trees` can reap whole trees). With
+      ``extend`` the workers are ADDED to an existing job (same owner and
+      derived secret) — how an elastic job grows a host's slot set
+      mid-run without re-keying the world.
+    - ``poll`` ``{job_id}`` → ``{ok, workers: [{index, pid, returncode}]}``.
+    - ``kill`` ``{job_id}`` → ``{ok}`` — terminate the job's worker trees.
+    - ``telemetry``, ``ctrl`` → ``{ok: False, error}``: the telemetry
+      agent and the control-tree leader are not ported.
+    """
+
+    def __init__(self, key: bytes, host: str = "0.0.0.0", port: int = 0) -> None:
+        super().__init__(key, host=host, port=port)
+        self._jobs_lock = threading.Lock()
+        # job_id -> {"procs": {index: Popen}, "owner": client_addr}
+        self._jobs: dict[str, dict] = {}
+        self._spawned_total = 0
+        self._exited_nonzero_total = 0
+        self._exit_counted: set[int] = set()  # pids already tallied
+
+    def handle(self, req: Any, client_addr) -> Any:
+        kind = req.get("kind")
+        if kind == "ping":
+            with self._jobs_lock:
+                njobs = len(self._jobs)
+            return {"ok": True, "host_hash": host_hash(), "jobs": njobs}
+        if kind == "spawn":
+            return self._spawn(req, client_addr)
+        if kind == "metrics":
+            with self._jobs_lock:
+                running = sum(
+                    1 for job in self._jobs.values()
+                    for p in job["procs"].values() if p.poll() is None)
+                return {"ok": True, "host_hash": host_hash(),
+                        "jobs": len(self._jobs),
+                        "workers_running": running,
+                        "workers_spawned_total": self._spawned_total,
+                        "workers_exited_nonzero_total":
+                            self._exited_nonzero_total}
+        if kind == "poll":
+            with self._jobs_lock:
+                job = self._jobs.get(req["job_id"])
+                if job is None:
+                    return {"ok": False, "error": f"unknown job {req['job_id']!r}"}
+                workers = [{"index": i, "pid": p.pid, "returncode": p.poll()}
+                           for i, p in sorted(job["procs"].items())]
+                for w in workers:
+                    if w["returncode"] not in (None, 0) \
+                            and w["pid"] not in self._exit_counted:
+                        self._exit_counted.add(w["pid"])
+                        self._exited_nonzero_total += 1
+            return {"ok": True, "workers": workers}
+        if kind == "kill":
+            self._kill_job(req["job_id"])
+            return {"ok": True}
+        if kind in NOT_PORTED:
+            return not_ported(kind)
+        return {"ok": False, "error": f"unknown request {kind}"}
+
+    def _spawn(self, req: Any, client_addr) -> Any:
+        job_id = req["job_id"]
+        cwd = req.get("cwd") or None
+        procs: dict[int, subprocess.Popen] = {}
+        # Per-job worker secret, derived locally from the agent secret and
+        # job id (network.derive_key) — the driver derives the same value
+        # (RemoteSpawner.job_secret), so it never crosses the unencrypted
+        # channel in worker env.
+        job_secret = derive_key(self.key, b"hvd-job:" + str(job_id).encode())
+        try:
+            for w in req["workers"]:
+                env = dict(os.environ)
+                env.update(w.get("env") or {})
+                env["HOROVOD_SECRET"] = job_secret.hex()
+                # Lets the worker's watchdog detect a parent that died
+                # before its first ppid snapshot (task_main.watch_parent).
+                env["HVD_PARENT_PID"] = str(os.getpid())
+                # Own session per worker: abort signals the whole group, so
+                # grandchildren (data loaders, shells) die too.
+                procs[w["index"]] = subprocess.Popen(
+                    list(w["argv"]), env=env, cwd=cwd, start_new_session=True)
+        except OSError as e:
+            terminate_trees(list(procs.values()))
+            return {"ok": False, "error": f"spawn failed on {host_hash()}: {e}"}
+        with self._jobs_lock:
+            job = self._jobs.get(job_id)
+            if job is not None and not req.get("extend"):
+                terminate_trees(list(procs.values()))
+                return {"ok": False, "error": f"job {job_id!r} already exists"}
+            if job is not None:
+                if job["owner"] != client_addr:
+                    # extend is same-driver only: a different connection
+                    # must not append workers to a job it doesn't own.
+                    terminate_trees(list(procs.values()))
+                    return {"ok": False,
+                            "error": f"job {job_id!r} owned by another driver"}
+                dup = set(job["procs"]) & set(procs)
+                if dup:
+                    terminate_trees(list(procs.values()))
+                    return {"ok": False,
+                            "error": f"job {job_id!r} already has worker "
+                                     f"indices {sorted(dup)}"}
+                job["procs"].update(procs)
+            else:
+                self._jobs[job_id] = {"procs": procs, "owner": client_addr}
+            self._spawned_total += len(procs)
+        return {"ok": True, "pids": [p.pid for p in procs.values()]}
+
+    def _kill_job(self, job_id: str) -> None:
+        with self._jobs_lock:
+            job = self._jobs.pop(job_id, None)
+        if job is not None:
+            terminate_trees(list(job["procs"].values()))
+
+    def on_disconnect(self, client_addr) -> None:
+        """Driver connection gone — reap every job it owned (layer 1 of the
+        orphan policy)."""
+        with self._jobs_lock:
+            owned = [jid for jid, job in self._jobs.items()
+                     if job["owner"] == client_addr]
+        for jid in owned:
+            self._kill_job(jid)
+
+    def stop(self) -> None:
+        with self._jobs_lock:
+            jobs = list(self._jobs)
+        for jid in jobs:
+            self._kill_job(jid)
+        super().stop()
+
+
+def _load_secret(secret_file: Optional[str]) -> bytes:
+    if secret_file:
+        with open(secret_file, "rb") as f:
+            data = f.read().strip()
+        # Accept raw bytes or hex text.
+        try:
+            return bytes.fromhex(data.decode())
+        except (UnicodeDecodeError, ValueError):
+            return data
+    hex_secret = os.environ.get("HOROVOD_AGENT_SECRET")
+    if hex_secret:
+        return bytes.fromhex(hex_secret)
+    raise SystemExit(
+        "hvd-agent: no secret. Pass --secret-file or set HOROVOD_AGENT_SECRET "
+        "(hex). Generate one with: python -c \"import secrets; "
+        "print(secrets.token_bytes(32).hex())\"")
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(
+        prog="python -m horovod_tpu_torch.runner.agent",
+        description="Resident per-host worker-spawn agent for hvdrun -H.")
+    parser.add_argument("--port", type=int, default=DEFAULT_AGENT_PORT,
+                        help=f"listen port (0 = random; default {DEFAULT_AGENT_PORT})")
+    parser.add_argument("--host", default="0.0.0.0", help="bind address")
+    parser.add_argument("--secret-file", default=None,
+                        help="file holding the shared agent secret (hex or raw)")
+    args = parser.parse_args(argv)
+
+    agent = HostAgent(_load_secret(args.secret_file), host=args.host, port=args.port)
+    # Fault injection (tests / elastic smoke): HOROVOD_FAULT_AGENT_EXIT_AFTER_S
+    # hard-exits this agent after a delay, modeling sudden host loss.
+    from ..elastic.fault import start_agent_fault_timer
+
+    start_agent_fault_timer()
+    # Machine-readable readiness line: launch scripts / tests wait for it.
+    print(json.dumps({"agent": "ready", "port": agent.port,
+                      "host_hash": host_hash()}), flush=True)
+    try:
+        threading.Event().wait()  # serve until killed
+    except KeyboardInterrupt:
+        pass
+    finally:
+        agent.stop()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

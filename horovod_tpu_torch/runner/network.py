@@ -1,0 +1,338 @@
+"""Authenticated TCP service layer for the cluster launcher: the port's own
+copy of ``horovod_tpu.runner.network``, with the same frames bit for bit,
+so a client of either package talks to a service of the other.
+
+Design taken from the reference's Spark network layer
+(horovod/spark/util/network.py:44-117) — HMAC-SHA256 over pickled bodies,
+verified before unpickling — hardened beyond it against replay:
+
+- Per-connection handshake: the server sends a random session nonce; both
+  sides derive a session key = HMAC(secret, nonce). A message captured on
+  one connection fails authentication on every other connection.
+- Per-message sequence numbers and a direction byte inside the MAC: a
+  message replayed (or reflected) WITHIN its own connection also fails.
+  (The reference's digest covers only the payload, so a passive observer
+  who can inject TCP traffic could replay captured requests verbatim.)
+
+The channel remains unencrypted: anyone on the network path can READ
+messages (the reference's trust model too). Secrets therefore never ride
+it — the per-job worker secret is derived independently on each side
+(derive_key), not transmitted. Run agents only on networks where
+eavesdropping is acceptable, exactly as you would treat rsh.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import hmac
+import os
+import pickle
+import secrets as _secrets
+import socket
+import struct
+import threading
+import time
+from typing import Any, Optional
+
+from ..common import resilience
+
+
+def make_secret() -> bytes:
+    """Random shared secret (reference horovod/spark/secret.py)."""
+    return _secrets.token_bytes(32)
+
+
+def derive_key(key: bytes, purpose: bytes) -> bytes:
+    """One-block HKDF-style derivation: a purpose-bound subkey of `key`.
+    Used to mint per-job worker secrets from the agent secret on BOTH ends
+    (driver and agent) so the job secret never crosses the unencrypted
+    agent channel."""
+    return hmac.new(key, b"hvd-derive:" + purpose, hashlib.sha256).digest()
+
+
+def _recv_exact(sock: socket.socket, n: int) -> bytearray:
+    # resilience.recv_exact: recv_into a preallocated buffer (the naive
+    # bytes-+= loop is quadratic on MB-sized ring frames) PLUS the
+    # escalation ladder's bottom rung — on sockets with a timeout set, each
+    # idle deadline costs one retry from the HOROVOD_NETWORK_RETRIES budget
+    # before the op fails; sockets without a timeout keep blocking forever
+    # (idle request servers must). Returns the bytearray itself — hmac,
+    # pickle.loads and np.frombuffer all take buffers.
+    return resilience.recv_exact(sock, n)
+
+
+# Unauthenticated bytes are buffered before the digest check; cap the claimed
+# length so a secretless peer can't force unbounded allocation.
+MAX_PAYLOAD = 256 * 1024 * 1024
+
+_MAGIC = b"HVD2"
+_NONCE_LEN = 16
+
+
+class Channel:
+    """One authenticated connection: session-keyed, sequence-numbered.
+
+    Construction performs the handshake (server sends `HVD2` + nonce;
+    both sides derive session_key = HMAC(secret, "hvd-session:"+nonce)).
+    Each direction numbers its messages from 0 and the MAC covers
+    (direction, seq, payload), so neither cross-connection replay nor
+    in-connection replay/reflection authenticates.
+
+    ``scope`` names what the channel carries ("ctl" control traffic, the
+    only kind the port opens so far) — it selects which channels the
+    env-triggered network chaos hooks target (elastic/fault.py,
+    HOROVOD_FAULT_NET) and costs nothing when injection is unarmed.
+
+    The JAX package's raw-buffer frames (``send_bytes``/``recv_bytes``,
+    the eager ring's data plane) and its wire accounting (``stats``, the
+    telemetry tree's) are not ported with those planes."""
+
+    def __init__(self, sock: socket.socket, key: bytes, server: bool,
+                 scope: str = "ctl") -> None:
+        self.sock = sock
+        self.scope = scope
+        # Fault-injection hook (the chaos harness): resolved ONCE per
+        # channel — None in production (one env check at construction), the
+        # fault module when HOROVOD_FAULT_NET arms this process. Lazy
+        # import: the elastic package imports the launcher, which imports
+        # this module — at Channel-construction time the cycle is long
+        # resolved.
+        self._fault = None
+        if os.environ.get("HOROVOD_FAULT_NET"):
+            from ..elastic import fault as _fault_mod
+
+            if _fault_mod.net_fault_armed():
+                self._fault = _fault_mod
+        if server:
+            nonce = _secrets.token_bytes(_NONCE_LEN)
+            sock.sendall(_MAGIC + nonce)
+        else:
+            try:
+                head = _recv_exact(sock, len(_MAGIC) + _NONCE_LEN)
+            except (TimeoutError, socket.timeout) as e:
+                # An old (pre-HVD2) server sends nothing until it gets a
+                # request, so a version-skewed peer surfaces as this read
+                # timing out — name the likely cause instead of a bare
+                # "timed out" (a non-hvd peer that sends bytes hits the
+                # magic check below instead).
+                raise ConnectionError(
+                    "no session handshake from peer (timed out): it is "
+                    "either not an hvd service or an older build without "
+                    "replay protection — upgrade both ends") from e
+            if head[: len(_MAGIC)] != _MAGIC:
+                raise PermissionError(
+                    "bad handshake magic: peer is not an hvd service")
+            nonce = head[len(_MAGIC):]
+        self._key = hmac.new(key, b"hvd-session:" + nonce,
+                             hashlib.sha256).digest()
+        self._send_dir = b"S" if server else b"C"
+        self._recv_dir = b"C" if server else b"S"
+        self._send_seq = 0
+        self._recv_seq = 0
+
+    def _mac(self, direction: bytes, seq: int, payload) -> bytes:
+        # Incremental update: `payload` may be a large buffer — concatenating
+        # would copy it just to hash it. Digest is identical to hashing
+        # direction+seq+payload in one shot.
+        h = hmac.new(self._key, None, hashlib.sha256)
+        h.update(direction + struct.pack("!Q", seq))
+        h.update(payload)
+        return h.digest()
+
+    def _inject_fault(self, nbytes: int = 0) -> Optional[str]:
+        """Chaos hook (HOROVOD_FAULT_NET): decide and pre-apply this frame's
+        injected fault. Returns "drop" when the frame must be swallowed
+        (before the sequence number advances — the receiver then sees the
+        NEXT frame early and fails the link, the broken-middlebox model);
+        "corrupt" when the caller should flip a MAC byte; None otherwise.
+        "delay" sleeps here (``nbytes`` feeds the bytes-proportional
+        HOROVOD_FAULT_NET_DELAY_PER_MB term); "reset" abort-closes the
+        socket (RST to the peer) and raises."""
+        action = self._fault.net_fault(self.scope)
+        if action == "delay":
+            time.sleep(self._fault.net_fault_delay_s(nbytes))
+            return None
+        if action == "reset":
+            try:
+                self.sock.setsockopt(socket.SOL_SOCKET, socket.SO_LINGER,
+                                     struct.pack("ii", 1, 0))
+            except OSError:
+                pass
+            try:
+                self.sock.close()
+            except OSError:
+                pass
+            raise ConnectionResetError(
+                "injected connection reset (HOROVOD_FAULT_NET=reset)")
+        return action
+
+    def send(self, obj: Any) -> None:
+        payload = pickle.dumps(obj, protocol=pickle.HIGHEST_PROTOCOL)
+        corrupt = False
+        if self._fault is not None:
+            action = self._inject_fault(len(payload))
+            if action == "drop":
+                # The dropped frame still consumes a sequence number — the
+                # receiver authenticates the NEXT frame against the dropped
+                # frame's seq and rejects it (a swallowed frame must surface
+                # as a detected link fault, never as a silent substitution).
+                self._send_seq += 1
+                return
+            corrupt = action == "corrupt"
+        mac = self._mac(self._send_dir, self._send_seq, payload)
+        if corrupt:
+            mac = bytes([mac[0] ^ 0xFF]) + mac[1:]
+        self._send_seq += 1
+        resilience.send_all(
+            self.sock, mac + struct.pack("!Q", len(payload)) + payload)
+
+    def recv(self) -> Any:
+        digest = _recv_exact(self.sock, 32)
+        (n,) = struct.unpack("!Q", _recv_exact(self.sock, 8))
+        if n > MAX_PAYLOAD:
+            raise PermissionError(f"payload length {n} exceeds cap {MAX_PAYLOAD}")
+        payload = _recv_exact(self.sock, n)
+        if not hmac.compare_digest(
+                digest, self._mac(self._recv_dir, self._recv_seq, payload)):
+            resilience.frames_rejected_counter().inc()
+            raise PermissionError(
+                "HMAC digest mismatch: unauthenticated, replayed, or "
+                "reordered message")
+        self._recv_seq += 1
+        return pickle.loads(payload)
+
+class BasicService:
+    """Threaded request/response TCP server (reference BasicService,
+    network.py:79-143). Subclasses implement handle(request) -> response."""
+
+    def __init__(self, key: bytes, host: str = "0.0.0.0", port: int = 0) -> None:
+        self.key = key
+        self.server = socket.create_server((host, port))
+        self.port = self.server.getsockname()[1]
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._thread.start()
+
+    def addresses(self) -> list[tuple[str, int]]:
+        """All reachable (ip, port) pairs for this service (reference probes
+        every NIC, network.py:145-169)."""
+        addrs = []
+        hostname = socket.gethostname()
+        try:
+            for info in socket.getaddrinfo(hostname, None, socket.AF_INET):
+                addrs.append((info[4][0], self.port))
+        except socket.gaierror:
+            pass
+        addrs.append(("127.0.0.1", self.port))
+        # dedupe, keep order
+        seen = set()
+        out = []
+        for a in addrs:
+            if a not in seen:
+                seen.add(a)
+                out.append(a)
+        return out
+
+    def handle(self, request: Any, client_addr) -> Any:  # pragma: no cover
+        raise NotImplementedError
+
+    def _loop(self) -> None:
+        while not self._stop.is_set():
+            try:
+                conn, addr = self.server.accept()
+            except OSError:
+                return
+            threading.Thread(target=self._serve, args=(conn, addr), daemon=True).start()
+
+    def _serve(self, conn: socket.socket, addr) -> None:
+        try:
+            ch = Channel(conn, self.key, server=True)
+            while not self._stop.is_set():
+                req = ch.recv()
+                if isinstance(req, dict) and req.get("kind") == "clock_probe":
+                    # Built-in NTP responder (tracing/clock.py): EVERY
+                    # authenticated service answers its monotonic clock so
+                    # the client side can align timestamps without each
+                    # subclass re-implementing the exchange.
+                    resp = {"ok": True, "t": time.monotonic_ns()}
+                else:
+                    resp = self.handle(req, addr)
+                ch.send(resp)
+        except (ConnectionError, OSError, EOFError, PermissionError):
+            pass
+        finally:
+            try:
+                conn.close()
+            except OSError:
+                pass
+            self.on_disconnect(addr)
+
+    def on_disconnect(self, client_addr) -> None:
+        """Hook: called when an authenticated client's connection closes.
+        The host agent uses this to tie job lifetime to the driver's
+        connection — driver gone means its workers are reaped."""
+
+    def stop(self) -> None:
+        self._stop.set()
+        try:
+            self.server.close()
+        except OSError:
+            pass
+
+
+class BasicClient:
+    """Blocking request/response client with retry-capable connect.
+
+    ``connect_retry_s`` > 0 keeps re-trying the full address list with the
+    shared decorrelated-jitter backoff (common/resilience.py Backoff,
+    capped at HOROVOD_NETWORK_BACKOFF_MAX_MS) for up to that many seconds
+    before giving up — a cold-starting pod's workers register while the
+    driver service may still be a few hundred ms from listening, and one
+    refused connection must not kill the worker. A whole pod retrying in
+    lockstep would hammer the driver at the same instants; the jitter
+    decorrelates them."""
+
+    def __init__(self, addresses, key: bytes, timeout: float = 60.0,
+                 connect_retry_s: float = 0.0) -> None:
+        self.key = key
+        # One request = one send + one recv on the session channel, so a
+        # client shared across threads must serialize whole requests —
+        # interleaved sends would desequence the MAC.
+        self._lock = threading.Lock()
+        deadline = time.monotonic() + max(connect_retry_s, 0.0)
+        backoff = resilience.Backoff(base_s=0.05)
+        last: Optional[Exception] = None
+        while True:
+            for host, port in addresses:
+                sock = None
+                try:
+                    sock = socket.create_connection((host, port), timeout=timeout)
+                    sock.settimeout(timeout)
+                    # The handshake does I/O: a failure here (bad magic from a
+                    # non-hvd peer, timeout) must close the already-connected
+                    # socket before trying the next address, or it leaks.
+                    self._ch = Channel(sock, key, server=False)
+                    self.sock = sock
+                    return
+                except OSError as e:
+                    if sock is not None:
+                        try:
+                            sock.close()
+                        except OSError:
+                            pass
+                    last = e
+            if time.monotonic() >= deadline:
+                break
+            backoff.sleep()
+        raise ConnectionError(f"cannot reach service at {addresses}: {last}")
+
+    def request(self, obj: Any) -> Any:
+        with self._lock:
+            self._ch.send(obj)
+            return self._ch.recv()
+
+    def close(self) -> None:
+        try:
+            self.sock.close()
+        except OSError:
+            pass

@@ -18,7 +18,10 @@ GPUs: save and restore with the cross-rank digest, ``save_sharded`` at
 2x2 into 1x4 and flat, and an ``init(comm=[1, 3])`` sub-world
 (tests/torch_port_ckpt_worker.py); ``autotune.tune`` over the ZeRO
 layouts and the ladder of four GPUs laid out 2 x 2, each candidate's
-updates against flat DP's (tests/torch_port_autotune_worker.py).
+updates against flat DP's (tests/torch_port_autotune_worker.py); elastic
+training of the full-width TransformerLM on four GPUs, a worker killed and
+respawned, against a run without a fault
+(tests/torch_port_elastic_worker.py).
 
 Needs an NVIDIA Hopper GPU and nvcc; elsewhere every test skips. Run on
 the card with (conftest.py imports jax, which the GPU machine need not
@@ -816,3 +819,147 @@ def test_autotune_world_meshes_and_ladder_match_flat_dp(autotune_world):
     n, out = autotune_world
     print(out)
     assert f"ok autotune world {n}" in out
+
+
+# ------------------------------------------------------ elastic on four cards
+
+ELASTIC_STEPS = 6
+ELASTIC_FAULT_STEP = 2
+ELASTIC_STALL_S = 20
+# The checkpointed run: construction is commit 1 and step i's commit is
+# commit i + 1, so every 3rd commit checkpoints steps 2 and 5; rank 0 holds
+# each write this long, past the stall time.
+ELASTIC_CKPT_EVERY = 3
+ELASTIC_CKPT_HOLD_S = ELASTIC_STALL_S + 5
+
+
+def _elastic_job(tmp, name, index=None, checkpoint=False, elastic=True):
+    """One job of tests/torch_port_elastic_worker.py's ``lm_train`` at full
+    width on every visible card, over NCCL: through ``run_elastic``, task
+    ``index`` killed at step 2's commit when given, checkpointing (rank
+    0's writes held ``ELASTIC_CKPT_HOLD_S``) with ``checkpoint``; through
+    ``run`` without ``elastic``. Returns (results, the parameters of each
+    rank, the initial parameters, the driver's events)."""
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    import torch_port_elastic_worker as worker
+
+    from horovod_tpu_torch.runner import run, run_elastic
+
+    out = os.path.join(tmp, name)
+    os.makedirs(out)
+    events = os.path.join(out, "events.jsonl")
+    env = {"PYTHONPATH": os.pathsep.join([os.path.join(REPO, "tests"), REPO]),
+           "HOROVOD_STALL_SHUTDOWN_TIME": str(ELASTIC_STALL_S),
+           "HOROVOD_ELASTIC_EVENT_LOG": events,
+           "HOROVOD_ELASTIC_BLACKLIST_THRESHOLD": "2"}
+    if index is not None:
+        env.update({"HOROVOD_FAULT_INJECT_STEP": str(ELASTIC_FAULT_STEP),
+                    "HOROVOD_FAULT_INJECT_INDEX": str(index)})
+    kwargs = {}
+    if checkpoint:
+        kwargs = {"checkpoint_dir": os.path.join(out, "ckpt"),
+                  "checkpoint_every": ELASTIC_CKPT_EVERY}
+        env.update({"HOROVOD_CKPT_ASYNC": "0", "HOROVOD_CKPT_TEST_STALL": "stage",
+                    "HOROVOD_CKPT_TEST_STALL_S": str(ELASTIC_CKPT_HOLD_S)})
+    n = torch.cuda.device_count()
+    launch = run_elastic if elastic else run
+    results = launch(worker.lm_train, args=("cuda", {}, ELASTIC_STEPS, out),
+                     kwargs=kwargs, num_proc=n, timeout=900, env=env)
+    params = [torch.load(os.path.join(out, f"params.{r}.pt"), weights_only=True)
+              for r in range(n)]
+    if not elastic:
+        return results, params, None, []
+    init = torch.load(os.path.join(out, "init.pt"), weights_only=True)
+    import json
+
+    with open(events) as f:
+        log = [json.loads(line) for line in f]
+    return results, params, init, log
+
+
+@pytest.fixture(scope="module")
+def elastic_world(tmp_path_factory):
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 or more CUDA devices")
+    tmp = str(tmp_path_factory.mktemp("elastic"))
+    runs = {"no fault": _elastic_job(tmp, "straight")}
+    for index in (1, 0):
+        runs[f"index {index} killed"] = _elastic_job(tmp, f"kill{index}",
+                                                     index=index)
+    runs["index 1 killed, checkpointed"] = _elastic_job(
+        tmp, "kill1ckpt", index=1, checkpoint=True)
+    plain = _elastic_job(tmp, "plain", elastic=False)
+    cards = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout
+    return runs, plain, cards
+
+
+def test_elastic_world_survives_a_dead_worker_over_nccl(elastic_world):
+    """``run_elastic`` of the full-width flash TransformerLM on four cards
+    over NCCL, one rank per card, a commit after every step: once without a
+    fault, then with task index 1, and then index 0 (rank 0, the host of the
+    rendezvous store), killed at step 2's commit; then index 1 again with a
+    checkpoint at every 3rd commit, rank 0 holding each write past
+    HOROVOD_STALL_SHUTDOWN_TIME, so the other ranks must wait for it
+    outside the process group's timeout. The survivors' next collective
+    must raise ``HorovodInternalError`` within the stall time of the death
+    (plus 15 s for the step and the commit around it, and the hold where
+    the commit writes), and they must live on: each reports one reset, and
+    the respawned worker joins generation 2 on the dead one's card (a
+    checkpointed one cold-starts from step 2's checkpoint). Every rank ends
+    at the exact step count with parameters bit-equal to the others' and
+    to the run without a fault, and rank 0's losses equal that run's: the
+    ranks of a new generation draw their batches by rank, and the sums
+    run in rank order. The step's seconds (without the commit) of the run
+    without a fault are printed beside those of the same job launched by
+    ``run``, without the elastic settings."""
+    runs, plain, cards = elastic_world
+    print(f"cards (name, power limit):\n{cards}")
+    straight, ref_params, _, _ = runs["no fault"]
+    for label, (results, params, _, log) in runs.items():
+        events = [e["event"] for e in log]
+        failed = [e for e in log if e["event"] == "worker_failed"]
+        gens = [e["generation"] for e in log if e["event"] == "rendezvous_complete"]
+        print(f"{label}: events {events}")
+        assert [r["step"] for r in results] == [ELASTIC_STEPS] * len(results)
+        assert [r["rank"] for r in results] == list(range(len(results)))
+        assert sorted(r["device"] for r in results) == list(range(len(results)))
+        for r in results:
+            print(f"  rank {r['rank']} on card {r['device']}: generation "
+                  f"{r['generation']}, resumed from {r['resumed_from']}, losses "
+                  f"{[round(x, 6) for x in r['losses']]}, resets "
+                  f"{[(round(a - failed[0]['time_unix_s'], 2), round(b - a, 2)) for a, b in r['resets']]} "
+                  "(s from the death to the raise, s from the raise to resumed)")
+        differ = [k for k in ref_params[0]
+                  if not all(torch.equal(p[k], ref_params[0][k]) for p in params)]
+        print(f"  parameters: {len(differ)} of {len(ref_params[0])} differ "
+              "from the run without a fault, on any rank")
+        assert not differ, (label, differ[:5])
+        assert results[0]["losses"] == straight[0]["losses"], label
+        if label == "no fault":
+            assert gens == [1] and not failed
+            continue
+        assert len(failed) == 1 and gens == [1, 2], (label, events)
+        index = failed[0]["index"]
+        survivors = [r for r in results if r["resets"]]
+        (respawned,) = [r for r in results if not r["resets"]]
+        assert len(survivors) == len(results) - 1, label
+        assert respawned["device"] == index, (label, respawned["device"], index)
+        hold = ELASTIC_CKPT_HOLD_S if "checkpointed" in label else 0
+        assert respawned["resumed_from"] == (ELASTIC_FAULT_STEP if hold else 0)
+        for r in survivors:
+            (raised, resumed), = r["resets"]
+            assert raised - failed[0]["time_unix_s"] <= ELASTIC_STALL_S + 15 + hold, \
+                (label, r["rank"])
+            assert resumed is not None
+        assert all(r["generation"] == 2 for r in results)
+    results, params, _, _ = plain
+    for k in ref_params[0]:
+        assert torch.equal(params[0][k], ref_params[0][k]), k
+    elastic_s = sorted(s for r in straight for s in r["step_s"][1:])
+    plain_s = sorted(s for r in results for s in r["step_s"][1:])
+    print(f"step seconds (steps 2-{ELASTIC_STEPS}, every rank, without the "
+          f"commit): median {elastic_s[len(elastic_s) // 2]:.4f} s under "
+          f"run_elastic, {plain_s[len(plain_s) // 2]:.4f} s under run; all "
+          f"{[round(x, 4) for x in elastic_s]} vs {[round(x, 4) for x in plain_s]}")

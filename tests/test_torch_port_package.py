@@ -63,7 +63,12 @@ def test_import_pulls_in_no_jax():
             "horovod_tpu_torch.control.core, "
             "horovod_tpu_torch.control.training, "
             "horovod_tpu_torch.utils.roofline, "
-            "horovod_tpu_torch.utils.timeline\n"
+            "horovod_tpu_torch.utils.timeline, horovod_tpu_torch.runner, "
+            "horovod_tpu_torch.runner.__main__, horovod_tpu_torch.runner.agent, "
+            "horovod_tpu_torch.runner.task_main, "
+            "horovod_tpu_torch.runner.task_exec, horovod_tpu_torch.elastic, "
+            "horovod_tpu_torch.elastic.driver, horovod_tpu_torch.tracing.clock, "
+            "horovod_tpu_torch.common.resilience\n"
             "import runpy\n"
             f"for path in {EXAMPLES!r}:\n"
             "    runpy.run_path(path, run_name='not_main')\n"

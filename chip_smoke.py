@@ -222,7 +222,22 @@ prints no result):
     host snapshot of 216,556,544 parameters and Adam's moments), the
     driver's generations, the failure-to-resumed seconds, the phase's
     seconds;
-24. the ``{"kernels": [...]}`` line (all six kernels, each with its
+24. observability of the training path (world of one over NCCL, full
+    width): (a) 3 eager steps untraced, then 3 from the same weights and
+    batch with ``HOROVOD_TRACE_DIR``, ``HOROVOD_FLIGHT_DIR`` and
+    ``HOROVOD_METRICS_PORT`` set: losses and parameters bit-equal; the span
+    file holds ``grad.<b>#<k>`` of every bucket and step with its
+    ``enqueue``, ``wire`` and ``done`` spans, each ``wire`` span inside its
+    step's host window; ``merge_trace`` writes strict JSON;
+    ``/metrics``, fetched over HTTP before and after the steps, moves
+    ``horovod_collective_bytes_total{op="allreduce"}`` by 3 x the plan's
+    bucket bytes and ``horovod_collectives_total`` by 3 x its buckets,
+    and its plan gauges are the optimizer's plan; ``read_ring`` decodes
+    the ring; the traced and untraced step ms and the per-bucket device ms
+    printed; (b) the graphed loop (K = 4, 2 dispatches) untraced and traced:
+    losses bit-equal, one compiled-plan line for the capture, no span
+    line and no counter moving while the graph replays;
+25. the ``{"kernels": [...]}`` line (all six kernels, each with its
     launches on every path above; phases 10 and 14 run none of them),
     then ``{"ok": true, ...}`` last.
 
@@ -3227,6 +3242,245 @@ def launcher_phase(torch, fa, rf, basics, train_mod, card, paths,
     log(f"  phase 23 took {time.perf_counter() - t_phase:.1f} s ({card})")
 
 
+# Phase 24. Observability of the training path, in a world of one over NCCL
+# at full width: the span recorder, the flight ring, the metrics exposition
+# and the plan gauges, fed by the port's own exchange. Tracing changes no
+# value: every traced loss and parameter is held bit-equal to the untraced
+# run from the same weights and batch (the same kernels in the same order;
+# the CUDA events are recorded on the streams beside them). The counters
+# are read over HTTP from /metrics before and after the steps, and must
+# move by exactly the plan's bytes a step; a replay of a captured step
+# issues no host call, so nothing moves while a graph replays.
+TRACE_STEPS = 3
+
+
+@contextlib.contextmanager
+def env_set(env: dict):
+    """``env`` in os.environ for the block, the previous values after."""
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def free_local_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def scrape(port: int) -> dict:
+    """``/metrics`` of this process's exposition: each sample's value by its
+    name with labels."""
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=10) as r:
+        text = r.read().decode()
+    out = {}
+    for line in text.splitlines():
+        if line and not line.startswith("#"):
+            key, _, value = line.rpartition(" ")
+            out[key] = float(value)
+    return out
+
+
+def traced_eager(torch, fa, rf, basics, train_mod, card, dev, paths, tmp) -> None:
+    from horovod_tpu_torch import metrics as hvd_metrics
+    from horovod_tpu_torch.tracing import collector, flight
+
+    config = train_mod.TrainConfig()
+    tokens = train_mod.make_batch(config, 0, dev)
+    tdir, fdir = os.path.join(tmp, "trace"), os.path.join(tmp, "flight")
+    port = free_local_port()
+    runs = {}
+    for traced in (False, True):
+        env = {"HOROVOD_TRACE_DIR": tdir, "HOROVOD_FLIGHT_DIR": fdir,
+               "HOROVOD_METRICS_PORT": str(port)} if traced else {}
+        with env_set(env):
+            gc.collect()
+            torch.cuda.empty_cache()
+            s = train_mod.setup(config, "cuda")
+            before = scrape(port) if traced else {}
+            losses, ms, windows = [], [], []
+            read_counts(fa, rf)
+            for _ in range(TRACE_STEPS):
+                torch.cuda.synchronize(dev)
+                t0, p0 = time.monotonic_ns(), time.perf_counter()
+                loss = s.step(tokens)
+                torch.cuda.synchronize(dev)
+                windows.append((t0, time.monotonic_ns()))
+                ms.append(1e3 * (time.perf_counter() - p0))
+                losses.append(loss.item())
+            run = {"losses": losses, "ms": ms, "windows": windows,
+                   "counts": read_counts(fa, rf), "buckets": s.opt.plan.num_buckets,
+                   "plan": [n for _, n in hvd_metrics.last_plan()],
+                   "params": {n: p.detach().cpu() for n, p in s.model.named_parameters()}}
+            if traced:
+                run["after"] = scrape(port)
+                run["before"] = before
+            del s
+            basics.shutdown()
+        runs[traced] = run
+    plain, traced = runs[False], runs[True]
+    differ = [n for n in plain["params"]
+              if not torch_equal(plain["params"][n], traced["params"][n])]
+    log(f"  (24a) {TRACE_STEPS} eager steps, traced vs untraced: losses "
+        f"{traced['losses']} vs {plain['losses']}; parameters that differ: "
+        f"{len(differ)} of {len(plain['params'])}")
+    if traced["losses"] != plain["losses"] or differ:
+        raise AssertionError(f"a traced step is not bit-equal to an untraced one: "
+                             f"{traced['losses']} vs {plain['losses']}, {differ[:5]}")
+    for label, run in (("untraced", plain), ("traced", traced)):
+        hold_counts(f"24a, {label}, {TRACE_STEPS} steps", run["counts"],
+                    {k: config.layers * TRACE_STEPS for k in KERNELS})
+        paths[f"24a: {TRACE_STEPS} steps, {label}"] = run["counts"]
+    log(f"  step ms untraced {[round(t, 3) for t in plain['ms']]}, traced "
+        f"{[round(t, 3) for t in traced['ms']]}; median of steps 1-"
+        f"{TRACE_STEPS - 1}: {statistics.median(plain['ms'][1:]):.3f} vs "
+        f"{statistics.median(traced['ms'][1:]):.3f} ms, on {card}")
+    nb, plan = traced["buckets"], traced["plan"]
+    spans, metas = collector.load_spans(tdir)
+    by_tid: dict = {}
+    for sp in spans:
+        by_tid.setdefault(sp["tid"], []).append(sp)
+    device_ms = {}
+    for b in range(nb):
+        for k in range(1, TRACE_STEPS + 1):
+            tid = f"grad.{b}#{k}"
+            phases = sorted(sp["phase"] for sp in by_tid.get(tid, []))
+            if phases != ["done", "enqueue", "wire"]:
+                raise AssertionError(f"{tid}: phases {phases}, expected enqueue, "
+                                     "wire and done")
+            (wire,) = [sp for sp in by_tid[tid] if sp["phase"] == "wire"]
+            w0, w1 = traced["windows"][k - 1]
+            if not w0 <= wire["t0"] <= wire["t1"] <= w1:
+                raise AssertionError(f"{tid}: wire span {wire['t0']}..{wire['t1']} "
+                                     f"outside its step's host window {w0}..{w1}")
+            device_ms.setdefault(b, []).append((wire["t1"] - wire["t0"]) / 1e6)
+    log(f"  spans: grad.0#1 .. grad.{nb - 1}#{TRACE_STEPS} each with enqueue, wire "
+        f"and done, every wire span inside its step's host window; "
+        f"{len(spans)} spans, clock offset {metas[0]['clock_offset_ns']} ns")
+    log(f"  per-bucket device ms (wire span: the input ready to the end "
+        f"event), steps 1-{TRACE_STEPS}: "
+        + "; ".join(f"{b} ({plan[b]} B): {[round(t, 4) for t in device_ms[b]]}"
+                    for b in range(nb)))
+    trace_path = os.path.join(tdir, "trace.json")
+    collector.merge_trace(tdir, trace_path)
+
+    def strict(c):
+        raise ValueError(f"trace.json holds {c}")
+
+    with open(trace_path) as f:
+        events = json.loads(f.read(), parse_constant=strict)["traceEvents"]
+    log(f"  merge_trace: strict JSON, {len(events)} events")
+    after, before = traced["after"], traced["before"]
+    moved = {k: after.get(k, 0.0) - before.get(k, 0.0) for k in (
+        'horovod_collective_bytes_total{op="allreduce"}',
+        'horovod_collectives_total{op="allreduce"}')}
+    want = {'horovod_collective_bytes_total{op="allreduce"}': TRACE_STEPS * sum(plan),
+            'horovod_collectives_total{op="allreduce"}': TRACE_STEPS * nb}
+    gauges = {k: after.get(k) for k in ("horovod_fusion_buckets",
+                                        "horovod_fusion_planned_bytes",
+                                        "horovod_compiled_wire_bytes_per_step")}
+    want_gauges = {"horovod_fusion_buckets": nb,
+                   "horovod_fusion_planned_bytes": sum(plan),
+                   "horovod_compiled_wire_bytes_per_step": sum(plan)}
+    log(f"  /metrics over HTTP: counters moved {moved} (want {want}); plan "
+        f"gauges {gauges} (want {want_gauges})")
+    if moved != want or gauges != want_gauges:
+        raise AssertionError(f"/metrics: {moved} vs {want}, {gauges} vs {want_gauges}")
+    ring = flight.read_ring(os.path.join(fdir, "flight-rank0.ring"))
+    held = sum(1 for r in ring["records"] if str(r.get("tid", "")).startswith("grad."))
+    log(f"  read_ring: {len(ring['records'])} records, {held} of them the "
+        f"exchange's spans; fingerprint {ring['meta']['fingerprint']['hash']}")
+    if not held:
+        raise AssertionError("the flight ring holds none of the exchange's spans")
+
+
+def traced_graph(torch, fa, rf, basics, train_mod, loop_mod, dev, paths,
+                 tmp) -> None:
+    from horovod_tpu_torch import metrics as hvd_metrics
+    from horovod_tpu_torch import tracing
+
+    config = train_mod.TrainConfig(steps_per_dispatch=GRAPH_K)
+    tdir = os.path.join(tmp, "trace_graph")
+    plan_path = os.path.join(tdir, "compiled-plan-rank0.jsonl")
+    span_path = tracing.span_path(tdir, 0)
+    runs = {}
+    for traced in (False, True):
+        with env_set({"HOROVOD_TRACE_DIR": tdir} if traced else {}):
+            gc.collect()
+            torch.cuda.empty_cache()
+            s = train_mod.setup(config, "cuda")
+            cache = train_mod.make_cache(config, s.sp, dev)
+            loop = loop_mod.make_scan_train_loop(s.step, cache, GRAPH_K,
+                                                 optimizer=s.opt)
+            loop.warm_up()
+            read_counts(fa, rf)
+            loop.capture()
+            counts = read_counts(fa, rf)
+            rec = tracing.get_recorder()
+            if traced:
+                rec.flush()
+                with open(span_path) as f:
+                    lines_before = sum(1 for _ in f)
+            counters = hvd_metrics.registry().snapshot()["counters"]
+            losses = []
+            for _ in range(GRAPH_DISPATCHES):
+                loop()
+                losses += loop.losses.tolist()
+            moved = {k: v for k, v in hvd_metrics.registry().snapshot()["counters"].items()
+                     if v != counters.get(k)}
+            run = {"losses": losses, "counts": counts, "moved": moved}
+            if traced:
+                rec.flush()
+                with open(span_path) as f:
+                    run["span_lines"] = (lines_before, sum(1 for _ in f))
+            del loop, s
+            basics.shutdown()
+        runs[traced] = run
+    plain, traced = runs[False], runs[True]
+    with open(plan_path) as f:
+        lines = [json.loads(x) for x in f]
+    captures = [x for x in lines if "capture" in x]
+    log(f"  (24b) graphed, K = {GRAPH_K}, {GRAPH_DISPATCHES} dispatches: losses "
+        f"traced {traced['losses']} vs untraced {plain['losses']}; compiled-plan "
+        f"lines {len(lines)} ({len(captures)} from captures: "
+        f"{[(x['capture'], x['num_buckets']) for x in captures]}); span lines "
+        f"before and after the replays {traced['span_lines']}; counters moved "
+        f"during the replays {traced['moved']}")
+    for label, run in (("untraced", plain), ("traced", traced)):
+        hold_counts(f"24b, capture, {label}", run["counts"],
+                    {k: config.layers for k in KERNELS})
+        paths[f"24b: capture of one step, {label}"] = run["counts"]
+    if traced["losses"] != plain["losses"]:
+        raise AssertionError("the traced graphed run is not bit-equal to the "
+                             "untraced one")
+    if len(captures) != 1 or traced["span_lines"][0] != traced["span_lines"][1] \
+            or traced["moved"] or plain["moved"]:
+        raise AssertionError("a capture must write one compiled-plan line, and "
+                             "no span or counter may move while a graph replays")
+
+
+def observability_phase(torch, fa, rf, basics, train_mod, loop_mod, card, dev,
+                        paths) -> None:
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_obs_") as tmp:
+        traced_eager(torch, fa, rf, basics, train_mod, card, dev, paths, tmp)
+        traced_graph(torch, fa, rf, basics, train_mod, loop_mod, dev, paths, tmp)
+
+
 def config_label(config) -> str:
     return "TrainConfig(sp=1)" if config.sp else "TrainConfig()"
 
@@ -3423,6 +3677,13 @@ def main() -> int:
         "commit and respawned, each bit-equal to the run that never stopped")
     launcher_phase(torch, fa, rf, basics, train_mod, card, paths,
                    result.losses)
+
+    log(f"[24] observability of the training path at full width: "
+        f"{TRACE_STEPS} traced eager steps (spans, flight ring, /metrics, plan "
+        f"gauges) and the graphed loop (K = {GRAPH_K}) traced, each bit-equal "
+        f"to the untraced run")
+    observability_phase(torch, fa, rf, basics, train_mod, loop_mod, card, dev,
+                        paths)
 
     kernels = []
     for source, names in SOURCES.items():

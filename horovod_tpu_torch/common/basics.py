@@ -30,6 +30,16 @@ the process (``TORCH_NCCL_ASYNC_ERROR_HANDLING=0``, the heartbeat monitor
 off), so the reset path can abort the communicators itself
 (``shutdown(abort=True)``). The layouts a reset cannot carry refuse to
 build there (``require_not_elastic``).
+
+``init`` also starts this rank's telemetry, as the JAX package's does: the
+identity gauges; the metrics exposition at ``HOROVOD_METRICS_PORT`` plus
+the local rank; under ``HOROVOD_TRACE_DIR`` the span recorder, with its
+clock offset to the launcher's driver where a launcher started the
+worker; the flight ring (``HOROVOD_FLIGHT_DIR``); and, unless
+``HOROVOD_STALL_CHECK_DISABLE``, the stall watchdog over the collectives
+in flight (``parallel/telemetry.py``). ``shutdown`` (``abort=True`` too)
+stops them and closes the recorder; the next ``init`` opens it again at
+the new rank's file.
 """
 
 from __future__ import annotations
@@ -67,6 +77,8 @@ class _State:
         self.device: Optional[torch.device] = None
         # The draws of ``world_sequence``, from 0 in every world.
         self.sequence = itertools.count()
+        self.watchdog = None
+        self.metrics_server = None
 
 
 _state = _State()
@@ -227,6 +239,90 @@ def init(device=None, comm: Optional[Sequence[int]] = None) -> None:
         _state.config = config
         _state.device = device
         _state.sequence = itertools.count()
+        _start_telemetry(topo, config)
+
+
+def _clock_offset_ns() -> Optional[int]:
+    """This worker's clock offset to the launcher's driver over its task
+    channel (``tracing/clock.py``), or None outside a launched worker or
+    when the probe fails (the spans then stay on the local clock)."""
+    secret = os.environ.get("HOROVOD_SECRET")
+    try:
+        from ..runner.network import BasicClient
+        from ..runner.service import worker_addresses
+        from ..tracing.clock import estimate_offset_ns
+
+        addrs = worker_addresses()
+        if not addrs or not secret:
+            return None
+        client = BasicClient(addrs, bytes.fromhex(secret), timeout=5.0)
+        try:
+            return estimate_offset_ns(
+                lambda: client.request({"kind": "clock_probe"})["t"])[0]
+        finally:
+            client.close()
+    except Exception as e:  # noqa: BLE001 - tracing never fails init
+        log("warning", f"trace clock probe failed ({e}); spans stay on the "
+            "local clock")
+        return None
+
+
+def _start_telemetry(topo: Topology, config: Config) -> None:
+    """The identity gauges, the flight ring, the recorder, the collectives'
+    timing, the watchdog and the exposition of this world (module
+    docstring). A port that cannot be bound is a warning, never a failed
+    init."""
+    from .. import tracing
+    from ..metrics import StallWatchdog, registry, start_metrics_server
+    from ..parallel import telemetry
+    from ..tracing import flight
+
+    reg = registry()
+    reg.gauge("horovod_rank", help="this process's rank").set(topo.rank)
+    reg.gauge("horovod_size", help="world size").set(topo.size)
+    reg.gauge("horovod_local_rank").set(topo.local_rank)
+    flight.init_flight(f"rank{topo.rank}")
+    rec = tracing.init_recorder(config.trace_dir, topo.rank)
+    if rec is not None:
+        offset = _clock_offset_ns()
+        if offset is not None:
+            rec.set_clock_offset(offset)
+    telemetry.configure(rec is not None or not config.stall_check_disable)
+    if not config.stall_check_disable:
+        _state.watchdog = StallWatchdog(
+            check_time_s=config.stall_warning_s,
+            shutdown_time_s=config.stall_shutdown_s, rank=topo.rank,
+            on_abort=telemetry.abort_stalled,
+            on_warn=lambda _: flight.get_flight().dump("stall"))
+        _state.watchdog.add_source(telemetry.stall_source)
+    if config.metrics_port:
+        try:
+            _state.metrics_server = start_metrics_server(
+                config.metrics_port + topo.local_rank)
+        except OSError as e:
+            log("warning", f"HOROVOD_METRICS_PORT={config.metrics_port}: "
+                f"cannot bind the metrics server ({e}); exposition disabled "
+                "for this rank")
+
+
+def _stop_telemetry(abort: bool) -> None:
+    from ..parallel import telemetry
+    from ..tracing import close_recorder
+
+    if _state.watchdog is not None:
+        _state.watchdog.stop()
+        _state.watchdog = None
+    if _state.metrics_server is not None:
+        try:
+            _state.metrics_server.stop()
+        except Exception:  # noqa: BLE001 - teardown goes on
+            pass
+        _state.metrics_server = None
+    try:
+        telemetry.reset(flush=not abort)
+    except Exception:  # noqa: BLE001 - a dead world's events may not read
+        pass
+    close_recorder()
 
 
 def shutdown(abort: bool = False) -> None:
@@ -239,6 +335,7 @@ def shutdown(abort: bool = False) -> None:
     with _state.lock:
         if _state.topology is None:
             return
+        _stop_telemetry(abort)
         try:
             if abort and dist.get_backend() == "nccl":
                 dist.distributed_c10d._abort_process_group()

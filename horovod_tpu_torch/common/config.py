@@ -3,9 +3,10 @@
 The subset of ``horovod_tpu.common.config`` that the PyTorch port's data
 plane reads: the fusion threshold, the bucket count, the wire compression,
 the hierarchical ladder's switch and DCN-tier bucket cap, the sharded
-layout, the latency-hiding switch, and the elastic switch with the stall
-time that bounds a collective's wait under it, with the
-same env knobs and the same defaults, so one env var tunes both packages
+layout, the latency-hiding switch, the elastic switch, the stall
+watchdog's times (the shutdown time also bounds a collective's wait
+under the elastic switch), and the tracing and metrics exposition knobs,
+with the same env knobs and the same defaults, so one env var tunes both packages
 the same way. Three knobs are read where the JAX package's compiled plane
 reads them, when the wires are chosen: HOROVOD_DCN_COMPRESSION
 (``env_dcn_compression``), HOROVOD_TOPK_RATIO
@@ -69,6 +70,22 @@ def _env_compression() -> str:
     return v
 
 
+# Stall-check warning period: 60 s (the reference's STALL_WARNING_TIME).
+STALL_WARNING_TIME_S = 60.0
+
+
+def _env_stall_check_time(default: float = STALL_WARNING_TIME_S) -> float:
+    """HOROVOD_STALL_CHECK_TIME with HOROVOD_STALL_WARNING_TIME accepted as
+    a fallback alias, as the JAX package reads them."""
+    v = os.environ.get("HOROVOD_STALL_CHECK_TIME")
+    if v not in (None, ""):
+        try:
+            return float(v)
+        except ValueError:
+            pass
+    return _env_float("HOROVOD_STALL_WARNING_TIME", default)
+
+
 def env_dcn_compression() -> str:
     """HOROVOD_DCN_COMPRESSION, lower case; "" when unset."""
     return os.environ.get("HOROVOD_DCN_COMPRESSION", "").lower()
@@ -98,9 +115,18 @@ class Config:
     # torn down and re-formed (elastic/run.py), so the layouts that it
     # cannot carry across a reset refuse to build.
     elastic: bool = False                               # HOROVOD_ELASTIC
-    # Seconds a collective may wait for a peer before it fails: the
-    # process group's timeout under HOROVOD_ELASTIC (0: the default).
+    # Seconds a collective may stay in flight before the stall watchdog
+    # aborts the communicators (0: never), and the process group's timeout
+    # under HOROVOD_ELASTIC (0: the default).
     stall_shutdown_s: float = 0.0                       # HOROVOD_STALL_SHUTDOWN_TIME
+    # The stall watchdog: off switch and warning period.
+    stall_check_disable: bool = False                   # HOROVOD_STALL_CHECK_DISABLE
+    # HOROVOD_STALL_CHECK_TIME (alias: HOROVOD_STALL_WARNING_TIME)
+    stall_warning_s: float = STALL_WARNING_TIME_S
+    # Per-rank span files of the collectives (empty: no spans).
+    trace_dir: str = ""                                 # HOROVOD_TRACE_DIR
+    # Rank r serves /metrics at this port + its local rank (0: off).
+    metrics_port: int = 0                               # HOROVOD_METRICS_PORT
 
     @classmethod
     def from_env(cls) -> "Config":
@@ -122,4 +148,8 @@ class Config:
             elastic=os.environ.get("HOROVOD_ELASTIC") == "1",
             stall_shutdown_s=max(0.0, _env_float("HOROVOD_STALL_SHUTDOWN_TIME",
                                                  0.0)),
+            stall_check_disable=_env_bool("HOROVOD_STALL_CHECK_DISABLE"),
+            stall_warning_s=_env_stall_check_time(),
+            trace_dir=os.environ.get("HOROVOD_TRACE_DIR", ""),
+            metrics_port=_env_int("HOROVOD_METRICS_PORT", 0),
         )

@@ -12,10 +12,9 @@ rebuilt optimizer and a recaptured graph, ``control/training.py``).
 set the canary length and the cooldown after a decision.
 
 Each decision counts in ``horovod_controller_decisions_total{action,
-plane}`` of the port's metrics registry and lands in ``history``. The
-JAX package also records it as a flight-ring event and a trace span
-(``_event``, ``:277-299``); the port has no ``tracing/`` yet, so its
-``_event`` is a hook that does nothing.
+plane}`` of the port's metrics registry, lands in ``history``, and is
+recorded as a flight-ring event and, under HOROVOD_TRACE_DIR, a point
+span (``_event``, as ``:277-299`` of the JAX package's).
 """
 
 from __future__ import annotations
@@ -279,6 +278,25 @@ class ControlLoop:
     # -- telemetry -----------------------------------------------------------
 
     def _event(self, action: str, **attrs) -> None:
-        """The decision's flight-ring event and point span. The JAX package
-        writes them to its ``tracing/``, which the port has not yet: a
-        no-op hook until it does."""
+        """Flight-ring event + point span: the debug bundle's view of this
+        decision. Best-effort — telemetry never blocks the loop."""
+        try:
+            from ..tracing import flight as _flight
+
+            _flight.get_flight().event(
+                "controller", action=action, plane=self.plane,
+                **{k: (v if isinstance(v, (int, float, str, bool,
+                                           type(None))) else str(v))
+                   for k, v in attrs.items()})
+        except Exception:  # noqa: BLE001
+            pass
+        try:
+            from ..tracing import get_recorder
+
+            rec = get_recorder()
+            if rec is not None:
+                rec.point(f"controller.{self.plane}", str(attrs.get(
+                    "knob", "-")), "controller", action,
+                    plane=self.plane)
+        except Exception:  # noqa: BLE001
+            pass

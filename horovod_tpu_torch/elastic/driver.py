@@ -15,7 +15,10 @@ owns the job across membership changes:
   discovery change starts a new generation: failed slots are respawned
   under FRESH task indices (so rank 0 — assigned oldest-member-first — is
   always a survivor carrying committed state) or their host blacklisted
-  after repeated failures (:class:`~.discovery.Blacklist`).
+  after repeated failures (:class:`~.discovery.Blacklist`). A reset that
+  changes no membership (a live member's collective failed or timed out,
+  and it registered for the next generation) opens a generation over the
+  same live members, which the JAX driver never does.
 - every membership event lands in the **elastic event log** (structured,
   JSONL at ``HOROVOD_ELASTIC_EVENT_LOG``; docs/elastic.md explains how to
   read it) and in the driver-process metrics registry.
@@ -441,6 +444,15 @@ def launch_elastic(fn: Callable, args: tuple = (), kwargs: Optional[dict] = None
                 events.emit("job_finished_degraded",
                             missing=[s.key for s in dead])
                 break
+            # A reset that changed no membership: a live member of the
+            # current generation has registered for the next one (its
+            # collective failed, or timed out past the stall time, with
+            # every peer alive), and nothing else will open a generation.
+            # The first such registration opens one over the live members;
+            # the forming flag keeps the others' from opening more.
+            reregistered = (m["pending"] & set(m["ranks"]) & {
+                s.index for s in slots.values() if s.index not in done}) \
+                - m["removed"]
             if dead or to_remove or to_add:
                 for key in to_remove:
                     slot = slots.pop(key)
@@ -453,6 +465,9 @@ def launch_elastic(fn: Callable, args: tuple = (), kwargs: Optional[dict] = None
                 reform("membership changed: "
                        f"{len(dead)} dead, {len(to_remove)} removed, "
                        f"{len(to_add)} added")
+            elif reregistered and not m["forming"]:
+                reform("reset without a change of membership: "
+                       f"{sorted(reregistered)} re-registered")
             if time.monotonic() > deadline:
                 raise TimeoutError(
                     f"elastic job incomplete after {timeout}s "

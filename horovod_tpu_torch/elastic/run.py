@@ -48,7 +48,7 @@ from ..common import basics
 from ..common.basics import HorovodInternalError
 from ..metrics import registry as _registry
 from ..utils.logging import log
-from .state import ElasticState, HostsUpdatedInterrupt
+from .state import RENDEZVOUS_TIMEOUT_S, ElasticState, HostsUpdatedInterrupt
 
 # Failures a reset can heal. HorovodInternalError is what the port's
 # collectives raise when the backend fails (a peer gone, a wait past the
@@ -127,7 +127,7 @@ class _WorkerContext:
             self._drop_agent()
             return False
 
-    def rendezvous(self, timeout: float = 300.0) -> dict:
+    def rendezvous(self, timeout: float = RENDEZVOUS_TIMEOUT_S) -> dict:
         """Blocking re-registration; exports the new assignment into env
         (rank/size/coordinator/generation). Raises WorkerRemovedError when
         the driver dropped this slot."""

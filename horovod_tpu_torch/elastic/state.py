@@ -45,6 +45,7 @@ from __future__ import annotations
 
 import copy
 import os
+from datetime import timedelta
 from typing import Any, NamedTuple, Optional
 
 import numpy as np
@@ -213,6 +214,32 @@ class _TensorSpec(NamedTuple):
     index: int
     shape: tuple
     dtype: torch.dtype
+
+
+# How long a member of a new generation waits for the others to reach
+# ``sync``, and for the driver's next generation (``elastic.run``): a
+# respawned worker starts a process and builds its model first.
+RENDEZVOUS_TIMEOUT_S = 300.0
+
+
+def _arrival_barrier() -> None:
+    """Wait, on keys of the rendezvous store, until every rank of the world
+    has reached ``sync``: under HOROVOD_ELASTIC a collective waits at most
+    the stall time, and a joiner that is slow to start is not a stalled
+    collective. Each rank sets its own key and waits for every rank's, at
+    most ``RENDEZVOUS_TIMEOUT_S``."""
+    from ..common import basics
+
+    seq = basics.world_sequence()
+    store = basics.store()
+    store.set(f"elastic.sync.{seq}.{basics.rank()}", "1")
+    try:
+        store.wait([f"elastic.sync.{seq}.{r}" for r in range(basics.size())],
+                   timedelta(seconds=RENDEZVOUS_TIMEOUT_S))
+    except RuntimeError as exc:
+        raise basics.HorovodInternalError(
+            f"not every rank reached ElasticState.sync within "
+            f"{RENDEZVOUS_TIMEOUT_S:.0f}s") from exc
 
 
 def _broadcast_tree(tree: Any, root_rank: int) -> Any:
@@ -410,10 +437,15 @@ class ElasticState:
         post-rendezvous broadcast; new workers join with whatever state they
         constructed and leave with the survivors' commit), in place. The
         count of commits comes along, so every rank checkpoints at the same
-        commits (``save`` waits for rank 0's) however many it made."""
+        commits (``save`` waits for rank 0's) however many it made. Under
+        HOROVOD_ELASTIC every rank first waits on the rendezvous store
+        until all have arrived, so the broadcast's stall clock starts only
+        then."""
         from ..common import basics
 
         if basics.is_initialized() and basics.size() > 1:
+            if basics.config().elastic:
+                _arrival_barrier()
             root = _broadcast_tree(
                 {"commits": self._commits, "state": self._committed}, root_rank)
             object.__setattr__(self, "_committed", root["state"])

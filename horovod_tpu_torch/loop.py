@@ -21,14 +21,20 @@ card there is no eager path: a capture that fails raises.
 
 from __future__ import annotations
 
+import itertools
 import time
 
 import torch
 
 from .common import basics
 from .data import DeviceCache
+from .parallel import telemetry
+from .tracing import record_compiled_plan
 
 WARMUP_STEPS = 3
+
+# The captures of this process, numbered from 1 in the compiled-plan lines.
+_CAPTURES = itertools.count(1)
 
 # One warm-up stream per device: cuBLAS keeps a workspace for every stream
 # it has run on until the process ends, so a stream made per capture would
@@ -98,6 +104,7 @@ class ScanTrainLoop:
         self.cache = cache
         self.k = steps_per_dispatch
         self.optimizer = getattr(optimizer, "optimizer", optimizer)
+        self.plan = getattr(optimizer, "compiled_plan", None)
         self.counter = cache.counter()
         self.device = self.counter.device
         self.losses = torch.zeros(self.k, device=self.device)
@@ -138,13 +145,18 @@ class ScanTrainLoop:
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
         try:
-            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            with telemetry.capture_guard(), \
+                    torch.cuda.graph(graph, capture_error_mode="thread_local"):
                 self._step()
         except RuntimeError as e:
             raise RuntimeError(
                 f"capturing the training step in a CUDA graph failed: {e}") from e
         torch.cuda.synchronize(self.device)
         self.graph = graph
+        if self.plan is not None:
+            # The port's counterpart of a compile: the plan is fixed into
+            # the graph, which no later replay reports on.
+            record_compiled_plan(*self.plan, capture=next(_CAPTURES))
         self.capture_s += time.perf_counter() - t0
 
     def __call__(self) -> torch.Tensor:

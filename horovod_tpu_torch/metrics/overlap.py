@@ -1,14 +1,22 @@
-"""How much of the gradient exchange the backward pass hides.
+"""How much of the gradient exchange the backward pass hides, and the
+plan gauges of the exchange.
 
-The counterpart of ``horovod_tpu.metrics.overlap``. The port keeps no
-metrics registry, so each function returns its values:
+The counterpart of ``horovod_tpu.metrics.overlap``:
 
 - ``record_plan(plan, threshold)``: a fusion plan's buckets in issue order
   with their bytes (pad included), the largest bucket's occupancy of the
   threshold, and the planned bound on the hidden share of the bytes,
   ``1 - last bucket / total`` for a reverse-order plan of more than one
   bucket (bucket i's collective can run under the compute that produces
-  buckets i+1..K-1; nothing runs under the last one), else 0.
+  buckets i+1..K-1; nothing runs under the last one), else 0. It returns
+  them and sets the reference's gauges (``horovod_fusion_*``,
+  ``horovod_overlap_efficiency_planned``).
+- ``record_wire_plan``, ``record_tier_plan``, ``record_shard_plan`` and
+  ``record_sharded_state_bytes``: the reference's per-step gauges of the
+  wire dtypes, the ladder's tiers and the ZeRO exchange, which
+  ``DistributedOptimizer`` sets once per plan (the reference's compiled
+  plane sets them once per trace); the ``last_*`` accessors read them
+  back.
 - ``parse_overlap(events)``: from a ``torch.profiler`` Chrome trace, each
   collective kernel's device time and the part of it that ran while a
   compute kernel ran on the same device; ``overlap_efficiency`` is the
@@ -35,6 +43,7 @@ from typing import Callable, Optional
 import torch
 
 from ..parallel.fusion import FusionPlan
+from .registry import DEFAULT_BYTE_BUCKETS, registry
 
 # The reference's markers of a collective in a device op's name.
 _COLLECTIVE_MARKERS = (
@@ -46,9 +55,15 @@ _COLLECTIVE_MARKERS = (
 )
 
 
+# Latest recorded plan: [(issue_index, nbytes), ...] in issue order.
+_last_plan: Optional[list] = None
+
+
 def record_plan(plan: FusionPlan, threshold: int) -> dict:
     """``{"buckets": [(issue_index, nbytes), ...], "total_bytes",
-    "occupancy", "planned_efficiency"}`` of ``plan``."""
+    "occupancy", "planned_efficiency"}`` of ``plan``, also set as the
+    reference's gauges."""
+    global _last_plan
     sizes = []
     for i, bucket in enumerate(plan.buckets):
         elems = sum(d.size for d in bucket)
@@ -57,9 +72,32 @@ def record_plan(plan: FusionPlan, threshold: int) -> dict:
     planned = 0.0
     if plan.reverse_order and len(sizes) > 1:
         planned = 1.0 - sizes[-1][1] / total
-    return {"buckets": sizes, "total_bytes": total,
-            "occupancy": max(n for _, n in sizes) / max(1, threshold),
+    occupancy = max(n for _, n in sizes) / max(1, threshold)
+    reg = registry()
+    reg.gauge("horovod_fusion_buckets",
+              help="buckets in the latest compiled fusion plan").set(len(sizes))
+    reg.gauge("horovod_fusion_planned_bytes",
+              help="total gradient bytes in the latest fusion plan").set(total)
+    reg.gauge("horovod_fusion_buffer_occupancy",
+              help="largest bucket bytes / fusion threshold").set(occupancy)
+    hist = reg.histogram("horovod_fusion_bucket_bytes",
+                         help="per-bucket byte sizes across recorded plans",
+                         buckets=DEFAULT_BYTE_BUCKETS)
+    for _, n in sizes:
+        hist.observe(n)
+    reg.gauge(
+        "horovod_overlap_efficiency_planned",
+        help="byte fraction of the bucketed allreduce that the plan allows "
+             "XLA to hide under backward compute (0 = single fused buffer)",
+    ).set(planned)
+    _last_plan = sizes
+    return {"buckets": sizes, "total_bytes": total, "occupancy": occupancy,
             "planned_efficiency": planned}
+
+
+def last_plan() -> Optional[list]:
+    """[(issue_index, nbytes), ...] of the most recently recorded plan."""
+    return _last_plan
 
 
 def _is_collective(name: str) -> bool:
@@ -182,3 +220,165 @@ def measure_overlap(run_step: Callable[[], None], steps: int = 3,
         if sync is not None:
             sync()
     return parse_overlap(chrome_events(prof))
+
+
+# Latest wire-compression plan: (compression, [(orig_nbytes, compressed?,
+# wire_nbytes), ...]) in bucket-issue order (tests + snapshot annotations).
+_last_wire_plan: Optional[tuple] = None
+
+
+def record_wire_plan(compression: str, buckets: list) -> list:
+    """Record an exchange plan's per-bucket wire-compression verdicts, once
+    per plan; the gauges describe the PER-STEP wire cost of the latest
+    plan (the collectives count ``horovod_wire_bytes_total`` as they
+    ship).
+
+    ``buckets``: [(orig_nbytes, compressed?, wire_nbytes), ...]."""
+    global _last_wire_plan
+    reg = registry()
+    wire_on = [(n, w) for n, c, w in buckets if c]
+    sent = sum(w for _, w in wire_on) + sum(
+        n for n, c, _ in buckets if not c)
+    saved = sum(n - w for n, w in wire_on)
+    reg.gauge(
+        "horovod_compiled_wire_bytes_per_step",
+        help="gradient bytes per step the latest compiled plan puts on the "
+             "wire (after per-bucket compression)").set(sent)
+    reg.gauge(
+        "horovod_compiled_wire_bytes_saved_per_step",
+        help="gradient bytes per step the wire dtype saves vs uncompressed "
+             "in the latest compiled plan").set(saved)
+    reg.gauge(
+        "horovod_compiled_wire_buckets",
+        help="buckets riding the compressed wire in the latest plan"
+    ).set(len(wire_on))
+    reg.set_info("wire_compression", {
+        "compression": compression, "buckets": len(buckets),
+        "compressed_buckets": len(wire_on)})
+    _last_wire_plan = (compression, list(buckets))
+    return buckets
+
+
+def last_wire_plan() -> Optional[tuple]:
+    """(compression, [(orig_nbytes, compressed?, wire_nbytes), ...]) of the
+    most recent fused_allreduce trace."""
+    return _last_wire_plan
+
+
+# Latest fabric-tier plan of the hierarchical compiled path:
+# {"hierarchical": bool, "ici_wire": str, "dcn_wire": str, "ici_size": int,
+#  "bytes_per_step": {"ici": n, "dcn": n}, "buckets": int}.
+_last_tier_plan: Optional[dict] = None
+
+
+def record_tier_plan(hierarchical: bool, ici_wire: str, dcn_wire: str,
+                     ici_size: int, bucket_bytes: list,
+                     dcn_bucket_bytes: list) -> dict:
+    """Record the latest fused_allreduce call's per-fabric-tier plan
+    (trace time, once per compile — same reasoning as record_wire_plan).
+
+    ``bucket_bytes``: per-bucket bytes each device moves over ICI (the
+    reduce-scatter/all-gather stages, at the ICI wire dtype);
+    ``dcn_bucket_bytes``: per-bucket bytes each device moves over DCN (the
+    cross-host psum carries 1/ici_size of the bucket, at the DCN wire
+    dtype). For a flat plan the DCN list is empty and ``hierarchical`` is
+    False — the gauges always say which ladder the trace compiled."""
+    global _last_tier_plan
+    reg = registry()
+    plan = {"hierarchical": bool(hierarchical), "ici_wire": ici_wire,
+            "dcn_wire": dcn_wire, "ici_size": int(ici_size),
+            "buckets": len(bucket_bytes),
+            "bytes_per_step": {"ici": int(sum(bucket_bytes)),
+                               "dcn": int(sum(dcn_bucket_bytes))}}
+    reg.gauge(
+        "horovod_compiled_hierarchical",
+        help="1 when the latest compiled plan rides the two-level "
+             "(ici, dcn) ladder, 0 for the flat allreduce").set(
+        1.0 if hierarchical else 0.0)
+    for tier, total in plan["bytes_per_step"].items():
+        reg.gauge(
+            "horovod_compiled_tier_bytes_per_step",
+            help="gradient bytes per step per device the latest compiled "
+                 "plan moves over each fabric tier", tier=tier).set(total)
+    reg.set_info("compiled_tier_plan", plan)
+    _last_tier_plan = plan
+    return plan
+
+
+def last_tier_plan() -> Optional[dict]:
+    """The most recent fused_allreduce trace's fabric-tier plan."""
+    return _last_tier_plan
+
+
+# Latest sharded (ZeRO) plan of the compiled path:
+# {"batch": int, "shard": int, "model": int, "buckets": int,
+#  "scatter_bytes": [...], "gather_bytes": [...],
+#  "bytes_per_step": {"scatter": n, "gather": n}}.
+_last_shard_plan: Optional[dict] = None
+
+
+def record_shard_plan(batch_size: int, shard_size: int,
+                      scatter_bytes: list, gather_bytes: list,
+                      model_size: int = 1) -> dict:
+    """Record the latest sharded gradient exchange's plan (trace time, once
+    per compile — same reasoning as record_wire_plan).
+
+    ``scatter_bytes``: per-bucket bytes of the reduce-scatter operand (at
+    the wire dtype — what each bucket's collective moves);
+    ``gather_bytes``: per-bucket bytes of the parameter-refresh allgather
+    (at the storage dtype). On a degenerate shard=1 mesh the gauges still
+    record (scatter == the DP allreduce operand, gather == 0 collectives
+    but the refresh bytes are reported for comparability).
+
+    ``model_size`` is the third ('model') mesh axis: the byte
+    lists are one model rank's exchange over its local slice tree, and
+    the gauge is how the controller and dashboards see which 3-D shape
+    the step compiled (1 = the 2-D plan)."""
+    global _last_shard_plan
+    reg = registry()
+    plan = {"batch": int(batch_size), "shard": int(shard_size),
+            "model": int(model_size),
+            "buckets": len(scatter_bytes),
+            "scatter_bytes": [int(n) for n in scatter_bytes],
+            "gather_bytes": [int(n) for n in gather_bytes],
+            "bytes_per_step": {"scatter": int(sum(scatter_bytes)),
+                               "gather": int(sum(gather_bytes))}}
+    for axis, size in (("batch", batch_size), ("shard", shard_size),
+                       ("model", model_size)):
+        reg.gauge(
+            "horovod_compiled_shard_plan",
+            help="axis sizes of the latest compiled sharded "
+                 "(reduce-scatter/allgather) plan's "
+                 "('batch','shard','model') mesh (model=1 = the 2-D plan)",
+            axis=axis).set(int(size))
+    for stage, total in plan["bytes_per_step"].items():
+        reg.gauge(
+            "horovod_compiled_shard_bytes_per_step",
+            help="gradient-exchange bytes per step per device the latest "
+                 "compiled sharded plan moves in each stage (scatter = "
+                 "reduce-scatter operand at wire dtype, gather = parameter "
+                 "refresh at storage dtype)", stage=stage).set(total)
+    reg.set_info("compiled_shard_plan", plan)
+    _last_shard_plan = plan
+    return plan
+
+
+def last_shard_plan() -> Optional[dict]:
+    """The most recent sharded gradient exchange's plan."""
+    return _last_shard_plan
+
+
+def record_sharded_state_bytes(total_bytes: int, shard_size: int,
+                               model_size: int = 1) -> float:
+    """Publish the per-rank parameter+optimizer-state footprint of a sharded
+    training state (~shard-fold smaller than DP's
+    fully-replicated state). ``total_bytes`` is the global state
+    size; each rank persists 1/(shard_size*model_size) of it — the model
+    axis slices the state again on top of the ZeRO partition."""
+    per_rank = total_bytes / max(1, shard_size * model_size)
+    registry().gauge(
+        "horovod_sharded_state_bytes_per_rank",
+        help="bytes of parameters + optimizer state each rank persists "
+             "under the current sharded (ZeRO) layout; equals the full "
+             "state size when shard=1 (plain DP)").set(per_rank)
+    return per_rank

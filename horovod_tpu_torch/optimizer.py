@@ -46,6 +46,15 @@ after the backward pass does so in a tensor hook instead
 (``models/pipeline_lm.py`` sums its outer leaves over the pipeline that
 way).
 
+Each plan is recorded once, when the optimizer is built, as the JAX
+package's compiled plane records it once per trace: the plan gauges of
+``metrics/overlap.py`` (``record_plan``, ``record_wire_plan``, and
+``record_tier_plan`` or, sharded, ``record_shard_plan``) and, under
+HOROVOD_TRACE_DIR, ``tracing.record_compiled_plan``, with the reference's
+arguments. The collective of bucket ``b`` is traced as ``grad.<b>`` (ZeRO's
+parameter all-gather as ``param.<b>``), and the bytes it ships at a
+compressed wire dtype count in ``horovod_wire_bytes_total``.
+
 Under HOROVOD_ELASTIC the optimizer takes the flat exchange over the world
 only (``group=None``, neither hierarchical nor sharded), and
 ``reset_exchange`` makes it fit for the next world after an elastic reset.
@@ -61,8 +70,9 @@ import torch
 import torch.distributed as dist
 
 from .common import basics
-from .compression import Compression
-from .parallel import collectives, fusion, sharded as sh
+from .common.config import env_dcn_compression
+from .compression import Compression, compression_name
+from .parallel import collectives, fusion, sharded as sh, telemetry
 from .parallel.collectives import ReduceOp
 from .parallel.mesh import hierarchical_groups, sharded_groups
 
@@ -201,8 +211,55 @@ class DistributedOptimizer:
                 self._bucket_of[d.index] = b
         self._hooks = []
         self._reset()
+        self._record_plan(dcn_compression)
         if self.latency_hiding:
             self._init_hooks()
+
+    def _record_plan(self, dcn_compression) -> None:
+        """The plan gauges and the compiled-plan line of this optimizer's
+        plan, with the arguments the JAX package's ``fused_allreduce`` and
+        sharded planner record at trace time."""
+        from .metrics import overlap
+        from .tracing import record_compiled_plan
+
+        name = compression_name(self.compression)
+        buckets = self.plan.buckets
+        dtypes = [fusion._bucket_dtype(b) for b in buckets]
+        sizes = [fusion._padded_size(b, self.plan.pad_to) for b in buckets]
+        fused = [n * d.itemsize for n, d in zip(sizes, dtypes)]
+        ici = self.wires if self.sharded else self.wires[0]
+        overlap.record_plan(self.plan, self.shard_plan.threshold
+                            if self.sharded else self._plan_threshold)
+        overlap.record_wire_plan(name, [
+            (b, w is not None, n * w.itemsize if w is not None else 0)
+            for b, n, w in zip(fused, sizes, ici)])
+        shipped = [n * (w or d).itemsize for n, d, w in zip(sizes, dtypes, ici)]
+        if self.sharded:
+            overlap.record_shard_plan(
+                self.layout.batch_size, self.layout.shard_size,
+                scatter_bytes=shipped, gather_bytes=fused,
+                model_size=self.shard_plan.model_size)
+        # The arguments of the compiled-plan line: ``loop.py`` writes it
+        # again at each CUDA-graph capture of a step over this optimizer.
+        self.compiled_plan = (self.plan.num_buckets, fused, name,
+                              [w is not None for w in ici])
+        record_compiled_plan(*self.compiled_plan)
+        if self.sharded:
+            return
+        dcn_name = ""
+        if self.hierarchical:
+            env = env_dcn_compression()
+            dcn_name = "adaptive" if (name == "adaptive" and dcn_compression
+                                      is None and not env) \
+                else compression_name(dcn_compression or env or self.compression)
+        pad_to = self.plan.pad_to
+        overlap.record_tier_plan(
+            self.hierarchical, ici_wire=name, dcn_wire=dcn_name,
+            ici_size=pad_to, bucket_bytes=shipped,
+            dcn_bucket_bytes=[
+                (n // pad_to) * (dw or w or d).itemsize
+                for n, d, w, dw in zip(sizes, dtypes, ici, self.wires[1])]
+            if self.hierarchical else [])
 
     def _init_flat(self, owned, hierarchical, groups, dcn_compression,
                    dcn_threshold) -> None:
@@ -221,6 +278,7 @@ class DistributedOptimizer:
             pad_to = self.groups.ici_size
             threshold = fusion.dcn_capped_threshold(threshold, dcn_threshold,
                                                     pad_to)
+        self._plan_threshold = threshold
         self.plan = fusion.build_plan(self.params, threshold, self.num_buckets,
                                       pad_to)
         # (ICI, DCN) wire dtype per bucket, chosen once: the plan and the
@@ -343,16 +401,21 @@ class DistributedOptimizer:
         buf = fusion.fuse_bucket(grads, self.plan, b)
         wire = self.wires[b] if self.sharded else self.wires[0][b]
         shipped = buf.to(wire) if wire is not None else buf
+        if wire is not None:
+            telemetry.count_wire(shipped.numel() * shipped.element_size(),
+                                 shipped)
+        name = f"grad.{b}"
         if self.hierarchical:
             out = self._chain(lambda: collectives.hierarchical_allreduce(
                 shipped, self.groups, average=self.op == ReduceOp.AVERAGE,
-                dcn_wire_dtype=self.wires[1][b]))
+                dcn_wire_dtype=self.wires[1][b], name=name))
         elif self.sharded and self.shard_plan.shard_size > 1:
             out = self._chain(lambda: sh.scatter_bucket(
-                shipped, buf.dtype, self.layout, self.op))
+                shipped, buf.dtype, self.layout, self.op, name=name))
         else:
             group = self.layout.batch_group if self.sharded else self.group
-            out = collectives.allreduce_async_(shipped, self.op, group)
+            out = collectives.allreduce_async_(shipped, self.op, group,
+                                               name=name)
         # ``shipped`` stays referenced until synchronize: the collective
         # reads it on another stream than the one it was made on.
         self._inflight.append((b, buf.dtype, shipped, out))

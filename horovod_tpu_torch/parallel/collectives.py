@@ -21,6 +21,15 @@ once), a wait past the process group's timeout (NCCL under
 here, where the collective is issued or waited on (``backend_errors``):
 the one exception ``elastic.run`` heals by a reset. Any other error keeps
 its type.
+
+Every collective here reports to ``parallel/telemetry.py``: counters at
+issue, device times from CUDA events (host clocks on gloo), spans under
+``HOROVOD_TRACE_DIR`` named by the caller's ``name=`` (else the op), and
+the stall watchdog's view of what is in flight; nothing under CUDA-graph
+capture. Each synchronous call is issued as ``async_op=True`` and waited
+on at once, which is what ``torch.distributed`` does for
+``async_op=False``; on gloo the wait polls the work, so that the stall
+watchdog's abort ends it.
 """
 
 from __future__ import annotations
@@ -34,6 +43,7 @@ import torch
 import torch.distributed as dist
 
 from ..common import basics
+from . import telemetry
 
 
 class ReduceOp(Enum):
@@ -64,36 +74,68 @@ _BACKEND_FAILURES = ("gloo/transport", "Connection closed by peer",
 
 
 @contextlib.contextmanager
-def backend_errors(what: str):
+def backend_errors(what: str, op: Optional[str] = None):
     """Raise a failure of the collective backend inside the block as
-    ``HorovodInternalError`` (the original chained), naming ``what``."""
+    ``HorovodInternalError`` (the original chained), naming ``what``, and
+    count it in ``horovod_collective_errors_total{op}`` (``op`` None:
+    ``what``)."""
     try:
         yield
     except basics.HorovodInternalError:
+        telemetry.count_error(op or what)
         raise
     except RuntimeError as e:
         if not isinstance(e, dist.DistError) and \
                 not any(m in str(e) for m in _BACKEND_FAILURES):
             raise
+        telemetry.count_error(op or what)
         raise basics.HorovodInternalError(
             f"{what}: the collective backend failed, a peer is gone or did "
             f"not take part in time ({type(e).__name__}: {e})") from e
 
 
+_OP_OF = {"allreduce_": "allreduce", "allreduce_async_": "allreduce",
+          "hierarchical_allreduce": "allreduce", "broadcast": "broadcast",
+          "allgather": "allgather", "all_gather_into": "allgather",
+          "reducescatter": "reducescatter", "alltoall": "alltoall",
+          "ppermute": "ppermute", "broadcast_object": "broadcast",
+          "allgather_object": "allgather"}
+
+
 def _backend_errors(fn):
     """``fn`` with ``backend_errors`` around it."""
+    op = _OP_OF.get(fn.__name__)
+
     @functools.wraps(fn)
     def wrapper(*args, **kwargs):
-        with backend_errors(fn.__name__):
+        with backend_errors(fn.__name__, op):
             return fn(*args, **kwargs)
     return wrapper
 
 
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _run(op: str, tensor: torch.Tensor, name: Optional[str], call) -> None:
+    """One synchronous collective: ``call()`` issues it with
+    ``async_op=True`` and it is waited on here, timed and counted."""
+    f = telemetry.begin(op, tensor, _nbytes(tensor), name)
+    work = call()
+    if f is not None and not f.cuda:
+        telemetry.issued(f, work)
+        telemetry.wait(f, work)
+        return
+    work.wait()
+    telemetry.finish(f)
+
+
 @_backend_errors
 def allreduce_(tensor: torch.Tensor, op: ReduceOp = ReduceOp.AVERAGE,
-               group: Group = None) -> torch.Tensor:
+               group: Group = None, name: Optional[str] = None) -> torch.Tensor:
     """Allreduce ``tensor`` over ``group`` in place and return it."""
-    dist.all_reduce(tensor, op=_DIST_OPS[op], group=group)
+    _run("allreduce", tensor, name, lambda: dist.all_reduce(
+        tensor, op=_DIST_OPS[op], group=group, async_op=True))
     if op == ReduceOp.AVERAGE:
         tensor.div_(dist.get_world_size(group))
     return tensor
@@ -104,12 +146,14 @@ class Pending:
     card; the host on gloo) wait for it, divides for AVERAGE and returns
     the tensor."""
 
-    def __init__(self, work, tensor: torch.Tensor, divisor: Optional[int]):
+    def __init__(self, work, tensor: torch.Tensor, divisor: Optional[int],
+                 flight=None):
         self.work, self.tensor, self.divisor = work, tensor, divisor
+        self.flight = flight
 
     def wait(self) -> torch.Tensor:
-        with backend_errors("allreduce wait"):
-            self.work.wait()
+        with backend_errors("allreduce wait", "allreduce"):
+            telemetry.wait(self.flight, self.work)
         if self.divisor is not None:
             self.tensor.div_(self.divisor)
         return self.tensor
@@ -117,18 +161,20 @@ class Pending:
 
 @_backend_errors
 def allreduce_async_(tensor: torch.Tensor, op: ReduceOp = ReduceOp.AVERAGE,
-                     group: Group = None) -> Pending:
+                     group: Group = None, name: Optional[str] = None) -> Pending:
     """``allreduce_`` issued with ``async_op=True``: nothing waits for it
     until ``wait()``, which divides for AVERAGE as ``allreduce_`` does."""
+    f = telemetry.begin("allreduce", tensor, _nbytes(tensor), name)
     work = dist.all_reduce(tensor, op=_DIST_OPS[op], group=group, async_op=True)
+    telemetry.issued(f, work)
     divisor = dist.get_world_size(group) if op == ReduceOp.AVERAGE else None
-    return Pending(work, tensor, divisor)
+    return Pending(work, tensor, divisor, f)
 
 
 def allreduce(tensor: torch.Tensor, op: ReduceOp = ReduceOp.AVERAGE,
-              group: Group = None) -> torch.Tensor:
+              group: Group = None, name: Optional[str] = None) -> torch.Tensor:
     """Allreduce into a new tensor (default: average, as hvd.allreduce)."""
-    return allreduce_(tensor.clone(), op, group)
+    return allreduce_(tensor.clone(), op, group, name)
 
 
 def grouped_allreduce(tensors, op: ReduceOp = ReduceOp.AVERAGE,
@@ -154,37 +200,44 @@ def _global(group: Group, rank: int) -> int:
 
 @_backend_errors
 def broadcast(tensor: torch.Tensor, root_rank: int = 0,
-              group: Group = None) -> torch.Tensor:
+              group: Group = None, name: Optional[str] = None) -> torch.Tensor:
     """Overwrite ``tensor`` with the value of ``root_rank`` (a rank within
     ``group``), in place."""
-    dist.broadcast(tensor, src=_global(group, root_rank), group=group)
+    _run("broadcast", tensor, name, lambda: dist.broadcast(
+        tensor, src=_global(group, root_rank), group=group, async_op=True))
     return tensor
 
 
 @_backend_errors
-def allgather(tensor: torch.Tensor, group: Group = None) -> torch.Tensor:
+def allgather(tensor: torch.Tensor, group: Group = None,
+              name: Optional[str] = None) -> torch.Tensor:
     """Concatenate every rank's tensor along dim 0 (shapes must match)."""
     parts = [torch.empty_like(tensor) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, tensor.contiguous(), group=group)
+    src = tensor.contiguous()
+    _run("allgather", src, name, lambda: dist.all_gather(
+        parts, src, group=group, async_op=True))
     return torch.cat(parts, dim=0)
 
 
 @_backend_errors
 def reducescatter(x: torch.Tensor, group: Group = None,
-                  average: bool = False) -> torch.Tensor:
+                  average: bool = False, name: Optional[str] = None
+                  ) -> torch.Tensor:
     """Sum ``x`` over ``group`` and hand group rank j the j-th of n equal
     dim-0 shards (dim 0 must divide by n)."""
     n = dist.get_world_size(group)
     if x.shape[0] % n:
         raise ValueError(f"dim 0 of {tuple(x.shape)} not divisible by {n} ranks")
     out = x.new_empty((x.shape[0] // n, *x.shape[1:]))
-    dist.reduce_scatter_tensor(out, x.contiguous(), group=group)
+    src = x.contiguous()
+    _run("reducescatter", src, name, lambda: dist.reduce_scatter_tensor(
+        out, src, group=group, async_op=True))
     return out.div_(n) if average else out
 
 
 @_backend_errors
 def alltoall(x: torch.Tensor, group: Group = None, split_dim: int = 0,
-             concat_dim: int = 0) -> torch.Tensor:
+             concat_dim: int = 0, name: Optional[str] = None) -> torch.Tensor:
     """Cut ``x`` into n pieces along ``split_dim``, send piece j to group
     rank j, and concatenate the pieces received along ``concat_dim`` in
     rank order (``lax.all_to_all(..., tiled=True)``)."""
@@ -194,7 +247,8 @@ def alltoall(x: torch.Tensor, group: Group = None, split_dim: int = 0,
                          f"by {n} ranks")
     send = torch.stack(x.chunk(n, dim=split_dim))    # piece j at [j]
     recv = torch.empty_like(send)
-    dist.all_to_all_single(recv, send, group=group)
+    _run("alltoall", send, name, lambda: dist.all_to_all_single(
+        recv, send, group=group, async_op=True))
     return torch.cat(recv.unbind(0), dim=concat_dim)
 
 
@@ -232,11 +286,14 @@ class PPermute(torch.autograd.Function):
 
 
 @_backend_errors
-def all_gather_into(x: torch.Tensor, group: Group = None) -> torch.Tensor:
+def all_gather_into(x: torch.Tensor, group: Group = None,
+                    name: Optional[str] = None) -> torch.Tensor:
     """The group's ``x`` concatenated along dim 0 in one buffer (one
     ``all_gather_into_tensor``: ``lax.all_gather(..., tiled=True)``)."""
     out = x.new_empty((x.shape[0] * dist.get_world_size(group), *x.shape[1:]))
-    dist.all_gather_into_tensor(out, x.contiguous(), group=group)
+    src = x.contiguous()
+    _run("allgather", src, name, lambda: dist.all_gather_into_tensor(
+        out, src, group=group, async_op=True))
     return out
 
 
@@ -260,21 +317,35 @@ def sparse_allreduce(values: torch.Tensor, indices: torch.Tensor,
 
 @_backend_errors
 def hierarchical_allreduce(x: torch.Tensor, groups, average: bool = True,
-                           dcn_wire_dtype: Optional[torch.dtype] = None
-                           ) -> torch.Tensor:
+                           dcn_wire_dtype: Optional[torch.dtype] = None,
+                           name: Optional[str] = None) -> torch.Tensor:
     """The ladder: reduce-scatter over ICI, allreduce over DCN (at
     ``dcn_wire_dtype`` when given: the shard is cast for that one call and
     cast back), all-gather over ICI; the average is divided last, by the
     world's size, as the reference divides it. Three collectives, each
-    issued also in a group of one. dim 0 must divide by the ICI size: the
+    issued also in a group of one, counted and traced as one allreduce
+    with a ``wire`` span per tier. dim 0 must divide by the ICI size: the
     fusion plan pads each bucket to it. ``groups``: a
     ``parallel.mesh.Hierarchy``."""
-    shard = reducescatter(x, groups.ici_group)
+    n = groups.ici_size
+    if x.shape[0] % n:
+        raise ValueError(f"dim 0 of {tuple(x.shape)} not divisible by {n} ranks")
+    src = x.contiguous()
+    f = telemetry.begin("allreduce", src, _nbytes(src), name)
+    shard = src.new_empty((src.shape[0] // n, *src.shape[1:]))
+    dist.reduce_scatter_tensor(shard, src, group=groups.ici_group)
+    telemetry.segment(f, "local")
     wire = shard
     if dcn_wire_dtype is not None and dcn_wire_dtype != shard.dtype:
         wire = shard.to(dcn_wire_dtype)
     dist.all_reduce(wire, group=groups.dcn_group)
-    out = all_gather_into(wire.to(shard.dtype), groups.ici_group)
+    telemetry.segment(f, "cross")
+    back = wire.to(shard.dtype)
+    out = back.new_empty((back.shape[0] * n, *back.shape[1:]))
+    dist.all_gather_into_tensor(out, back, group=groups.ici_group)
+    telemetry.finish(f, "local")
+    telemetry.count_wire(_nbytes(src) + _nbytes(out), src, "local")
+    telemetry.count_wire(_nbytes(wire), src, "cross")
     if average:
         out.div_(groups.ici_size * groups.dcn_size)
     return out
@@ -282,7 +353,8 @@ def hierarchical_allreduce(x: torch.Tensor, groups, average: bool = True,
 
 @_backend_errors
 def ppermute(tensors: Sequence[torch.Tensor], perm: Sequence[tuple[int, int]],
-             group: Optional[dist.ProcessGroup] = None) -> list:
+             group: Optional[dist.ProcessGroup] = None,
+             name: Optional[str] = None) -> list:
     """Send each tensor along ``perm``, pairs ``(source, destination)`` of
     ranks within ``group`` (None: the default group), as ``lax.ppermute``:
     this rank returns what its source sent, or zeros if no pair names it as
@@ -307,8 +379,11 @@ def ppermute(tensors: Sequence[torch.Tensor], perm: Sequence[tuple[int, int]],
     if src:
         ops += [dist.P2POp(dist.irecv, o, peer(src[0]), group) for o in out]
     if ops:
+        f = telemetry.begin("ppermute", tensors[0],
+                            sum(_nbytes(t) for t in tensors), name)
         for req in dist.batch_isend_irecv(ops):
             req.wait()
+        telemetry.finish(f)
     return out
 
 
@@ -334,7 +409,9 @@ def broadcast_object(obj, root_rank: int = 0, name: Optional[str] = None):
     if basics.size() == 1:
         return obj
     box = [obj if basics.rank() == root_rank else None]
+    f = telemetry.begin("broadcast", None, 0, name)
     dist.broadcast_object_list(box, src=root_rank)
+    telemetry.finish(f)
     return box[0]
 
 
@@ -347,5 +424,7 @@ def allgather_object(obj, name: Optional[str] = None) -> list:
     if basics.size() == 1:
         return [obj]
     out = [None] * basics.size()
+    f = telemetry.begin("allgather", None, 0, name)
     dist.all_gather_object(out, obj)
+    telemetry.finish(f)
     return out

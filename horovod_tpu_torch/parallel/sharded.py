@@ -178,8 +178,9 @@ def gather_params(rows: ShardedBuckets, plan: ShardPlan, layout,
     collective is issued. ``layout``: a ``parallel.mesh.ShardedLayout``."""
     with torch.no_grad():
         flat = [row.detach() if plan.shard_size == 1
-                else collectives.all_gather_into(row.detach(), layout.shard_group)
-                for row in rows]
+                else collectives.all_gather_into(row.detach(), layout.shard_group,
+                                                 name=f"param.{b}")
+                for b, row in enumerate(rows)]
         fusion.unfuse_(flat, plan.base, out)
 
 
@@ -227,14 +228,17 @@ def reduce_scatter_gradients(grads: Sequence[torch.Tensor], plan: ShardPlan,
 
 
 def scatter_bucket(shipped: torch.Tensor, dtype: torch.dtype, layout,
-                   op: ReduceOp = ReduceOp.AVERAGE) -> torch.Tensor:
+                   op: ReduceOp = ReduceOp.AVERAGE,
+                   name: Optional[str] = None) -> torch.Tensor:
     """One bucket's exchange at ``shard_size > 1``: reduce-scatter (sum)
     the buffer ``shipped`` (at its wire dtype) over the shard group, sum
     the chunk over the batch group, cast it back to ``dtype`` and for
-    AVERAGE divide by batch x shard. Each step reads the one before."""
-    chunk = collectives.reducescatter(shipped, layout.shard_group)
+    AVERAGE divide by batch x shard. Each step reads the one before.
+    ``name`` traces the scatter (the batch sum as ``<name>.batch``)."""
+    chunk = collectives.reducescatter(shipped, layout.shard_group, name=name)
     if layout.batch_size > 1:
-        collectives.allreduce_(chunk, ReduceOp.SUM, layout.batch_group)
+        collectives.allreduce_(chunk, ReduceOp.SUM, layout.batch_group,
+                               name=f"{name}.batch" if name else None)
     chunk = chunk.to(dtype)
     if op == ReduceOp.AVERAGE:
         chunk.div_(layout.shard_size * layout.batch_size)

@@ -435,7 +435,8 @@ class ElasticDriverService(DriverService):
 
     def membership(self) -> dict:
         """Snapshot for the supervision loop: current generation, whether a
-        reset is in flight, member indices, and per-rank results so far."""
+        reset is in flight, member indices, the indices registered for the
+        next generation, and per-rank results so far."""
         with self._lock:
             return {
                 "generation": self.generation,
@@ -443,6 +444,7 @@ class ElasticDriverService(DriverService):
                 "members": dict(self._member_since),
                 "ranks": dict(self._ranks or {}),
                 "removed": set(self._removed),
+                "pending": set(self._pending),
                 "results": dict(self._results),
             }
 

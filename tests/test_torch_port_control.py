@@ -357,3 +357,44 @@ def test_controller_drives_the_recapture_bit_equal(world_of_one):
     assert all(p["verdict"] in ("commit", "rollback") for p in tc.loop.history)
     basics.shutdown()
     assert _dispatch_losses(TrainRecapture(config, "cpu"), 12) == losses
+
+
+class _NoFlight:
+    def event(self, *a, **k):
+        pass
+
+    def dump(self, *a, **k):
+        return ""
+
+
+def test_anomaly_detector_feeds_the_controller():
+    """The port's own ``AnomalyDetector`` (``metrics/anomaly.py``) drives
+    ``TrainingController(anomaly=)`` as the JAX package's drives its own:
+    a wire-byte spike after a steady baseline fires ``wire_drift``, the
+    controller takes it at its next step, and both packages record the
+    same firings, engine tables and decisions. The controller unsubscribes
+    on ``close()``."""
+    import horovod_tpu.metrics.anomaly as jax_anomaly
+    import horovod_tpu_torch.metrics.anomaly as port_anomaly
+
+    anomalies = {JaxRegistry: jax_anomaly, PortRegistry: port_anomaly}
+
+    def scenario(control, training, Reg):
+        reg = Reg()
+        det = anomalies[Reg].AnomalyDetector(reg=reg, factor=4.0, cooldown_s=0.0,
+                                             flight=_NoFlight())
+        eng = _FakeEngine()
+        tc = _controller(control, Reg, engine=eng, anomaly=det)
+        fired, verdicts = [], []
+        for t in range(16):
+            reg.counter("horovod_wire_bytes_total", plane="eager").inc(
+                40000 if t == 12 else 1000)
+            fired.append(det.tick(now=float(t)))
+            verdicts.append(tc.on_step(10.0))
+        seen = list(tc._anomalies)
+        tc.close()
+        subscribed = len(det._subscribers)
+        return fired, verdicts, eng.tables, _history(tc.loop), seen, subscribed
+
+    fired, verdicts, tables, history, seen, subscribed = _both(scenario)
+    assert ["wire_drift"] in fired and subscribed == 0

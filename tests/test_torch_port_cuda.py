@@ -61,7 +61,10 @@ sharded world holds each sharded run's updates of all parameters
 together to flat DP's within 3e-2 relative norm (four ranks sum in
 another order). The tp world holds each run's loss to the one-rank run's
 within 1e-2 relative and every gradient (reassembled from the ranks'
-slices) and ``moe_apply``'s output within 3e-2 relative norm.
+slices) and ``moe_apply``'s output within 3e-2 relative norm. The
+tracing world holds its traced steps bit-equal to the untraced ones (the
+CUDA events change no value) and at least 80% of an injected 0.2 s sleep
+in the sleeping rank's skew.
 """
 
 import dataclasses
@@ -963,3 +966,84 @@ def test_elastic_world_survives_a_dead_worker_over_nccl(elastic_world):
           f"commit): median {elastic_s[len(elastic_s) // 2]:.4f} s under "
           f"run_elastic, {plain_s[len(plain_s) // 2]:.4f} s under run; all "
           f"{[round(x, 4) for x in elastic_s]} vs {[round(x, 4) for x in plain_s]}")
+
+
+# ------------------------------------------------------ tracing on four cards
+
+TRACING_STEPS, TRACING_SLEEP_RANK, TRACING_SLEEP_S = 5, 2, 0.2
+
+
+@pytest.fixture(scope="module")
+def tracing_world(tmp_path_factory):
+    import json
+
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 or more CUDA devices")
+    tmp = tmp_path_factory.mktemp("tracing_world")
+    n, out = _world("torch_port_tracing_worker.py", 900, needs=4,
+                    TRACING_MODE="world", TRACING_DEVICE="cuda",
+                    TRACING_CFG=json.dumps({}), TRACING_STEPS=str(TRACING_STEPS),
+                    TRACING_SLEEP_RANK=str(TRACING_SLEEP_RANK),
+                    TRACING_SLEEP_S=str(TRACING_SLEEP_S),
+                    TRACING_TRACE_DIR=str(tmp / "trace"),
+                    TRACING_OUT=str(tmp / "out"),
+                    TRACING_COORD_ADDR2=f"127.0.0.1:{free_port()}",
+                    HOROVOD_LATENCY_HIDING="1")
+    results = []
+    for rank in range(n):
+        with open(tmp / f"out.{rank}.json") as f:
+            results.append(json.load(f))
+    return n, out, results, str(tmp / "trace")
+
+
+def test_tracing_world_attributes_the_sleep_and_times_the_buckets(tracing_world):
+    """Four cards over NCCL, flat DP of the full-width flash TransformerLM
+    with the exchange from the gradient hooks (14 buckets at 64 MiB), 5
+    eager steps traced, rank 2 sleeping 0.2 s on the host before step 3's
+    backward, against the same 5 steps untraced: bit-equal on every rank;
+    every bucket's trace ID on all four ranks; ``analyze`` puts at least
+    80% of the sleep into ``skew_seconds_by_rank[2]`` (the reference's
+    acceptance rule). Printed: each bucket's device ms (its ``wire`` span,
+    from the input ready to the end event) and its exposed ms (the part of
+    the span after the backward's kernels ended on that rank), medians
+    over the ranks and the steps other than the first and the sleeping
+    one."""
+    import statistics
+
+    from horovod_tpu_torch.tracing import collector, critical_path
+
+    n, out, results, trace_dir = tracing_world
+    print(out)
+    for r in results:
+        assert r["bit_equal"] and r["traced_losses"] == r["plain_losses"], r["rank"]
+    spans, metas = collector.load_spans(trace_dir)
+    assert sorted(metas) == list(range(n))
+    buckets = results[0]["buckets"]
+    wires = {}
+    for s in spans:
+        if s["phase"] == "wire" and s["tid"].startswith("grad."):
+            name, k = s["tid"].split("#")
+            wires[(int(name[5:]), int(k), s["rank"])] = s
+    for b in range(buckets):
+        for k in range(1, TRACING_STEPS + 1):
+            assert {r for (bb, kk, r) in wires if (bb, kk) == (b, k)} == \
+                set(range(n)), (b, k)
+    report = critical_path.analyze(spans)
+    print(critical_path.format_summary(report))
+    print(f"skew seconds by rank {report['skew_seconds_by_rank']}, "
+          f"multi-rank collectives {report['multi_rank_collectives']}")
+    assert report["skew_seconds_by_rank"].get(TRACING_SLEEP_RANK, 0) \
+        >= 0.8 * TRACING_SLEEP_S
+    steady = [k for k in range(2, TRACING_STEPS + 1) if k != 3]
+    for b in range(buckets):
+        dev_ms, exposed_ms = [], []
+        for k in steady:
+            for r in range(n):
+                w = wires[(b, k, r)]
+                end = results[r]["windows"][k - 1]["backward_end"]
+                dev_ms.append((w["t1"] - w["t0"]) / 1e6)
+                exposed_ms.append(max(0, w["t1"] - max(w["t0"], end)) / 1e6)
+        print(f"bucket {b} ({w['bytes']} B): device ms median "
+              f"{statistics.median(dev_ms):.4f} (min {min(dev_ms):.4f}, max "
+              f"{max(dev_ms):.4f}), exposed after the backward median "
+              f"{statistics.median(exposed_ms):.4f} ms")

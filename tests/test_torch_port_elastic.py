@@ -744,7 +744,8 @@ def test_run_elastic_user_exception_aborts():
 LM = dict(vocab=64, dim=32, heads=2, layers=2, seq=16)
 
 
-def _lm_job(tmp, name, env, num_proc=2, steps=6, checkpoint_every=None):
+def _lm_job(tmp, name, env, num_proc=2, steps=6, checkpoint_every=None,
+            **train_kwargs):
     """One ``run_elastic`` job of ``lm_train`` on gloo; with
     ``checkpoint_every`` its ``ElasticState`` checkpoints to
     ``<tmp>/<name>/ckpt``. Returns the results and each rank's parameters."""
@@ -759,7 +760,7 @@ def _lm_job(tmp, name, env, num_proc=2, steps=6, checkpoint_every=None):
         "checkpoint_dir": os.path.join(out, "ckpt"),
         "checkpoint_every": checkpoint_every}
     results = run_elastic(worker.lm_train, args=("cpu", LM, steps, out),
-                          kwargs=ckpt, num_proc=num_proc, timeout=180,
+                          kwargs={**ckpt, **train_kwargs}, num_proc=num_proc, timeout=180,
                           env={"PYTHONPATH": WORKER_PATH, **FAST, **env})
     params = [torch.load(os.path.join(out, f"params.{r}.pt"), weights_only=True)
               for r in range(num_proc)]
@@ -787,6 +788,57 @@ def test_run_elastic_transformer_survives_a_dead_worker(tmp_path, hooks):
     results, params = _lm_job(str(tmp_path), "killed", {
         **env, "HOROVOD_FAULT_INJECT_STEP": "2", "HOROVOD_FAULT_INJECT_INDEX": "1",
         "HOROVOD_ELASTIC_BLACKLIST_THRESHOLD": "2"})
+    assert [(r["rank"], r["size"], r["step"], r["generation"]) for r in results] \
+        == [(0, 2, 6, 2), (1, 2, 6, 2)]
+    assert [len(r["resets"]) for r in results] == [1, 0]
+    assert results[0]["losses"] == straight[0]["losses"]
+    for k in params[0]:
+        assert torch.equal(params[0][k], params[1][k]), k
+        assert torch.equal(params[0][k], want[0][k]), k
+
+
+@pytest.fixture(scope="module")
+def straight_lm(tmp_path_factory):
+    """The 2-rank job with no fault: its results and parameters."""
+    return _lm_job(str(tmp_path_factory.mktemp("straight")), "straight", {})
+
+
+def test_run_elastic_reset_without_membership_change(tmp_path, straight_lm):
+    """Rank 1 raises HorovodInternalError once, before step 3, and the
+    reset aborts its communicators, so rank 0's collective fails too: no
+    process dies and the membership stays the same. Both ranks register
+    for the next generation, and the driver opens it over the same two
+    members (it opened one only when a slot died, was removed or was
+    added, so both ranks waited forever). Each rank resets once, both end
+    at step 6 in generation 2, bit-equal to the run with no fault."""
+    straight, want = straight_lm
+    events = str(tmp_path / "events.jsonl")
+    results, params = _lm_job(str(tmp_path), "raised", {
+        "HOROVOD_ELASTIC_EVENT_LOG": events}, raise_at=(1, 3))
+    assert [(r["rank"], r["size"], r["step"], r["generation"]) for r in results] \
+        == [(0, 2, 6, 2), (1, 2, 6, 2)]
+    assert [len(r["resets"]) for r in results] == [1, 1]
+    log = _events(events)
+    assert [e["generation"] for e in log
+            if e["event"] == "rendezvous_complete"] == [1, 2]
+    assert not [e for e in log if e["event"] == "worker_failed"]
+    assert results[0]["losses"] == straight[0]["losses"]
+    for k in params[0]:
+        assert torch.equal(params[0][k], params[1][k]), k
+        assert torch.equal(params[0][k], want[0][k]), k
+
+
+def test_run_elastic_slow_joiner_is_not_a_stall(tmp_path, straight_lm):
+    """Index 1 is killed at step 2's commit, and its respawned worker sleeps
+    twice the stall time (2 x 5 s) between ``init`` and its ``sync``. The
+    survivor waits for it on the rendezvous store, not in the broadcast,
+    whose wait the stall time bounds: one reset on the survivor and none
+    on the joiner, generation 2, bit-equal to the run with no fault."""
+    straight, want = straight_lm
+    results, params = _lm_job(str(tmp_path), "slow-joiner", {
+        "HOROVOD_FAULT_INJECT_STEP": "2", "HOROVOD_FAULT_INJECT_INDEX": "1",
+        "HOROVOD_ELASTIC_BLACKLIST_THRESHOLD": "2"},
+        joiner_sleep_s=2 * float(FAST["HOROVOD_STALL_SHUTDOWN_TIME"]))
     assert [(r["rank"], r["size"], r["step"], r["generation"]) for r in results] \
         == [(0, 2, 6, 2), (1, 2, 6, 2)]
     assert [len(r["resets"]) for r in results] == [1, 0]

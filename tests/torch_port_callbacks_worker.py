@@ -52,8 +52,10 @@ def main() -> None:
         met.on_epoch_end(epoch, logs)
         out["logs"].append({k: v.tolist() if isinstance(v, np.ndarray) else v
                             for k, v in logs.items()})
-    met.on_train_end()
+    # The snapshot this rank hands on_train_end's gather: taken after the
+    # gather, it would also count the gather itself.
     out["snapshot"] = hvd.metrics.snapshot()
+    met.on_train_end()
     out["pod_on_rank"] = met.pod_snapshot is not None
     mixed = callbacks.average_metrics({"t": torch.tensor([1.0, 3.0]) * (rank + 1),
                                        "n": np.float32(rank)})

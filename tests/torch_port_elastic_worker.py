@@ -20,7 +20,11 @@ launches it made, the seconds of each step it ran (the step and the loss's
 average, without the commit), and for each reset the wall-clock times
 (``time.time()``) at which its collective raised and at which training
 resumed. Launched by ``run`` instead of ``run_elastic`` it trains the same
-steps without the elastic launcher's settings.
+steps without the elastic launcher's settings. Two faults that kill no
+process are test code here: ``joiner_sleep_s`` makes a worker that joined
+after the first generation sleep between ``init`` and its ``sync``, and
+``raise_at=(rank, step)`` makes that rank raise ``HorovodInternalError``
+once, before that step.
 """
 
 from __future__ import annotations
@@ -31,7 +35,8 @@ import time
 
 
 def lm_train(device: str, config: dict, steps: int, out: str,
-             checkpoint_dir=None, checkpoint_every: int = 1) -> dict:
+             checkpoint_dir=None, checkpoint_every: int = 1,
+             joiner_sleep_s: float = 0.0, raise_at=None) -> dict:
     import torch
 
     import horovod_tpu_torch as hvd
@@ -40,6 +45,9 @@ def lm_train(device: str, config: dict, steps: int, out: str,
     from horovod_tpu_torch.ops import flash_attention as fa
 
     hvd.init(device)
+    if joiner_sleep_s and os.environ.get("HOROVOD_ELASTIC_GENERATION") != "1":
+        # A slow joiner: registered, in the new world, not yet in sync.
+        time.sleep(joiner_sleep_s)
     dev = hvd.device()
     cfg = train_mod.TrainConfig(**config)
     model = train_mod.build_model(cfg, dev)
@@ -56,6 +64,7 @@ def lm_train(device: str, config: dict, steps: int, out: str,
     fa.reset_launches()
     resets = []
     step_s = []
+    injected = []
 
     @hvd.elastic.run
     def train(state):
@@ -66,6 +75,10 @@ def lm_train(device: str, config: dict, steps: int, out: str,
             tokens = train_mod.make_batch(batch_cfg, hvd.rank(), dev)
             t = time.perf_counter()
             try:
+                if raise_at is not None and not injected \
+                        and (hvd.rank(), int(state.step)) == tuple(raise_at):
+                    injected.append(True)
+                    raise hvd.HorovodInternalError("injected fault")
                 loss = step(tokens)
                 mean = hvd.metric_average(loss.item())
             except hvd.HorovodInternalError:

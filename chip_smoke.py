@@ -237,8 +237,31 @@ prints no result):
     printed; (b) the graphed loop (K = 4, 2 dispatches) untraced and traced:
     losses bit-equal, one compiled-plan line for the capture, no span
     line and no counter moving while the graph replays;
-25. the ``{"kernels": [...]}`` line (all six kernels, each with its
-    launches on every path above; phases 10 and 14 run none of them),
+25. the serving plane on the card (``horovod_tpu_torch.serving``): (a)
+    TinyLM at the TransformerLM's widths (vocab 32000, dim 1024,
+    max_context 4096, seed 0: 291,504,128 B of float32 weights), the
+    port's ``lm_generate`` on the card against the CPU on 8 prompts of
+    1-512 tokens, 32 new each (logits within 1e-4 x max|logit| up to the
+    first position where the tokens part, which must be a near-tie: a
+    top-2 gap under that tolerance), ``_gemm_rows_exact`` on the card, and
+    ``IterationScheduler`` over a ``PagedKVCache`` of 36 blocks of 16 on
+    the card (preemption forced), plain, ``draft_k=4`` and
+    ``prefix_cache=1``, each sequence's tokens and K/V bitwise the card's
+    oracle, with decode tok/s, TTFT and TPOT p50/p99 and the spec
+    acceptance; (b) ``LLMServer`` over HTTP in a router process of its own
+    (``--serving-router``): one prefill and one decode replica on the
+    card, 16 concurrent ``/v1/generate`` requests, then 16 more with the
+    decode replica killed at its 24th submit (``HOROVOD_FAULT_INJECT_STEP``),
+    then the colocated plane with a streamed body; every token stream the
+    card's oracle, handoff bytes equal to ``handoff_nbytes``, every
+    replica's ``stats`` on ``cuda`` with TF32 off, and no CUDA context in
+    the router; (c) ``InferenceServer``, two replicas on the card, an
+    exported ``MLP`` on 64-wide inputs at ``decode_steps`` 1 ((256, 128,
+    10)) and 4 ((256, 128, 64): each step feeds the next), 64 concurrent
+    ``/v1/infer`` requests, each response bitwise the in-process eager
+    forward (K times) at a padding bucket, with the captures per replica;
+26. the ``{"kernels": [...]}`` line (all six kernels, each with its
+    launches on every path above; phases 10, 14 and 25 run none of them),
     then ``{"ok": true, ...}`` last.
 
 Both CUDA sources build at once, one nvcc each, at the start.
@@ -3481,6 +3504,590 @@ def observability_phase(torch, fa, rf, basics, train_mod, loop_mod, card, dev,
         traced_graph(torch, fa, rf, basics, train_mod, loop_mod, dev, paths, tmp)
 
 
+# -- phase 25: the serving vertical ---------------------------------------------
+
+# TinyLM at the TransformerLM cell's widths, through the JAX package's env
+# contract (HOROVOD_SERVE_LLM_{VOCAB,DIM,MAX_CONTEXT,SEED}).
+SERVE_LM = dict(vocab=32000, dim=1024, max_context=4096, seed=0)
+SERVE_LENS = (1, 7, 33, 64, 129, 256, 400, 512)     # 25a's prompts
+SERVE_HTTP_LENS = (2, 5, 17, 48, 80, 150, 200, 300)  # 25b adds these
+SERVE_SHARED = 32       # leading tokens every prompt shares (the prefix run)
+SERVE_NEW = 32          # tokens generated per request
+SERVE_BLOCK = 16
+SERVE_POOL = 36         # blocks: the 544-token sequence needs 34 of the 34
+#                         usable above the 5% watermark, so the 8 sequences
+#                         (107 blocks at their ends) must queue and preempt
+SERVE_HTTP_POOL = 4096  # the serving config's pool, 536,870,912 B of K and V
+SERVE_KILL_AT = 24      # 25b: the decode replica dies at its 24th submit
+# 25c: bench.py:1633-1634's MLP on 64-wide inputs; decode_steps 4 feeds each
+# step's output to the next, so its model ends 64 wide
+INFER_IN = 64
+INFER_RUNS = ((1, (256, 128, 10)), (4, (256, 128, 64)))
+INFER_REQUESTS = 64
+SERVE_TIMEOUT_S = 600
+
+
+def serving_prompts(lens, seed: int) -> list:
+    """Prompts of the given lengths over TinyLM's vocabulary, made from
+    ``seed``; each starts with the same ``SERVE_SHARED`` tokens (or a
+    prefix of them), so the prefix cache has prefixes to share."""
+    import numpy as np
+
+    rs = np.random.RandomState(seed)
+    base = [int(t) for t in rs.randint(0, SERVE_LM["vocab"], SERVE_SHARED)]
+    return [base[:min(n, SERVE_SHARED)]
+            + [int(t) for t in rs.randint(0, SERVE_LM["vocab"],
+                                           max(n - SERVE_SHARED, 0))]
+            for n in lens]
+
+
+def generate_with_logits(torch, sm, params, prompt, n) -> tuple:
+    """``lm_generate`` step for step, keeping each generated position's
+    logits (on the host) and the K/V it builds: (tokens, logits, K, V)."""
+    k, v, nxt = sm.lm_prefill(params, prompt)
+    # the prefill's last step again, for its logits (the same operations on
+    # the same values)
+    last, _, _ = sm.lm_logits_step(params, prompt[-1], len(prompt) - 1,
+                                   k[:-1], v[:-1])
+    if int(last.argmax()) != nxt:
+        raise AssertionError("the prefill's last step did not repeat")
+    out, logits = [nxt], [last.cpu()]
+    ks, vs = list(k), list(v)
+    while len(out) < n:
+        lg, kv_k, kv_v = sm.lm_logits_step(params, out[-1], len(ks),
+                                           torch.stack(ks), torch.stack(vs))
+        ks.append(kv_k)
+        vs.append(kv_v)
+        out.append(int(lg.argmax()))
+        logits.append(lg.cpu())
+    return out, torch.stack(logits), torch.stack(ks), torch.stack(vs)
+
+
+def hold_card_against_cpu(torch, label, card, cpu) -> dict:
+    """The near-tie rule: logits within 1e-4 x max|logit| at every position
+    up to the first where the tokens part; tokens equal up to the first
+    position whose top-2 gap (on the card) is under that tolerance. Returns
+    the near-tie positions met, where the tokens parted (or None) and the
+    largest logit error over its tolerance."""
+    tok_c, lg_c = card[0], card[1]
+    tok_h, lg_h = cpu[0], cpu[1]
+    ties, worst = [], 0.0
+    for i in range(len(tok_c)):
+        tol = 1e-4 * float(lg_c[i].abs().max())
+        err = float((lg_c[i] - lg_h[i]).abs().max())
+        worst = max(worst, err / tol)
+        top2 = torch.topk(lg_c[i], 2).values
+        gap = float(top2[0] - top2[1])
+        if gap < tol:
+            ties.append(i)
+        if err > tol:
+            raise AssertionError(f"{label}: logits at new token {i} differ by "
+                                 f"{err:.3e} > {tol:.3e}")
+        if tok_c[i] != tok_h[i]:
+            if gap >= tol:
+                raise AssertionError(
+                    f"{label}: token {i} {tok_c[i]} on the card, {tok_h[i]} on "
+                    f"the CPU, top-2 gap {gap:.3e} >= {tol:.3e}")
+            log(f"    {label}: tokens part at the near-tie at {i}")
+            return {"near_ties": ties, "parted_at": i, "err_over_tol": worst}
+    if ties:
+        log(f"    {label}: near-ties (top-2 gap < 1e-4 x max|logit|) at "
+            f"{ties}, tokens equal")
+    return {"near_ties": ties, "parted_at": None, "err_over_tol": worst}
+
+
+def percentile(xs, q) -> float:
+    xs = sorted(xs)
+    return xs[min(int(len(xs) * q / 100), len(xs) - 1)]
+
+
+def scheduler_run(torch, sm, kvm, schm, params, prompts, oracle, label,
+                  draft_k, prefix) -> dict:
+    """One IterationScheduler run over the paged pool on the card: tokens
+    and K/V (read back before each sequence retires) bitwise the card's
+    oracle; returns the run's counters and times."""
+
+    class Recording(schm.IterationScheduler):
+        def _retire(self, seq):
+            k, v = self.cache.gather(seq.seq_id, seq.kv_len)
+            kept[seq.seq_id] = (k.clone(), v.clone(), time.monotonic())
+            super()._retire(seq)
+
+    kept = {}
+    cache = kvm.PagedKVCache(SERVE_POOL, SERVE_BLOCK, SERVE_LM["dim"],
+                             watermark=0.05, prefix_cache=bool(prefix),
+                             device=params["embed"].device)
+    sched = Recording(cache, params, max_active=8, admission_window=64,
+                      draft_params=sm.draft_lm_params(params) if draft_k else None,
+                      draft_k=draft_k)
+    t0 = time.monotonic()
+    for i, p in enumerate(prompts):
+        seq = schm.Sequence(i, p, SERVE_NEW)
+        seq.submit_t = t0
+        sched.submit(seq)
+    steps = 0
+    while len(sched.finished) < len(prompts):
+        sched.step()
+        steps += 1
+        if steps > 20000:
+            raise AssertionError(f"{label}: the scheduler did not finish")
+    sync(torch, params["embed"].device)
+    wall = time.monotonic() - t0
+    st = sched.stats()
+    ttft, tpot = [], []
+    for seq in sched.finished:
+        want_tokens, _, want_k, want_v = oracle[seq.seq_id]
+        if seq.state != "finished" or seq.out != want_tokens:
+            raise AssertionError(f"{label}: sequence {seq.seq_id} {seq.state}, "
+                                 f"tokens {seq.out[:8]}... != the oracle's "
+                                 f"{want_tokens[:8]}...")
+        k, v, done_t = kept[seq.seq_id]
+        if not (torch.equal(k, want_k) and torch.equal(v, want_v)):
+            raise AssertionError(f"{label}: sequence {seq.seq_id}'s K/V differ "
+                                 f"from the oracle's")
+        ttft.append(seq.first_token_rel_s)
+        tpot.append((done_t - t0 - seq.first_token_rel_s) / (len(seq.out) - 1))
+    out = {"wall_s": wall, "iterations": st["iterations_total"],
+           "preemptions": st["preemptions_total"],
+           "decode_tokens_per_s": st["tokens_decode_total"] / st["decode_busy_s"],
+           "ttft_p50_ms": 1e3 * percentile(ttft, 50),
+           "ttft_p99_ms": 1e3 * percentile(ttft, 99),
+           "tpot_p50_ms": 1e3 * percentile(tpot, 50),
+           "tpot_p99_ms": 1e3 * percentile(tpot, 99),
+           "spec_acceptance": (st["spec_accepted_total"] / st["spec_proposed_total"]
+                               if st["spec_proposed_total"] else None),
+           "prefix_hit_tokens": st["prefix_hit_tokens_total"],
+           "cow_copies": st["cow_copies_total"]}
+    log(f"    {label}: 8 sequences bitwise the oracle (tokens and K/V) in "
+        f"{wall:.2f} s, {out['iterations']} iterations, preemptions "
+        f"{out['preemptions']}, decode {out['decode_tokens_per_s']:.1f} tok/s "
+        f"(engine busy time), TTFT p50/p99 {out['ttft_p50_ms']:.1f}/"
+        f"{out['ttft_p99_ms']:.1f} ms, TPOT p50/p99 {out['tpot_p50_ms']:.2f}/"
+        f"{out['tpot_p99_ms']:.2f} ms, spec acceptance {out['spec_acceptance']}, "
+        f"prefix hit tokens {out['prefix_hit_tokens']}")
+    return out
+
+
+def serving_in_process(torch, dev) -> dict:
+    """25a: TinyLM on the card against the CPU; the scheduler's three runs
+    against the card's oracle."""
+    import numpy as np
+
+    from horovod_tpu_torch.serving import model as sm
+    from horovod_tpu_torch.serving.llm import kv_cache as kvm
+    from horovod_tpu_torch.serving.llm import scheduler as schm
+
+    sm.exact_float32(dev)
+    params_np = sm.tiny_lm_params(**SERVE_LM)
+    card = sm.lm_params_to_torch(params_np, dev)
+    cpu = sm.lm_params_to_torch(params_np, "cpu")
+    pool_bytes = 2 * SERVE_HTTP_POOL * SERVE_BLOCK * SERVE_LM["dim"] * 4
+    log(f"  (25a) TinyLM {SERVE_LM}: {sm.lm_params_nbytes(card):,} B of weights "
+        f"on the card; a pool of {SERVE_HTTP_POOL} x {SERVE_BLOCK} holds "
+        f"{pool_bytes:,} B of K and V")
+    rows_exact = {r: sm._gemm_rows_exact(SERVE_LM["dim"], dev, r)
+                  for r in range(1, 6)}
+    log(f"    _gemm_rows_exact(1024, {dev}, rows) on the card: {rows_exact}")
+    prompts = serving_prompts(SERVE_LENS, 0)
+    oracle, t0 = {}, time.perf_counter()
+    for i, p in enumerate(prompts):
+        oracle[i] = generate_with_logits(torch, sm, card, p, SERVE_NEW)
+        if sm.lm_generate(card, p, SERVE_NEW) != oracle[i][0]:
+            raise AssertionError(f"prompt {i}: lm_generate and its logit twin "
+                                 f"part on the card")
+    sync(torch, dev)
+    log(f"    the card's oracle, 8 prompts of {list(SERVE_LENS)} tokens, "
+        f"{SERVE_NEW} new each: {time.perf_counter() - t0:.2f} s (twice)")
+    t0 = time.perf_counter()
+    ties = {}
+    for i, p in enumerate(prompts):
+        host = generate_with_logits(torch, sm, cpu, p, SERVE_NEW)
+        ties[i] = hold_card_against_cpu(torch, f"prompt {i} ({len(p)} tokens)",
+                                        oracle[i], host)
+    log(f"    the card against the CPU by the near-tie rule "
+        f"({time.perf_counter() - t0:.1f} s on the CPU): {ties}")
+    runs = {}
+    for label, draft_k, prefix in (("plain", 0, 0), ("draft_k=4", 4, 0),
+                                   ("prefix_cache=1", 0, 1)):
+        runs[label] = scheduler_run(torch, sm, kvm, schm, card, prompts, oracle,
+                                    label, draft_k, prefix)
+    if runs["plain"]["preemptions"] < 1:
+        raise AssertionError("the plain run never preempted: the pool forced "
+                             "nothing")
+    del cpu
+    return {"card": card, "sm": sm, "oracle": oracle, "prompts": prompts,
+            "rows_exact": rows_exact, "runs": runs, "np": np}
+
+
+def run_router(spec: dict, tmp: str) -> dict:
+    """Run ``chip_smoke.py --serving-router`` on ``spec`` in a process of
+    its own (the router must create no CUDA context) and return its
+    report."""
+    path_in = os.path.join(tmp, f"router-{spec['mode']}-in.json")
+    path_out = os.path.join(tmp, f"router-{spec['mode']}-out.json")
+    with open(path_in, "w") as f:
+        json.dump(spec, f)
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--serving-router", path_in, path_out], env=env,
+                          capture_output=True, text=True, timeout=SERVE_TIMEOUT_S)
+    if proc.returncode != 0:
+        raise AssertionError(f"the {spec['mode']} router failed "
+                             f"(rc {proc.returncode}):\n{proc.stdout[-3000:]}\n"
+                             f"{proc.stderr[-5000:]}")
+    with open(path_out) as f:
+        return json.load(f)
+
+
+def sync(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def hold_replicas_on(label, report, dev) -> None:
+    """Each replica's own ``stats`` reports a device of ``dev``'s type and
+    TF32 off; the router never initialized CUDA."""
+    for pool, reps in report["replica_stats"].items():
+        if not reps:
+            raise AssertionError(f"{label}: no {pool} replica answered stats")
+        for rid, st in reps.items():
+            if not (st.get("device") or "").startswith(dev.type) or \
+                    st["numerics"]["allow_tf32"]:
+                raise AssertionError(f"{label}: {pool} replica {rid} reports "
+                                     f"{st.get('device')}, {st.get('numerics')}")
+    if report["router_cuda_initialized"]:
+        raise AssertionError(f"{label}: the router created a CUDA context")
+
+
+def router_device(dev):
+    """The routers' ``device=``: None on the card (the default, which gives
+    replica i card i % device_count), "cpu" for a CPU rehearsal."""
+    return None if dev.type == "cuda" else "cpu"
+
+
+def serving_http(torch, state, dev, tmp) -> None:
+    """25b: LLMServer over HTTP, one prefill and one decode replica (a
+    wave, then a wave with the decode replica killed), then colocated."""
+    sm, card = state["sm"], state["card"]
+    from horovod_tpu_torch.serving.llm.handoff import handoff_nbytes, pack_kv
+
+    np = state["np"]
+    prompts = state["prompts"] + serving_prompts(SERVE_HTTP_LENS, 1)
+    want = [state["oracle"][i][0] for i in range(len(state["prompts"]))]
+    want += [sm.lm_generate(card, p, SERVE_NEW) for p in prompts[len(want):]]
+    bytes_want = sum(handoff_nbytes(pack_kv(
+        p, np.zeros((len(p), SERVE_LM["dim"]), np.float32),
+        np.zeros((len(p), SERVE_LM["dim"]), np.float32), 0)) for p in prompts)
+    report = run_router({"mode": "llm", "prompts": prompts, "lm": SERVE_LM,
+                         "kill_at": SERVE_KILL_AT,
+                         "device": router_device(dev)}, tmp)
+    for run in report["runs"]:
+        label = f"LLMServer {run['label']}"
+        for w, wave in enumerate(run["waves"]):
+            bad = [i for i, (code, toks) in enumerate(wave["results"])
+                   if code != 200 or toks != want[i]]
+            if bad:
+                raise AssertionError(f"{label} wave {w}: requests {bad} differ "
+                                     f"from the card's oracle: "
+                                     f"{[wave['results'][i] for i in bad[:2]]}")
+        log(f"    {label}: replicas ready in {run['ready_s']:.1f} s; "
+            + "; ".join(f"wave {w}: 16 concurrent requests in {wave['s']:.2f} s, "
+                        f"every token stream the card's oracle"
+                        for w, wave in enumerate(run["waves"])))
+        log(f"      preemptions {run['preemptions']}, handoff bytes by wave "
+            f"{[wave['handoff_bytes'] for wave in run['waves']]} "
+            f"(handoff_nbytes of the 16 prompts: {bytes_want:,}), deaths "
+            f"{run['deaths']}, respawns {run['respawns']}, respawn ready "
+            f"{run.get('respawn_s')}, replicas {run['devices']}")
+        if run["label"] == "disaggregated":
+            if run["waves"][0]["handoff_bytes"] != bytes_want:
+                raise AssertionError(f"{label}: wave 0 moved "
+                                     f"{run['waves'][0]['handoff_bytes']} B, "
+                                     f"handoff_nbytes says {bytes_want}")
+            if run["deaths"] < 1 or run["respawns"] < 1:
+                raise AssertionError(f"{label}: the decode replica was not killed "
+                                     f"and respawned ({run['deaths']} deaths)")
+        else:
+            if not run["stream_equal"]:
+                raise AssertionError(f"{label}: the streamed body does not "
+                                     f"reassemble to the plain one")
+            log("      a streamed body reassembled to the non-streaming one")
+        hold_replicas_on(label, run, dev)
+    log(f"    every replica reported a {dev.type} device with TF32 off; the "
+        f"router process never initialized CUDA")
+
+
+def serving_infer(torch, dev, tmp) -> None:
+    """25c: InferenceServer, two replicas on the card, decode_steps 1 and 4;
+    every response bitwise the in-process forward (K times) at the bucket
+    it ran in."""
+    import numpy as np
+
+    from horovod_tpu_torch import checkpoint as ckpt
+    from horovod_tpu_torch.models.cnn_layers import init_cnn
+    from horovod_tpu_torch.models.mlp import MLP
+    from horovod_tpu_torch.serving import model as sm
+    from horovod_tpu_torch.serving.batcher import bucket_sizes
+
+    inputs = np.random.RandomState(2).uniform(
+        -1, 1, (INFER_REQUESTS, INFER_IN)).astype(np.float32)
+    runs = []
+    refs = []
+    for k, features in INFER_RUNS:
+        model = MLP(features=features, in_features=INFER_IN)
+        init_cnn(model, torch.Generator().manual_seed(k))
+        path = os.path.join(tmp, f"mlp-k{k}")
+        ckpt.export_for_inference(path, {"params": model.state_dict()})
+        apply_fn = sm.mlp_builder(sm.load_for_serving(path), dev)
+        ref = {}
+        with torch.no_grad():
+            for b in bucket_sizes(8):
+                rows = []
+                for s in range(0, INFER_REQUESTS, b):
+                    x = np.zeros((b, INFER_IN), np.float32)
+                    chunk = inputs[s:s + b]
+                    x[:len(chunk)] = chunk
+                    y = torch.as_tensor(x).to(dev)
+                    for _ in range(k):
+                        y = apply_fn(y)
+                    rows.append(y.cpu().numpy()[:len(chunk)])
+                ref[b] = np.concatenate(rows)
+        refs.append(ref)
+        runs.append({"checkpoint": path, "decode_steps": k})
+    report = run_router({"mode": "infer", "runs": runs,
+                         "inputs": inputs.tolist(),
+                         "device": router_device(dev)}, tmp)
+    for (k, features), ref, run in zip(INFER_RUNS, refs, report["runs"]):
+        label = f"InferenceServer decode_steps={k}, MLP{features}"
+        hits = {}
+        for i, out in enumerate(run["outputs"]):
+            got = np.asarray(out, np.float32)
+            match = tuple(b for b in ref if np.array_equal(got, ref[b][i]))
+            if not match:
+                raise AssertionError(f"{label}: response {i} matches the "
+                                     f"in-process forward at no bucket")
+            hits[match] = hits.get(match, 0) + 1
+        log(f"    {label}: replicas ready in {run['ready_s']:.1f} s; "
+            f"{INFER_REQUESTS} responses in {run['s']:.2f} s, each bitwise the "
+            f"in-process forward at a bucket (responses by the buckets they "
+            f"match: {hits}); "
+            f"captures per replica (recompiles) {run['recompiles']}, "
+            f"horovod_serve_recompiles_total {run['recompiles_total']}, mean "
+            f"batch {run['mean_batch']}")
+        hold_replicas_on(label, run, dev)
+
+
+def serving_phase(torch, fa, rf, dev, paths) -> None:
+    import tempfile
+
+    read_counts(fa, rf)
+    state = serving_in_process(torch, dev)
+    counts = read_counts(fa, rf)
+    hold_counts("on 25a's path (TinyLM runs on PyTorch ops)", counts, {})
+    paths["25a: the serving plane in process"] = counts
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as tmp:
+        log("  (25b) LLMServer over HTTP on the card")
+        serving_http(torch, state, dev, tmp)
+        del state
+        torch.cuda.empty_cache()
+        log("  (25c) InferenceServer on the card")
+        serving_infer(torch, dev, tmp)
+
+
+def _post_json(port: int, path: str, body: dict, timeout: float):
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                 data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, {"error": e.read().decode()[:500]}
+
+
+def _concurrently(fn, items, workers: int) -> list:
+    with ThreadPoolExecutor(workers) as pool:
+        return list(pool.map(fn, items))
+
+
+def _wait(cond, timeout: float, what: str) -> float:
+    t0 = time.monotonic()
+    while not cond():
+        if time.monotonic() - t0 > timeout:
+            raise AssertionError(f"timed out waiting for {what}")
+        time.sleep(0.05)
+    return time.monotonic() - t0
+
+
+def _stream(port: int, body: dict, timeout: float) -> list:
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request("POST", "/v1/generate", body=json.dumps(body).encode(),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        lines = []
+        while True:
+            raw = resp.readline()
+            if not raw:
+                break
+            lines.append(json.loads(raw))
+        return lines
+    finally:
+        conn.close()
+
+
+def _llm_router(spec: dict) -> dict:
+    from horovod_tpu_torch.serving.config import LLMConfig, ServeConfig
+    from horovod_tpu_torch.serving.llm import LLMServer
+
+    prompts = spec["prompts"]
+    runs = []
+    for label, colocated in (("disaggregated", 0), ("colocated", 1)):
+        cfg = ServeConfig.from_env(port=0, slo_ms=SERVE_TIMEOUT_S * 1e3,
+                                   max_retries=3,
+                                   replica_start_timeout_s=SERVE_TIMEOUT_S)
+        llm = LLMConfig.from_env(
+            colocated=colocated, prefill_replicas=1, decode_replicas=1,
+            num_blocks=SERVE_HTTP_POOL, block_size=SERVE_BLOCK, max_active=8,
+            max_new_tokens=SERVE_NEW, ttft_slo_ms=SERVE_TIMEOUT_S * 1e3,
+            **spec["lm"])
+        server = LLMServer(config=cfg, llm_config=llm, device=spec["device"])
+        if not colocated:
+            # the decode pool's first replica (id 0) dies at its
+            # SERVE_KILL_AT-th submit: in the second wave of 16
+            server.pools["decode"].replica_env.update({
+                "HOROVOD_FAULT_INJECT_STEP": str(spec["kill_at"]),
+                "HOROVOD_FAULT_INJECT_INDEX": "0"})
+        t0 = time.monotonic()
+        server.start()
+        try:
+            if not server.wait_ready(SERVE_TIMEOUT_S):
+                raise RuntimeError(f"no replica ready: "
+                                   f"{ {r: p.describe() for r, p in server.pools.items()} }")
+            run = {"label": label, "ready_s": time.monotonic() - t0, "waves": []}
+            counters = server.reg.snapshot()["counters"]
+            first = dict(counters)   # the registry is the process's: deltas
+            for _ in range(1 if colocated else 2):
+                before = dict(counters)
+                t1 = time.monotonic()
+                results = _concurrently(
+                    lambda p: _post_json(server.port, "/v1/generate",
+                                         {"prompt": p, "max_tokens": SERVE_NEW},
+                                         SERVE_TIMEOUT_S), prompts, len(prompts))
+                wave_s = time.monotonic() - t1
+                counters = server.reg.snapshot()["counters"]
+                run["waves"].append({
+                    "s": wave_s,
+                    "results": [(code, body.get("tokens", body.get("error")))
+                                for code, body in results],
+                    "handoff_bytes": counters.get(
+                        "horovod_serve_llm_handoff_bytes_total", 0)
+                    - before.get("horovod_serve_llm_handoff_bytes_total", 0)})
+            if not colocated:
+                dec = server.pools["decode"]
+                run["respawn_s"] = _wait(lambda: dec.serving_count() >= 1,
+                                         SERVE_TIMEOUT_S, "the decode respawn")
+            else:
+                body = {"prompt": prompts[3], "max_tokens": SERVE_NEW}
+                plain = _post_json(server.port, "/v1/generate", body,
+                                   SERVE_TIMEOUT_S)[1]
+                lines = _stream(server.port, dict(body, stream=True),
+                                SERVE_TIMEOUT_S)
+                run["stream_equal"] = (
+                    [ln["token"] for ln in lines[:-1]] == plain["tokens"]
+                    == lines[-1]["tokens"] and set(lines[-1]) == set(plain))
+            run["deaths"], run["respawns"] = (
+                counters.get(k, 0) - first.get(k, 0)
+                for k in ("horovod_serve_replica_deaths_total",
+                          "horovod_serve_replica_respawns_total"))
+            run["preemptions"] = server.stats()["serving"]["llm"]["preemptions_total"]
+            run["replica_stats"] = {role: {str(k): {"device": v.get("device"),
+                                                    "numerics": v.get("numerics")}
+                                           for k, v in p.replica_stats().items()}
+                                    for role, p in server.pools.items()}
+            run["devices"] = {role: {str(k): r["device"] for k, r in
+                                     p.describe()["replicas"].items()}
+                              for role, p in server.pools.items()}
+        finally:
+            server.stop()
+        runs.append(run)
+    return {"runs": runs}
+
+
+def _infer_router(spec: dict) -> dict:
+    from horovod_tpu_torch.serving import InferenceServer, ServeConfig
+
+    inputs = spec["inputs"]
+    servers, runs = [], []
+    t0 = time.monotonic()
+    try:
+        # both servers' replicas come up at once
+        for r in spec["runs"]:
+            cfg = ServeConfig.from_env(port=0, min_replicas=2, max_replicas=2,
+                                       max_batch=8, max_wait_ms=5.0,
+                                       slo_ms=SERVE_TIMEOUT_S * 1e3,
+                                       decode_steps=r["decode_steps"],
+                                       replica_start_timeout_s=SERVE_TIMEOUT_S)
+            servers.append(InferenceServer(r["checkpoint"], config=cfg,
+                                           device=spec["device"]).start())
+        before = servers[0].reg.snapshot()["counters"].get(
+            "horovod_serve_recompiles_total", 0)
+        readies = []
+        for server in servers:
+            _wait(lambda: server.manager.serving_count() >= 2,
+                  SERVE_TIMEOUT_S, "two replicas")
+            readies.append(time.monotonic() - t0)
+        for server, ready in zip(servers, readies):
+            t1 = time.monotonic()
+            results = _concurrently(
+                lambda x: _post_json(server.port, "/v1/infer", {"inputs": x},
+                                     SERVE_TIMEOUT_S), inputs, 16)
+            s = time.monotonic() - t1
+            bad = [body for code, body in results if code != 200]
+            if bad:
+                raise RuntimeError(f"{len(bad)} requests failed: {bad[:2]}")
+            stats = server.manager.replica_stats()
+            snap = server.stats()
+            total = snap["metrics"]["counters"].get(
+                "horovod_serve_recompiles_total", 0)
+            runs.append({
+                "ready_s": ready, "s": s,
+                "outputs": [body["outputs"] for _, body in results],
+                "recompiles": {str(k): v["recompiles"] for k, v in stats.items()},
+                "recompiles_total": total - before,
+                "mean_batch": snap["serving"]["mean_batch_size"],
+                "replica_stats": {"infer": {str(k): {
+                    "device": v.get("device"), "numerics": v.get("numerics")}
+                    for k, v in stats.items()}}})
+            before = total
+    finally:
+        for server in servers:
+            server.stop()
+    return {"runs": runs}
+
+
+def serving_router(path_in: str, path_out: str) -> int:
+    """The router process of 25b and 25c: runs the servers ``path_in``
+    describes, drives them over HTTP, and writes what it saw (and whether
+    this process ever initialized CUDA) to ``path_out``."""
+    import torch
+
+    with open(path_in) as f:
+        spec = json.load(f)
+    report = _llm_router(spec) if spec["mode"] == "llm" else _infer_router(spec)
+    initialized = torch.cuda.is_initialized()
+    for run in report["runs"]:
+        run["router_cuda_initialized"] = initialized
+    with open(path_out, "w") as f:
+        json.dump(report, f)
+    return 0
+
+
 def config_label(config) -> str:
     return "TrainConfig(sp=1)" if config.sp else "TrainConfig()"
 
@@ -3685,6 +4292,14 @@ def main() -> int:
     observability_phase(torch, fa, rf, basics, train_mod, loop_mod, card, dev,
                         paths)
 
+    log(f"[25] the serving plane on the card: TinyLM {SERVE_LM} against the "
+        f"CPU and through the paged scheduler (plain, draft_k=4, "
+        f"prefix_cache=1); LLMServer over HTTP (disaggregated, a decode "
+        f"replica killed mid-load, colocated); InferenceServer (decode_steps "
+        f"1 and 4)")
+    torch.cuda.empty_cache()
+    serving_phase(torch, fa, rf, dev, paths)
+
     kernels = []
     for source, names in SOURCES.items():
         for kname in names:
@@ -3711,4 +4326,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--launched-worker"]:
         sys.exit(launched_worker(sys.argv[2]))
+    if sys.argv[1:2] == ["--serving-router"]:
+        sys.exit(serving_router(sys.argv[2], sys.argv[3]))
     sys.exit(main())

@@ -1,6 +1,6 @@
-"""The runtime knob controller of the training side: the port of
-``horovod_tpu/control``'s ``ControlLoop``, ``Knob``, ``Proposal`` and
-``TrainingController``.
+"""The runtime knob controller of both planes: the port of
+``horovod_tpu/control``'s ``ControlLoop``, ``Knob``, ``Proposal``,
+``TrainingController`` and ``ServingController``.
 
 A per-job controller changes the exchange's knobs (fusion threshold,
 bucket count, wire format, ladder, mesh) while the job runs, one change at
@@ -10,17 +10,22 @@ regression; its proposals for the continuous knobs come from the GP/EI of
 ``rejit`` callback, which rebuilds the optimizer and captures the CUDA
 graph again (``train.TrainRecapture``). ``HOROVOD_CONTROLLER=1`` is the
 master switch (``controller_enabled``); the controller itself is built
-by the caller, since it needs the job's step loop. The JAX package's
-``ServingController`` waits for the port's ``serving/``.
+by the caller, since it needs the job's step loop. The serving
+controller (``serving.py``) drives the routers' live ``ServeConfig`` from
+the anomaly stream; ``maybe_start_serving_controller`` is the routers'
+hook.
 """
 
 from .core import ControlLoop, Knob, Proposal
+from .serving import ServingController, maybe_start_serving_controller
 from .training import TrainingController, controller_enabled
 
 __all__ = [
     "ControlLoop",
     "Knob",
     "Proposal",
+    "ServingController",
     "TrainingController",
     "controller_enabled",
+    "maybe_start_serving_controller",
 ]

@@ -2,12 +2,14 @@
 ``horovod_tpu/control/core.py`` (``Knob`` ``:44``, ``Proposal`` ``:97``,
 ``ControlLoop`` ``:110``).
 
-``ControlLoop`` is the skeleton of the training controller: a bounded
-knob table, ONE change in flight at a time, every change canaried for K
-observations against the pre-change baseline and rolled back on
-regression. It holds no sensor logic: the training controller feeds it
-steps/s and supplies the ``apply`` callback that lands a value (a
-rebuilt optimizer and a recaptured graph, ``control/training.py``).
+``ControlLoop`` is the skeleton of the training and serving controllers:
+a bounded knob table, ONE change in flight at a time, every change
+canaried for K observations against the pre-change baseline and rolled
+back on regression. It holds no sensor logic: the training controller
+feeds it steps/s and supplies the ``apply`` callback that lands a value (a
+rebuilt optimizer and a recaptured graph, ``control/training.py``); the
+serving controller feeds it goodput and sets the routers' live
+``ServeConfig`` (``control/serving.py``).
 ``HOROVOD_CONTROLLER_CANARY_STEPS`` and ``HOROVOD_CONTROLLER_COOLDOWN_S``
 set the canary length and the cooldown after a decision.
 

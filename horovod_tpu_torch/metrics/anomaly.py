@@ -1,8 +1,8 @@
 """Live anomaly detection over the well-known series: the port's own copy
 of ``horovod_tpu.metrics.anomaly``. The serving kinds (``ttft_slo``,
-``drain_collapse``, ``shed_spike``, ``preempt_storm``) read series only the
-serving plane sets, which the port does not have yet (ROADMAP.md queue A
-item 2), so they never fire in the port.
+``drain_collapse``, ``shed_spike``, ``preempt_storm``) read the series the
+serving routers set (``serving/``), whose ``start`` calls
+:meth:`AnomalyDetector.start_from_env`.
 
 A pull-driven watcher: every ``HOROVOD_ANOMALY_INTERVAL_S`` it snapshots
 the process registry, folds per-tick counter deltas into EWMA baselines,

@@ -52,6 +52,12 @@ from .recorder import (  # noqa: F401
     span_path,
     trace_id,
 )
+from .serve import (  # noqa: F401
+    ServeTracer,
+    get_serve_tracer,
+    init_serve_tracer,
+    serve_trace_id,
+)
 
 _lock = threading.Lock()
 _recorder: Optional[TraceRecorder] = None

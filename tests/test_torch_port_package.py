@@ -68,7 +68,13 @@ def test_import_pulls_in_no_jax():
             "horovod_tpu_torch.runner.task_main, "
             "horovod_tpu_torch.runner.task_exec, horovod_tpu_torch.elastic, "
             "horovod_tpu_torch.elastic.driver, horovod_tpu_torch.tracing.clock, "
-            "horovod_tpu_torch.common.resilience\n"
+            "horovod_tpu_torch.common.resilience, horovod_tpu_torch.serving, "
+            "horovod_tpu_torch.serving.__main__, horovod_tpu_torch.serving.model, "
+            "horovod_tpu_torch.serving.replica, horovod_tpu_torch.serving.server, "
+            "horovod_tpu_torch.serving.manager, horovod_tpu_torch.serving.llm, "
+            "horovod_tpu_torch.serving.llm.replica, "
+            "horovod_tpu_torch.serving.llm.server, "
+            "horovod_tpu_torch.control.serving, horovod_tpu_torch.tracing.serve\n"
             "import runpy\n"
             f"for path in {EXAMPLES!r}:\n"
             "    runpy.run_path(path, run_name='not_main')\n"

@@ -260,7 +260,37 @@ prints no result):
     10)) and 4 ((256, 128, 64): each step feeds the next), 64 concurrent
     ``/v1/infer`` requests, each response bitwise the in-process eager
     forward (K times) at a padding bucket, with the captures per replica;
-26. the ``{"kernels": [...]}`` line (all six kernels, each with its
+26. the pod-scale trees (``horovod_tpu_torch.ctrl``, ``.telemetry``,
+    ``.ckpt_async.stream``), with fake hosts ``a`` and ``b`` (hvd-agent
+    processes with ``HOROVOD_HOSTNAME`` set): (a) phase 4's model trained
+    2 steps and committed with ``checkpoint.save``, then on to 5 (the run
+    that never stopped); host a's control leader exports the commit; a
+    fresh process given only ``HOROVOD_SECRET`` and
+    ``HOROVOD_CKPT_STREAM_FROM`` times the leader's manifest, streams the
+    checkpoint with ``fetch_from_peer`` into a directory of its own,
+    restores it in place on the card into a seed-1 run and runs steps 3-5:
+    every streamed file's SHA-256 the committed one's, its losses and the
+    SHA-256 of every parameter and Adam moment the straight run's; fetch
+    seconds, GB/s, chunks, manifest seconds; (b) 25c's MLP (decode_steps
+    1) served by ``InferenceServer`` from a path the router does not have,
+    streamed from host a's leader before the first replica: each response
+    bitwise the in-process forward at a bucket, the bring-up seconds with
+    the fetch inside; (c) phase 24's traced eager run (3 steps) pushing a
+    snapshot each step through a ``RankTelemetryClient`` to a
+    ``TelemetryAgent`` of host a whose root is a ``DriverService``: losses
+    and parameters bit-equal to phase 24's untraced run, the root's pod
+    view of the allreduce counters equal to the rank's registry (moved by
+    3 x the plan's bytes) and bitwise the flat merge, the push bytes per
+    tick (full, then deltas), the composed clock offset, and ``bundle
+    --leader`` sweeping that run's flight ring and spans with no coverage
+    gap; (d) ``run_command`` of 4 workers across hosts a and b (2 slots
+    each) sharing cuda:0, each a world of one (``init(comm=[rank])``)
+    running 23a's worker for 3 steps, with ``HOROVOD_CTRL_TREE`` unset
+    (the tree on) and then 0: every worker's losses phase 4's first 3;
+    with the tree, one request and one wait connection per host at the
+    driver and each host's registrations in one ``host_register``; the
+    driver's control bytes, tree against flat;
+27. the ``{"kernels": [...]}`` line (all six kernels, each with its
     launches on every path above; phases 10, 14 and 25 run none of them),
     then ``{"ok": true, ...}`` last.
 
@@ -276,11 +306,14 @@ import json
 import math
 import os
 import re
+import signal
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
+from typing import Optional
 
 STEPS = 5
 SLICE_SHAPE = (1, 4096, 8, 8, 128)       # (B, T, H, Hkv, D)
@@ -3032,10 +3065,11 @@ ELASTIC_FAULT_STEP = 2
 ELASTIC_CKPT_EVERY = 3
 
 
-def launched_worker(out: str) -> int:
+def launched_worker(out: str, steps: int = LAUNCH_STEPS) -> int:
     """23a's worker, started by ``python -m horovod_tpu_torch.runner``:
-    ``init()`` from the launcher's env, ``LAUNCH_STEPS`` steps of phase 4's
-    model and batch; its losses and launches go to ``out`` (JSON)."""
+    ``init()`` from the launcher's env, ``steps`` steps of phase 4's model
+    and batch; its losses and launches go to ``out`` (JSON), with the
+    launched rank and the control leader it dialed, if any."""
     from horovod_tpu_torch import train as train_mod
     from horovod_tpu_torch.common import basics
     from horovod_tpu_torch.ops import flash_attention as fa
@@ -3044,11 +3078,13 @@ def launched_worker(out: str) -> int:
     s = train_mod.setup(config, "cuda")
     tokens = train_mod.make_batch(config, basics.rank(), basics.device())
     fa.reset_launches()
-    losses = [s.step(tokens).item() for _ in range(LAUNCH_STEPS)]
+    losses = [s.step(tokens).item() for _ in range(steps)]
     with open(out, "w") as f:
         json.dump({"losses": losses, "launches": dict(fa.launches),
                    "rank": basics.rank(), "size": basics.size(),
-                   "coord_addr": os.environ.get("HOROVOD_COORD_ADDR")}, f)
+                   "coord_addr": os.environ.get("HOROVOD_COORD_ADDR"),
+                   "launched_rank": os.environ.get("HOROVOD_RANK"),
+                   "ctrl_addrs": os.environ.get("HOROVOD_CTRL_ADDRS")}, f)
     basics.shutdown()
     return 0
 
@@ -3317,7 +3353,7 @@ def scrape(port: int) -> dict:
     return out
 
 
-def traced_eager(torch, fa, rf, basics, train_mod, card, dev, paths, tmp) -> None:
+def traced_eager(torch, fa, rf, basics, train_mod, card, dev, paths, tmp) -> dict:
     from horovod_tpu_torch import metrics as hvd_metrics
     from horovod_tpu_torch.tracing import collector, flight
 
@@ -3428,6 +3464,7 @@ def traced_eager(torch, fa, rf, basics, train_mod, card, dev, paths, tmp) -> Non
         f"exchange's spans; fingerprint {ring['meta']['fingerprint']['hash']}")
     if not held:
         raise AssertionError("the flight ring holds none of the exchange's spans")
+    return plain
 
 
 def traced_graph(torch, fa, rf, basics, train_mod, loop_mod, dev, paths,
@@ -3496,12 +3533,15 @@ def traced_graph(torch, fa, rf, basics, train_mod, loop_mod, dev, paths,
 
 
 def observability_phase(torch, fa, rf, basics, train_mod, loop_mod, card, dev,
-                        paths) -> None:
+                        paths) -> dict:
+    """Phase 24; returns 24a's untraced run (losses and parameters), which
+    phase 26c's traced run is held to."""
     import tempfile
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_obs_") as tmp:
-        traced_eager(torch, fa, rf, basics, train_mod, card, dev, paths, tmp)
+        plain = traced_eager(torch, fa, rf, basics, train_mod, card, dev, paths, tmp)
         traced_graph(torch, fa, rf, basics, train_mod, loop_mod, dev, paths, tmp)
+    return plain
 
 
 # -- phase 25: the serving vertical ---------------------------------------------
@@ -3719,15 +3759,16 @@ def serving_in_process(torch, dev) -> dict:
             "rows_exact": rows_exact, "runs": runs, "np": np}
 
 
-def run_router(spec: dict, tmp: str) -> dict:
+def run_router(spec: dict, tmp: str, env: Optional[dict] = None) -> dict:
     """Run ``chip_smoke.py --serving-router`` on ``spec`` in a process of
-    its own (the router must create no CUDA context) and return its
-    report."""
+    its own (the router must create no CUDA context), with ``env`` added to
+    this process's, and return its report."""
     path_in = os.path.join(tmp, f"router-{spec['mode']}-in.json")
     path_out = os.path.join(tmp, f"router-{spec['mode']}-out.json")
     with open(path_in, "w") as f:
         json.dump(spec, f)
-    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, **(env or {}),
+               PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
     proc = subprocess.run([sys.executable, os.path.abspath(__file__),
                            "--serving-router", path_in, path_out], env=env,
                           capture_output=True, text=True, timeout=SERVE_TIMEOUT_S)
@@ -3817,10 +3858,10 @@ def serving_http(torch, state, dev, tmp) -> None:
         f"router process never initialized CUDA")
 
 
-def serving_infer(torch, dev, tmp) -> None:
-    """25c: InferenceServer, two replicas on the card, decode_steps 1 and 4;
-    every response bitwise the in-process forward (K times) at the bucket
-    it ran in."""
+def infer_model(torch, dev, path, k, features, inputs):
+    """25c's MLP ``features`` on ``INFER_IN``-wide inputs (weights drawn from
+    seed ``k``), exported to ``path``; returns the in-process eager forward
+    (K times) of ``inputs`` at each padding bucket."""
     import numpy as np
 
     from horovod_tpu_torch import checkpoint as ckpt
@@ -3829,44 +3870,67 @@ def serving_infer(torch, dev, tmp) -> None:
     from horovod_tpu_torch.serving import model as sm
     from horovod_tpu_torch.serving.batcher import bucket_sizes
 
-    inputs = np.random.RandomState(2).uniform(
+    model = MLP(features=features, in_features=INFER_IN)
+    init_cnn(model, torch.Generator().manual_seed(k))
+    ckpt.export_for_inference(path, {"params": model.state_dict()})
+    apply_fn = sm.mlp_builder(sm.load_for_serving(path), dev)
+    ref = {}
+    with torch.no_grad():
+        for b in bucket_sizes(8):
+            rows = []
+            for s in range(0, len(inputs), b):
+                x = np.zeros((b, INFER_IN), np.float32)
+                chunk = inputs[s:s + b]
+                x[:len(chunk)] = chunk
+                y = torch.as_tensor(x).to(dev)
+                for _ in range(k):
+                    y = apply_fn(y)
+                rows.append(y.cpu().numpy()[:len(chunk)])
+            ref[b] = np.concatenate(rows)
+    return ref
+
+
+def hold_infer_outputs(label, ref, outputs) -> dict:
+    """Raise unless each response is bitwise the in-process forward at one
+    of the padding buckets; returns the responses by the buckets they
+    match."""
+    import numpy as np
+
+    hits = {}
+    for i, out in enumerate(outputs):
+        got = np.asarray(out, np.float32)
+        match = tuple(b for b in ref if np.array_equal(got, ref[b][i]))
+        if not match:
+            raise AssertionError(f"{label}: response {i} matches the "
+                                 f"in-process forward at no bucket")
+        hits[match] = hits.get(match, 0) + 1
+    return hits
+
+
+def infer_inputs():
+    import numpy as np
+
+    return np.random.RandomState(2).uniform(
         -1, 1, (INFER_REQUESTS, INFER_IN)).astype(np.float32)
+
+
+def serving_infer(torch, dev, tmp) -> None:
+    """25c: InferenceServer, two replicas on the card, decode_steps 1 and 4;
+    every response bitwise the in-process forward (K times) at the bucket
+    it ran in."""
+    inputs = infer_inputs()
     runs = []
     refs = []
     for k, features in INFER_RUNS:
-        model = MLP(features=features, in_features=INFER_IN)
-        init_cnn(model, torch.Generator().manual_seed(k))
         path = os.path.join(tmp, f"mlp-k{k}")
-        ckpt.export_for_inference(path, {"params": model.state_dict()})
-        apply_fn = sm.mlp_builder(sm.load_for_serving(path), dev)
-        ref = {}
-        with torch.no_grad():
-            for b in bucket_sizes(8):
-                rows = []
-                for s in range(0, INFER_REQUESTS, b):
-                    x = np.zeros((b, INFER_IN), np.float32)
-                    chunk = inputs[s:s + b]
-                    x[:len(chunk)] = chunk
-                    y = torch.as_tensor(x).to(dev)
-                    for _ in range(k):
-                        y = apply_fn(y)
-                    rows.append(y.cpu().numpy()[:len(chunk)])
-                ref[b] = np.concatenate(rows)
-        refs.append(ref)
+        refs.append(infer_model(torch, dev, path, k, features, inputs))
         runs.append({"checkpoint": path, "decode_steps": k})
     report = run_router({"mode": "infer", "runs": runs,
                          "inputs": inputs.tolist(),
                          "device": router_device(dev)}, tmp)
     for (k, features), ref, run in zip(INFER_RUNS, refs, report["runs"]):
         label = f"InferenceServer decode_steps={k}, MLP{features}"
-        hits = {}
-        for i, out in enumerate(run["outputs"]):
-            got = np.asarray(out, np.float32)
-            match = tuple(b for b in ref if np.array_equal(got, ref[b][i]))
-            if not match:
-                raise AssertionError(f"{label}: response {i} matches the "
-                                     f"in-process forward at no bucket")
-            hits[match] = hits.get(match, 0) + 1
+        hits = hold_infer_outputs(label, ref, run["outputs"])
         log(f"    {label}: replicas ready in {run['ready_s']:.1f} s; "
             f"{INFER_REQUESTS} responses in {run['s']:.2f} s, each bitwise the "
             f"in-process forward at a bucket (responses by the buckets they "
@@ -4023,7 +4087,7 @@ def _infer_router(spec: dict) -> dict:
     from horovod_tpu_torch.serving import InferenceServer, ServeConfig
 
     inputs = spec["inputs"]
-    servers, runs = [], []
+    servers, runs, starts = [], [], []
     t0 = time.monotonic()
     try:
         # both servers' replicas come up at once
@@ -4033,8 +4097,10 @@ def _infer_router(spec: dict) -> dict:
                                        slo_ms=SERVE_TIMEOUT_S * 1e3,
                                        decode_steps=r["decode_steps"],
                                        replica_start_timeout_s=SERVE_TIMEOUT_S)
+            t1 = time.monotonic()
             servers.append(InferenceServer(r["checkpoint"], config=cfg,
                                            device=spec["device"]).start())
+            starts.append(time.monotonic() - t1)
         before = servers[0].reg.snapshot()["counters"].get(
             "horovod_serve_recompiles_total", 0)
         readies = []
@@ -4042,7 +4108,7 @@ def _infer_router(spec: dict) -> dict:
             _wait(lambda: server.manager.serving_count() >= 2,
                   SERVE_TIMEOUT_S, "two replicas")
             readies.append(time.monotonic() - t0)
-        for server, ready in zip(servers, readies):
+        for server, ready, start_s in zip(servers, readies, starts):
             t1 = time.monotonic()
             results = _concurrently(
                 lambda x: _post_json(server.port, "/v1/infer", {"inputs": x},
@@ -4056,7 +4122,7 @@ def _infer_router(spec: dict) -> dict:
             total = snap["metrics"]["counters"].get(
                 "horovod_serve_recompiles_total", 0)
             runs.append({
-                "ready_s": ready, "s": s,
+                "ready_s": ready, "start_s": start_s, "s": s,
                 "outputs": [body["outputs"] for _, body in results],
                 "recompiles": {str(k): v["recompiles"] for k, v in stats.items()},
                 "recompiles_total": total - before,
@@ -4086,6 +4152,582 @@ def serving_router(path_in: str, path_out: str) -> int:
     with open(path_out, "w") as f:
         json.dump(report, f)
     return 0
+
+
+# -- phase 26: the pod-scale trees -----------------------------------------------
+
+# Phase 26. The control tree, the telemetry tree and checkpoint streaming
+# carry the full-width model and the served MLP on the card. Fake hosts are
+# hvd-agent processes with HOROVOD_HOSTNAME set, all on this machine; each
+# host's control leader lives in its agent, keyed with the job's derived
+# secret. The trees are host code: no kernel of their own; the steps they
+# carry launch B1-B3.
+STREAM_COMMIT = 2      # 26a: the committed step the cold start streams
+STREAM_STEPS = 5       # 26a: the run that never stopped
+TREE_STEPS = 3         # 26c: phase 24's traced run; 26d: each worker's steps
+# 26d: slots on fake hosts a and b. init() refuses a launched world whose
+# size is not a multiple of its host's slots (common/topology.py
+# validate, in both packages), so each host takes two.
+TREE_SLOTS = (2, 2)
+# 26d: the leaders' registration window (HOROVOD_CTRL_BATCH_S, default
+# 0.05 s). A host's two workers each import torch before they register,
+# tens to hundreds of ms apart; one second lets one batch carry both.
+TREE_BATCH_S = "1.0"
+
+
+@contextlib.contextmanager
+def fake_hosts(names, secret: bytes, env: Optional[dict] = None):
+    """hvd-agents standing in for hosts ``names`` (HOROVOD_HOSTNAME), with
+    ``env`` added to their environment; yields their ports, and stops them
+    (and with them every leader and worker they host) after."""
+    procs, ports = [], []
+    try:
+        for name in names:
+            e = dict(launcher_env(), HOROVOD_HOSTNAME=name,
+                     HOROVOD_AGENT_SECRET=secret.hex(), **(env or {}))
+            e.pop("HOROVOD_CTRL_TREE", None)
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "horovod_tpu_torch.runner.agent",
+                 "--port", "0"], env=e, stdout=subprocess.PIPE, text=True))
+        for name, proc in zip(names, procs):
+            info = json.loads(proc.stdout.readline() or "{}")
+            if info.get("agent") != "ready":
+                raise AssertionError(f"fake host {name}: the agent did not start")
+            ports.append(info["port"])
+            # the workers it spawns share its stdout: keep the pipe drained
+            threading.Thread(target=proc.stdout.read, daemon=True).start()
+        yield ports
+    finally:
+        for proc in procs:
+            proc.send_signal(signal.SIGTERM)
+        for proc in procs:
+            try:
+                proc.wait(timeout=15)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+
+
+def start_leader(agent_port: int, secret: bytes, job_id: str, **fields):
+    """Start job ``job_id``'s control leader on the fake host at
+    ``agent_port``; returns its port and the job's derived secret (the
+    workers' HOROVOD_SECRET)."""
+    from horovod_tpu_torch.runner.network import BasicClient, derive_key
+
+    client = BasicClient([("127.0.0.1", agent_port)], secret, timeout=30.0)
+    try:
+        resp = client.request({"kind": "ctrl", "cmd": "start", "job_id": job_id,
+                               **fields})
+    finally:
+        client.close()
+    if not resp.get("ok"):
+        raise AssertionError(f"the control leader did not start: {resp}")
+    return resp["port"], derive_key(secret, b"hvd-job:" + job_id.encode())
+
+
+def sha256_file(path: str) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for block in iter(lambda: f.read(1 << 24), b""):
+            h.update(block)
+    return h.hexdigest()
+
+
+def hash_seconds(nbytes: int, reps: int = 16) -> tuple:
+    """Seconds of one SHA-256 and of one HMAC-SHA256 (the channel's MAC)
+    over ``nbytes`` of data on this host, each the median of ``reps``."""
+    import hashlib
+    import hmac
+
+    data = os.urandom(nbytes)
+    key = os.urandom(32)
+    out = []
+    for fn in (lambda: hashlib.sha256(data).digest(),
+               lambda: hmac.new(key, data, hashlib.sha256).digest()):
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t0)
+        out.append(statistics.median(times))
+    return tuple(out)
+
+
+def tensor_digests(torch, s) -> dict:
+    """SHA-256 of the bytes of every parameter and Adam state tensor of
+    ``s`` (equal digests: bit-equal tensors), by phase 21's names."""
+    import hashlib
+
+    def digest(t):
+        raw = t.detach().cpu().contiguous().reshape(-1).view(torch.uint8)
+        return hashlib.sha256(raw.numpy().tobytes()).hexdigest()
+
+    out = {f"param {n}": digest(p) for n, p in s.model.named_parameters()}
+    for i, st in s.opt.optimizer.state_dict()["state"].items():
+        out.update({f"adam {i} {k}": digest(v) if torch.is_tensor(v) else repr(v)
+                    for k, v in st.items()})
+    return out
+
+
+def cold_start_worker(dest: str, out: str) -> int:
+    """26a's fresh process. It has no view of the committed directory: only
+    HOROVOD_SECRET and HOROVOD_CKPT_STREAM_FROM. It asks the leader for the
+    manifest (timed alone), streams the checkpoint into ``dest``
+    (``fetch_from_peer``), restores it in place on the card into a run drawn
+    from seed 1, and runs the steps after the commit; its numbers go to
+    ``out`` (JSON)."""
+    import torch
+
+    from horovod_tpu_torch import checkpoint as ckpt
+    from horovod_tpu_torch import train as train_mod
+    from horovod_tpu_torch.ckpt_async import stream
+    from horovod_tpu_torch.common import basics
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.ops import ring_flash as rf
+    from horovod_tpu_torch.runner.network import BasicClient
+
+    key = bytes.fromhex(os.environ["HOROVOD_SECRET"])
+    sources = stream.stream_sources_from_env()
+    client = BasicClient(sources, key, timeout=600.0)
+    try:
+        t0 = time.perf_counter()
+        man = client.request({"kind": "ckpt_manifest"})
+        manifest_s = time.perf_counter() - t0
+    finally:
+        client.close()
+    t0 = time.perf_counter()
+    fetched = stream.fetch_from_peer(sources, key, dest)
+    fetch_s = time.perf_counter() - t0
+    config = train_mod.TrainConfig()
+    s = train_mod.setup(dataclasses.replace(config, seed=1), "cuda")
+    ckpt.init_optimizer_state(s.opt)
+    t0 = time.perf_counter()
+    got = restore_in_place(torch, ckpt, dest, ckpt_tree(s, step=0),
+                           ckpt.latest_step(dest))
+    restore_s = time.perf_counter() - t0
+    train_mod.hvd_opt.broadcast_parameters(s.model.state_dict(), root_rank=0)
+    train_mod.hvd_opt.broadcast_optimizer_state(s.opt, root_rank=0)
+    tokens = train_mod.make_batch(config, 0, basics.device())
+    read_counts(fa, rf)
+    losses = [s.step(tokens).item() for _ in range(STREAM_STEPS - STREAM_COMMIT)]
+    counts = read_counts(fa, rf)
+    with open(out, "w") as f:
+        json.dump({"manifest_s": manifest_s, "fetch_s": fetch_s,
+                   "restore_s": restore_s, "step": int(got["step"]),
+                   "losses": losses, "launches": counts,
+                   "digests": tensor_digests(torch, s),
+                   "manifest": man, "fetched": fetched,
+                   "chunk": stream.stream_chunk_bytes()}, f)
+    basics.shutdown()
+    return 0
+
+
+def streamed_cold_start(torch, fa, rf, basics, train_mod, card, paths, tmp,
+                        agent_port, secret, want_losses) -> None:
+    """26a: the full-width model trained STREAM_COMMIT steps and committed,
+    then on to STREAM_STEPS (the run that never stopped); the commit
+    exported by fake host a's leader and cold-started in a fresh process
+    through ``fetch_from_peer``."""
+    from horovod_tpu_torch import checkpoint as ckpt
+
+    config = train_mod.TrainConfig()
+    s = train_mod.setup(config, "cuda")
+    tokens = train_mod.make_batch(config, 0, basics.device())
+    read_counts(fa, rf)
+    losses = [s.step(tokens).item() for _ in range(STREAM_COMMIT)]
+    root = os.path.join(tmp, "committed")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ckpt.save(root, ckpt_tree(s, step=STREAM_COMMIT), step=STREAM_COMMIT)
+    save_s = time.perf_counter() - t0
+    losses += [s.step(tokens).item() for _ in range(STREAM_STEPS - STREAM_COMMIT)]
+    counts = read_counts(fa, rf)
+    hold_counts(f"26a, {STREAM_STEPS} steps with a commit at step {STREAM_COMMIT}",
+                counts, {k: config.layers * STREAM_STEPS for k in KERNELS})
+    paths[f"26a: {STREAM_STEPS} steps of the run that never stopped, a commit "
+          f"at step {STREAM_COMMIT}"] = counts
+    if losses != list(want_losses[:STREAM_STEPS]):
+        raise AssertionError(f"26a: the run's losses {losses} are not phase 4's "
+                             f"{want_losses}")
+    want = tensor_digests(torch, s)
+    del s
+    basics.shutdown()
+    gc.collect()
+    torch.cuda.empty_cache()
+    nbytes = tree_bytes(root)
+    port, job_secret = start_leader(agent_port, secret, "stream", ckpt_dir=root)
+    dest = os.path.join(tmp, "cold-start-host", "ckpt")
+    out = os.path.join(tmp, "cold-start.json")
+    env = dict(launcher_env(), HOROVOD_SECRET=job_secret.hex(),
+               HOROVOD_CKPT_STREAM_FROM=f"127.0.0.1:{port}")
+    env.pop("HOROVOD_CKPT_STREAM_DIR", None)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--cold-start", dest, out], env=env,
+                          capture_output=True, text=True, timeout=900)
+    child_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"26a: the cold-started process failed "
+                             f"({proc.returncode}):\n{proc.stderr[-4000:]}")
+    with open(out) as f:
+        got = json.load(f)
+    man = got["manifest"]
+    if got["fetched"] != man or man["total_bytes"] != nbytes:
+        raise AssertionError(f"26a: the fetch's manifest differs, or its "
+                             f"{man['total_bytes']} B are not the commit's {nbytes}")
+    t0 = time.perf_counter()
+    differ = [e["path"] for e in man["files"]
+              if sha256_file(os.path.join(dest, e["path"])) != e["sha256"]]
+    hash_s = time.perf_counter() - t0
+    chunks = sum(max(1, math.ceil(e["size"] / got["chunk"])) for e in man["files"])
+    fetch_s, manifest_s = got["fetch_s"], got["manifest_s"]
+    sha_s, hmac_s = hash_seconds(got["chunk"])
+    log(f"  commit of {nbytes:,} B ({len(man['files'])} files) at step "
+        f"{STREAM_COMMIT}: save {save_s:.3f} s; the leader's manifest (SHA-256 of "
+        f"every file) {manifest_s:.3f} s; fetch_from_peer {fetch_s:.3f} s = "
+        f"{nbytes / fetch_s / 1e9:.3f} GB/s ({nbytes / max(fetch_s - manifest_s, 1e-9) / 1e9:.3f} "
+        f"GB/s after its own manifest), {chunks} chunks of {got['chunk']:,} B; "
+        f"restore in place {got['restore_s']:.3f} s; the fresh process "
+        f"{child_s:.1f} s in all ({card})")
+    per_chunk = (fetch_s - manifest_s) / chunks
+    log(f"  a chunk's hashing on this host: SHA-256 {1e3 * sha_s:.2f} ms, "
+        f"HMAC-SHA256 {1e3 * hmac_s:.2f} ms, so the leader's HMAC, the client's "
+        f"HMAC and its SHA-256 take {1e3 * (sha_s + 2 * hmac_s):.2f} ms of the "
+        f"fetch's {1e3 * per_chunk:.2f} ms per chunk")
+    log(f"  streamed files against the leader's SHA-256 of the committed ones "
+        f"({hash_s:.1f} s): {len(differ)} of {len(man['files'])} differ")
+    if differ:
+        raise AssertionError(f"26a: streamed files differ: {differ}")
+    differ = [k for k in want if got["digests"].get(k) != want[k]]
+    log(f"  restored from the stream at step {got['step']} in a seed-1 run, "
+        f"{STREAM_STEPS - STREAM_COMMIT} more steps: losses {got['losses']} vs "
+        f"{losses[STREAM_COMMIT:]}; tensors whose SHA-256 differs: {len(differ)} "
+        f"of {len(want)} (parameters and Adam moments)")
+    if got["step"] != STREAM_COMMIT or got["losses"] != losses[STREAM_COMMIT:] \
+            or differ or got["digests"].keys() != want.keys():
+        raise AssertionError(f"26a: the cold-started run is not bit-equal to the "
+                             f"run that never stopped ({differ[:5]})")
+    counts = {k: got["launches"].get(k, 0) for k in {**KERNELS, **RING_KERNELS}}
+    hold_counts("in the cold-started process", counts,
+                {k: config.layers * (STREAM_STEPS - STREAM_COMMIT) for k in KERNELS})
+    paths[f"26a: {STREAM_STEPS - STREAM_COMMIT} steps of the process cold-started "
+          f"from the stream"] = counts
+
+
+def streamed_serving(torch, dev, tmp, agent_port, secret) -> None:
+    """26b: 25c's exported MLP served from a path that does not exist on the
+    serving side: the router's manager streams it from fake host a's
+    leader before the first replica spawns."""
+    k, features = INFER_RUNS[0]
+    inputs = infer_inputs()
+    exported = os.path.join(tmp, "exported-mlp")
+    ref = infer_model(torch, dev, exported, k, features, inputs)
+    port, job_secret = start_leader(agent_port, secret, "serve", ckpt_dir=exported)
+    missing = os.path.join(tmp, "serving-host", "mlp")
+    report = run_router(
+        {"mode": "infer", "runs": [{"checkpoint": missing, "decode_steps": k}],
+         "inputs": inputs.tolist(), "device": router_device(dev)}, tmp,
+        env={"HOROVOD_SECRET": job_secret.hex(),
+             "HOROVOD_CKPT_STREAM_FROM": f"127.0.0.1:{port}"})
+    (run,) = report["runs"]
+    label = f"InferenceServer decode_steps={k}, MLP{features}, streamed"
+    hits = hold_infer_outputs(label, ref, run["outputs"])
+    hold_replicas_on(label, run, dev)
+    files = sorted(os.listdir(exported))
+    same = [f for f in files if sha256_file(os.path.join(exported, f))
+            == sha256_file(os.path.join(missing, f))]
+    log(f"    {label}: the manager's start() (the fetch) {run['start_s']:.3f} s, "
+        f"replicas ready {run['ready_s']:.1f} s after the start, the fetch inside; "
+        f"{INFER_REQUESTS} responses in {run['s']:.2f} s, each bitwise the "
+        f"in-process forward at a bucket ({hits}); streamed files identical "
+        f"to the exported ones: {len(same)} of {len(files)}")
+    if same != files:
+        raise AssertionError(f"{label}: streamed files differ from the exported")
+
+
+def settled_stats(svc) -> dict:
+    """``svc.stats()`` once its counters stop moving: a service flushes a
+    request's bytes just after it answers."""
+    last = None
+    deadline = time.monotonic() + 2.0
+    while time.monotonic() < deadline:
+        cur = svc.stats()
+        if cur == last:
+            return cur
+        last = cur
+        time.sleep(0.02)
+    return last
+
+
+def telemetry_tree_run(torch, fa, rf, basics, train_mod, card, paths, tmp,
+                       untraced) -> None:
+    """26c: phase 24's traced eager run, pushing through a
+    ``RankTelemetryClient`` to host a's ``TelemetryAgent``, whose root is a
+    ``DriverService``; then ``bundle --leader`` over that run."""
+    import pickle
+
+    from horovod_tpu_torch import metrics as hvd_metrics
+    from horovod_tpu_torch.metrics.aggregate import merge_snapshots
+    from horovod_tpu_torch.metrics.registry import MetricsRegistry
+    from horovod_tpu_torch.runner.network import make_secret
+    from horovod_tpu_torch.runner.service import DriverService
+    from horovod_tpu_torch.telemetry import RankTelemetryClient, TelemetryAgent
+    from horovod_tpu_torch.tracing import bundle
+
+    config = train_mod.TrainConfig()
+    tdir, fdir = os.path.join(tmp, "trace"), os.path.join(tmp, "flight")
+    key = make_secret()
+    root = DriverService(1, key)
+    # The leader a HostAgent would host for the job (its ``telemetry``
+    # command), made here because its root hop is attached in process, as
+    # the JAX package's pod smoke makes its leaders.
+    agent = TelemetryAgent(key, host_name="a", flight_dir=fdir, trace_dir=tdir,
+                           interval_s=1.0, expected_ranks=[0], reg=MetricsRegistry())
+    counter = ('horovod_collective_bytes_total{op="allreduce"}',
+               'horovod_collectives_total{op="allreduce"}')
+    try:
+        agent.attach_root(root.addresses(), start_loop=False)
+        with env_set({"HOROVOD_TRACE_DIR": tdir, "HOROVOD_FLIGHT_DIR": fdir}):
+            gc.collect()
+            torch.cuda.empty_cache()
+            s = train_mod.setup(config, "cuda")
+            tokens = train_mod.make_batch(config, 0, basics.device())
+            rc = RankTelemetryClient([("127.0.0.1", agent.port)], key, rank=0)
+            before = hvd_metrics.registry().snapshot()["counters"]
+            ticks, losses = [], []
+            read_counts(fa, rf)
+            for _ in range(TREE_STEPS):
+                losses.append(s.step(tokens).item())
+                a0, r0 = settled_stats(agent), settled_stats(root)
+                req = rc.push(hvd_metrics.registry().snapshot())
+                agent.push_to_root_once()
+                a1, r1 = settled_stats(agent), settled_stats(root)
+                ticks.append((req["full"], len(pickle.dumps(req)),
+                              a1["bytes_in"] - a0["bytes_in"],
+                              r1["bytes_in"] - r0["bytes_in"]))
+            counts = read_counts(fa, rf)
+            params = {n: p.detach().cpu() for n, p in s.model.named_parameters()}
+            plan = [n for _, n in hvd_metrics.last_plan()]
+            offset = rc.composed_clock_offset()
+            del s
+            basics.shutdown()
+        snap = hvd_metrics.registry().snapshot()
+        rc.push(snap)
+        agent.push_to_root_once()
+        pod = root.pod_metrics()
+        summary = bundle.make_bundle(os.path.join(tmp, "bundle"),
+                                     leaders=[f"127.0.0.1:{agent.port}"],
+                                     leader_key=key)
+        rc.close()
+    finally:
+        agent.stop()
+        root.stop()
+    hold_counts(f"26c, {TREE_STEPS} traced steps through the telemetry tree",
+                counts, {k: config.layers * TREE_STEPS for k in KERNELS})
+    paths[f"26c: {TREE_STEPS} traced steps through the telemetry tree"] = counts
+    differ = [n for n in params if not torch_equal(params[n], untraced["params"][n])]
+    log(f"  (26c) losses {losses} vs phase 24's untraced {untraced['losses']}; "
+        f"parameters that differ: {len(differ)} of {len(params)}")
+    if losses != untraced["losses"] or differ:
+        raise AssertionError("26c: the traced run through the telemetry tree is "
+                             "not bit-equal to the untraced run")
+    for i, (full, req_b, leader_b, root_b) in enumerate(ticks):
+        log(f"  tick {i + 1}: rank push {'full snapshot' if full else 'delta'} "
+            f"{req_b:,} B pickled, {leader_b:,} B in at the leader; leader to root "
+            f"{root_b:,} B in at the root")
+    moved = {k: snap["counters"].get(k, 0.0) - before.get(k, 0.0) for k in counter}
+    pod_c = {k: pod["counters"].get(k) for k in counter}
+    own = {k: snap["counters"].get(k) for k in counter}
+    flat = merge_snapshots([snap])
+    log(f"  the root's pod view {pod_c} vs the rank's own registry {own}; the "
+        f"run moved {moved} (plan: {TREE_STEPS} x {sum(plan):,} B in {len(plan)} "
+        f"buckets); pod view bitwise the flat merge: "
+        f"{json.dumps(pod, sort_keys=True) == json.dumps(flat, sort_keys=True)}")
+    if pod_c != own or json.dumps(pod, sort_keys=True) != json.dumps(flat, sort_keys=True) \
+            or moved != {counter[0]: TREE_STEPS * sum(plan),
+                         counter[1]: TREE_STEPS * len(plan)}:
+        raise AssertionError("26c: the root's pod view is not the rank's registry")
+    log(f"  composed clock offset (rank to leader to root) {offset[0]} ns, "
+        f"error bound {offset[1]} ns")
+    with open(os.path.join(tmp, "bundle", "MANIFEST.md")) as f:
+        manifest = f.read()
+    log(f"  bundle --leader: {summary['hosts_swept']} host swept, "
+        f"{summary['flight_files']} flight files, trace {bool(summary['trace'])}, "
+        f"coverage gaps {summary['coverage_gaps']}")
+    if summary["coverage_gaps"] or summary["hosts_swept"] != 1 \
+            or not summary["flight_files"] or not summary["trace"] \
+            or "| a | ok |" not in manifest:
+        raise AssertionError(f"26c: the sweep named gaps or missed the run: "
+                             f"{summary}")
+
+
+def tree_worker(out: str) -> int:
+    """26d's worker, launched by ``run_command`` across the fake hosts: a
+    world of one of its own on the shared card (``init(comm=[rank])`` at a
+    rendezvous address of its own, since the launched world's is one for
+    all), then 23a's worker for TREE_STEPS steps."""
+    from horovod_tpu_torch.common import basics
+
+    rank = int(os.environ["HOROVOD_RANK"])
+    os.environ["HOROVOD_COORD_ADDR"] = f"127.0.0.1:{free_local_port()}"
+    basics.init("cuda", comm=[rank])
+    return launched_worker(os.path.join(out, f"rank{rank}.json"), TREE_STEPS)
+
+
+def recording_driver(base):
+    """``base`` recording each request it handles (not the per-rank ones a
+    ``host_*`` request loops through) as (kind, client address), and its
+    wire totals when it stops."""
+    made = []
+    depth = threading.local()
+
+    class Recording(base):
+        def __init__(self, *a, **k):
+            self.seen = []
+            super().__init__(*a, **k)
+            made.append(self)
+
+        def handle(self, req, client_addr):
+            n = getattr(depth, "n", 0)
+            if n == 0:
+                self.seen.append((req.get("kind"), client_addr))
+            depth.n = n + 1
+            try:
+                return super().handle(req, client_addr)
+            finally:
+                depth.n = n
+
+        def stop(self):
+            self.final_stats = self.stats()
+            super().stop()
+
+    return Recording, made
+
+
+def control_tree_run(torch, fa, rf, card, paths, tmp, ports, secret,
+                     want_losses, layers) -> None:
+    """26d: ``run_command`` of 4 workers across fake hosts a and b, with
+    ``HOROVOD_CTRL_TREE`` unset (the tree on) and then set to 0."""
+    import horovod_tpu_torch.runner as prunner
+
+    spec = ",".join(f"127.0.0.1@{p}:{n}" for p, n in zip(ports, TREE_SLOTS))
+    world = sum(TREE_SLOTS)
+    runs = {}
+    saved = prunner.DriverService
+    for tree in (True, False):
+        out = os.path.join(tmp, "tree" if tree else "flat")
+        os.makedirs(out)
+        cls, made = recording_driver(saved)
+        prunner.DriverService = cls
+        prev = os.environ.pop("HOROVOD_CTRL_TREE", None)
+        if not tree:
+            os.environ["HOROVOD_CTRL_TREE"] = "0"
+        try:
+            t0 = time.perf_counter()
+            rc = prunner.run_command(
+                [sys.executable, os.path.abspath(__file__), "--tree-worker", out],
+                hosts=spec, agent_secret=secret, timeout=600,
+                env={"HOROVOD_DEVICE_ORDINAL": "0"})
+            secs = time.perf_counter() - t0
+        finally:
+            prunner.DriverService = saved
+            os.environ.pop("HOROVOD_CTRL_TREE", None)
+            if prev is not None:
+                os.environ["HOROVOD_CTRL_TREE"] = prev
+        if rc != 0:
+            raise AssertionError(f"26d: run_command exited {rc} "
+                                 f"({'tree' if tree else 'flat'})")
+        workers = []
+        for r in range(world):
+            with open(os.path.join(out, f"rank{r}.json")) as f:
+                workers.append(json.load(f))
+        (driver,) = made
+        runs[tree] = (workers, driver.seen, driver.final_stats, secs)
+    for tree, (workers, seen, stats, secs) in runs.items():
+        label = "tree" if tree else f"flat (HOROVOD_CTRL_TREE=0)"
+        for w in workers:
+            if w["losses"] != list(want_losses[:TREE_STEPS]) or w["size"] != 1:
+                raise AssertionError(f"26d {label}: launched rank "
+                                     f"{w['launched_rank']}'s losses {w['losses']} "
+                                     f"are not phase 4's first {TREE_STEPS}")
+            if bool(w["ctrl_addrs"]) != tree:
+                raise AssertionError(f"26d {label}: launched rank "
+                                     f"{w['launched_rank']} dialed "
+                                     f"{w['ctrl_addrs'] or 'the driver'}")
+        counts = {k: sum(w["launches"].get(k, 0) for w in workers)
+                  for k in {**KERNELS, **RING_KERNELS}}
+        hold_counts(f"26d {label}, {world} workers x {TREE_STEPS} steps", counts,
+                    {k: layers * TREE_STEPS * world for k in KERNELS})
+        paths[f"26d: {TREE_STEPS} steps in each of the {world} workers "
+              f"run_command launched across two fake hosts, {label}"] = counts
+        kinds = {}
+        for kind, addr in seen:
+            kinds.setdefault(kind, []).append(addr)
+        log(f"  (26d) {label}: {world} workers in {secs:.1f} s, each one's losses "
+            f"phase 4's first {TREE_STEPS}; at the driver: "
+            f"{stats['connections_total']} connections, "
+            f"{stats['bytes_in']:,} B in + {stats['bytes_out']:,} B out of control "
+            f"traffic, requests by kind "
+            f"{ {k: len(v) for k, v in sorted(kinds.items())} }")
+    _, seen, stats, _ = runs[True]
+    request_conns = {a for k, a in seen if k != "host_wait_assignment"}
+    wait_conns = {a for k, a in seen if k == "host_wait_assignment"}
+    batches = [a for k, a in seen if k == "host_register"]
+    per_host = {a: batches.count(a) for a in set(batches)}
+    log(f"  tree: worker-side request connections {len(request_conns)} (one per "
+        f"host leader; flat: {runs[False][2]['connections_total']}), wait "
+        f"connections {len(wait_conns)}; host_register per leader connection "
+        f"{sorted(per_host.values())}; control bytes at the driver "
+        f"{stats['bytes_in'] + stats['bytes_out']:,} B tree vs "
+        f"{runs[False][2]['bytes_in'] + runs[False][2]['bytes_out']:,} B flat ({card})")
+    if len(request_conns) != len(ports) or len(wait_conns) != len(ports) \
+            or "register" in {k for k, _ in seen} \
+            or any(n > 1 for n in per_host.values()) or len(per_host) != len(ports):
+        raise AssertionError(f"26d: the driver did not see one leader per host "
+                             f"carrying each host's registrations in one batch: "
+                             f"{seen}")
+
+
+def trees_phase(torch, fa, rf, basics, train_mod, card, dev, paths, want_losses,
+                untraced) -> None:
+    import secrets
+    import tempfile
+
+    t_phase = time.perf_counter()
+    secret = secrets.token_bytes(32)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trees_") as tmp, \
+            fake_hosts(("a", "b"), secret, {"HOROVOD_CTRL_BATCH_S": TREE_BATCH_S}) \
+            as ports:
+        t0 = time.perf_counter()
+        log(f"  (26a) streamed cold start: the full-width model committed at step "
+            f"{STREAM_COMMIT}, exported by fake host a's control leader, "
+            f"cold-started in a fresh process")
+        streamed_cold_start(torch, fa, rf, basics, train_mod, card, paths, tmp,
+                            ports[0], secret, want_losses)
+        log(f"  26a took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        log("  (26b) serving cold start: 25c's MLP streamed to a router whose "
+            "checkpoint path does not exist")
+        streamed_serving(torch, dev, tmp, ports[0], secret)
+        log(f"  26b took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        log(f"  (26c) the telemetry tree over phase 24's traced run, {TREE_STEPS} "
+            f"steps")
+        telemetry_tree_run(torch, fa, rf, basics, train_mod, card, paths, tmp,
+                           untraced)
+        log(f"  26c took {time.perf_counter() - t0:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        log(f"  (26d) the control tree: run_command of {sum(TREE_SLOTS)} workers "
+            f"across fake hosts a:{TREE_SLOTS[0]} and b:{TREE_SLOTS[1]} on the one "
+            f"card, tree on (HOROVOD_CTRL_TREE unset) and off")
+        control_tree_run(torch, fa, rf, card, paths, tmp, ports, secret,
+                         want_losses, train_mod.TrainConfig().layers)
+        log(f"  26d took {time.perf_counter() - t0:.1f} s")
+    log(f"  phase 26 took {time.perf_counter() - t_phase:.1f} s ({card})")
 
 
 def config_label(config) -> str:
@@ -4289,8 +4931,8 @@ def main() -> int:
         f"{TRACE_STEPS} traced eager steps (spans, flight ring, /metrics, plan "
         f"gauges) and the graphed loop (K = {GRAPH_K}) traced, each bit-equal "
         f"to the untraced run")
-    observability_phase(torch, fa, rf, basics, train_mod, loop_mod, card, dev,
-                        paths)
+    untraced = observability_phase(torch, fa, rf, basics, train_mod, loop_mod,
+                                   card, dev, paths)
 
     log(f"[25] the serving plane on the card: TinyLM {SERVE_LM} against the "
         f"CPU and through the paged scheduler (plain, draft_k=4, "
@@ -4299,6 +4941,15 @@ def main() -> int:
         f"1 and 4)")
     torch.cuda.empty_cache()
     serving_phase(torch, fa, rf, dev, paths)
+
+    log(f"[26] the pod-scale trees on the card: a streamed cold start of the "
+        f"full-width model, a streamed serving cold start, the telemetry tree "
+        f"over a traced run, the control tree under run_command across fake "
+        f"hosts")
+    torch.cuda.empty_cache()
+    trees_phase(torch, fa, rf, basics, train_mod, card, dev, paths, result.losses,
+                untraced)
+    del untraced
 
     kernels = []
     for source, names in SOURCES.items():
@@ -4328,4 +4979,8 @@ if __name__ == "__main__":
         sys.exit(launched_worker(sys.argv[2]))
     if sys.argv[1:2] == ["--serving-router"]:
         sys.exit(serving_router(sys.argv[2], sys.argv[3]))
+    if sys.argv[1:2] == ["--cold-start"]:
+        sys.exit(cold_start_worker(sys.argv[2], sys.argv[3]))
+    if sys.argv[1:2] == ["--tree-worker"]:
+        sys.exit(tree_worker(sys.argv[2]))
     sys.exit(main())

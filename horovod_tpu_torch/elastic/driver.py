@@ -138,6 +138,35 @@ class AgentSlotPool:
         self._clients: dict[str, Any] = {}      # host -> BasicClient | None
         self._host_indices: dict[str, set] = {}  # host -> task indices
         self._last_codes: dict[int, Optional[int]] = {}
+        # Control tree: set via enable_control() before spawns; each host's
+        # leader starts lazily with its first slot, so hosts joining
+        # mid-run (discovery) get one too.
+        self._ctrl_root: Optional[list] = None
+        self._ctrl_ckpt_dir = ""
+        self._ctrl_started: set[str] = set()
+
+    def enable_control(self, root_addrs, ckpt_dir: str = "") -> None:
+        """Route every host's rank traffic through a ControlAgent leader
+        (started on first spawn per host) instead of rank-to-root."""
+        self._ctrl_root = [list(a) for a in root_addrs]
+        self._ctrl_ckpt_dir = ckpt_dir
+
+    def _start_control(self, host: str, client) -> None:
+        if self._ctrl_root is None or host in self._ctrl_started:
+            return
+        try:
+            resp = client.request({
+                "kind": "ctrl", "cmd": "start", "job_id": self.job_id,
+                "root": self._ctrl_root, "ckpt_dir": self._ctrl_ckpt_dir})
+        except (ConnectionError, OSError) as e:
+            resp = {"ok": False, "error": str(e)}
+        if resp.get("ok"):
+            self._ctrl_started.add(host)
+        else:
+            log("warning",
+                f"[ctrl] control leader failed to start on {host}: "
+                f"{resp.get('error')} — that host's workers use the flat "
+                "control plane")
 
     def job_secret(self) -> bytes:
         from ..runner.network import derive_key
@@ -172,6 +201,7 @@ class AgentSlotPool:
         env = _worker_env(slot.index, self._driver.addresses(), None,
                           slot.env(self._env))
         client = self._client(slot.host)
+        self._start_control(slot.host, client)
         resp = client.request({
             "kind": "spawn", "job_id": self.job_id, "extend": True,
             "workers": [{"index": slot.index,
@@ -288,7 +318,7 @@ def launch_elastic(fn: Callable, args: tuple = (), kwargs: Optional[dict] = None
                             help="hosts/slots currently blacklisted")
 
     if hosts is not None:
-        from ..runner.remote import parse_hosts, require_flat_control
+        from ..runner.remote import parse_hosts
 
         if agent_secret is None:
             hex_secret = os.environ.get("HOROVOD_AGENT_SECRET")
@@ -298,7 +328,6 @@ def launch_elastic(fn: Callable, args: tuple = (), kwargs: Optional[dict] = None
                     "agent_secret= or set HOROVOD_AGENT_SECRET (hex)")
             agent_secret = bytes.fromhex(hex_secret)
         specs = parse_hosts(hosts, agent_port)
-        require_flat_control(len(specs), sum(int(s.slots) for s in specs))
         initial_hosts = [(f"{s.host}@{s.agent_port}", s.slots) for s in specs]
         driver = ElasticDriverService(b"\0" * 32, fn=fn, args=args,
                                       kwargs=kwargs)
@@ -308,6 +337,16 @@ def launch_elastic(fn: Callable, args: tuple = (), kwargs: Optional[dict] = None
         # crosses the wire) — re-key the driver service before any worker
         # can connect (spawns happen strictly later).
         driver.key = pool.job_secret()
+        # Control tree: per-host leaders fold rendezvous and elastic-poll
+        # traffic into one upstream connection per host, and serve
+        # checkpoint streaming to cold-starting joiners.
+        from ..ctrl.tree import use_tree
+
+        world = sum(int(s.slots) for s in specs)
+        if use_tree(len(specs), world):
+            pool.enable_control(
+                driver.addresses(),
+                ckpt_dir=knob("HOROVOD_CKPT_STREAM_DIR", ""))
     else:
         num_proc = num_proc or os.cpu_count() or 1
         if num_proc < 1:
@@ -501,6 +540,11 @@ def _emit_elastic_pod_metrics(driver, events: ElasticEventLog,
             "blacklisted": blacklist.blacklisted(),
             "events": [e["event"] for e in events.events],
         }
+        # Telemetry-tree coverage, when host leaders were pushing through
+        # the tree: per-host snapshot age + expected ranks, so the final
+        # snapshot records which hosts were still reporting at the end.
+        if driver._telemetry is not None:
+            pod["info"]["elastic"]["telemetry"] = driver._telemetry.staleness()
         if path:
             with open(path, "w") as f:
                 json.dump(pod, f, indent=2)

@@ -9,10 +9,12 @@ never collide; docs/metrics.md). Endpoints:
 - ``GET /metrics``       → Prometheus text format 0.0.4 (scrape target);
 - ``GET /metrics.json``  → the JSON snapshot (what the runner aggregates
   pod-wide, aggregate.merge_snapshots);
-- ``GET /metrics.json?host=1`` → 404: the host-merged view of a
-  telemetry-tree leader needs the telemetry tree, which the port does not
-  have yet (ROADMAP.md queue A item 3), and a scraper pointed at a
-  per-rank exporter fails loudly instead of silently halving coverage;
+- ``GET /metrics.json?host=1`` → on a telemetry-tree LEADER, the host-merged
+  snapshot (aggregate finalize of every local rank's latest push) — one
+  scrape per host replaces one per rank (docs/metrics.md). Ranks and
+  leaders without a host view answer 404 so a scraper misconfigured
+  against a non-leader port fails loudly instead of silently halving
+  coverage;
 - ``GET /healthz``       → 200 ok (liveness probe for the stall watchdog:
   a rank whose exposition stops answering is itself the straggler).
 
@@ -37,6 +39,10 @@ PROMETHEUS_CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
 
 class _Handler(BaseHTTPRequestHandler):
     registry: MetricsRegistry = None  # type: ignore[assignment]
+    # Telemetry-tree leaders bind this to TelemetryAgent.host_view — a
+    # zero-arg callable returning the host-merged snapshot (or None while
+    # no rank has pushed yet). Stays None on plain per-rank exporters.
+    host_view = None
 
     def do_GET(self):  # noqa: N802 (BaseHTTPRequestHandler API)
         path, _, query = self.path.partition("?")
@@ -44,10 +50,18 @@ class _Handler(BaseHTTPRequestHandler):
             body = self.registry.render_prometheus().encode()
             ctype = PROMETHEUS_CONTENT_TYPE
         elif path == "/metrics.json" and "host=1" in query.split("&"):
-            self.send_error(
-                404, "no host view: this port is a per-rank exporter, "
-                     "not a telemetry-tree leader (docs/metrics.md)")
-            return
+            if self.host_view is None:
+                self.send_error(
+                    404, "no host view: this port is a per-rank exporter, "
+                         "not a telemetry-tree leader (docs/metrics.md)")
+                return
+            view = self.host_view()
+            if view is None:
+                self.send_error(503, "host view empty: no rank has pushed "
+                                     "a snapshot to this leader yet")
+                return
+            body = json.dumps(view).encode()
+            ctype = "application/json"
         elif path in ("/metrics.json", "/snapshot"):
             body = json.dumps(self.registry.snapshot()).encode()
             ctype = "application/json"
@@ -79,12 +93,15 @@ class MetricsServer:
     read back from ``.port``."""
 
     def __init__(self, port: int, reg: Optional[MetricsRegistry] = None,
-                 host: Optional[str] = None) -> None:
+                 host: Optional[str] = None, host_view=None) -> None:
         from ..common.resilience import bind_with_retry
 
         reg = reg or registry()
         host = host or os.environ.get("HOROVOD_METRICS_HOST", "127.0.0.1")
-        handler = type("BoundHandler", (_Handler,), {"registry": reg})
+        handler = type("BoundHandler", (_Handler,),
+                       {"registry": reg,
+                        "host_view": staticmethod(host_view)
+                        if host_view is not None else None})
         window = 1 if port == 0 else max(
             int(os.environ.get("HOROVOD_METRICS_PORT_WINDOW", "") or 16), 1)
         self._httpd, _ = bind_with_retry(
@@ -112,5 +129,6 @@ class MetricsServer:
 
 
 def start_metrics_server(port: int, reg: Optional[MetricsRegistry] = None,
-                         host: Optional[str] = None) -> MetricsServer:
-    return MetricsServer(port, reg, host)
+                         host: Optional[str] = None,
+                         host_view=None) -> MetricsServer:
+    return MetricsServer(port, reg, host, host_view=host_view)

@@ -82,13 +82,20 @@ class StallWatchdog:
                  on_abort: Optional[Callable[[StallInfo], None]] = None,
                  reg: Optional[MetricsRegistry] = None,
                  poll_interval_s: Optional[float] = None,
-                 on_warn: Optional[Callable[[list], None]] = None) -> None:
+                 on_warn: Optional[Callable[[list], None]] = None,
+                 event_sink: Optional[Callable[[dict], None]] = None) -> None:
         self.check_time_s = float(check_time_s)
         self.shutdown_time_s = float(shutdown_time_s)
         self.rank = rank
         self.on_abort = on_abort
         # Optional escalation hook fired once per fresh warning batch.
         self.on_warn = on_warn
+        # Telemetry-tree forwarding: fresh warn batches are also handed to
+        # this sink as the structured flight-style event dict; the rank's
+        # telemetry client (telemetry/agent.py RankTelemetryClient
+        # .event_sink) batches them to the host leader instead of every
+        # rank opening its own connection to the root.
+        self.event_sink = event_sink
         self.reg = reg or registry()
         # Poll a few times per warning window so a stall is reported within
         # ~1.25x of check_time even for sub-second test configurations.
@@ -154,6 +161,16 @@ class StallWatchdog:
             text = format_report(stalled, self.check_time_s)
             log("warning", text, rank=self.rank)
             self._warn_counter.inc()
+            if self.event_sink is not None:
+                try:
+                    self.event_sink({
+                        "kind": "stall", "rank": self.rank,
+                        "time_unix_s": round(time.time(), 3),
+                        "stalled": [{"name": s.name, "op": s.op,
+                                     "age_s": round(s.age_s, 3)}
+                                    for s in stalled[:16]]})
+                except Exception:   # forwarding must not kill the watchdog
+                    pass
             try:
                 # Always retained in the process flight ring:
                 # a stall that later becomes a crash has its onset on

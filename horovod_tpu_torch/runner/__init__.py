@@ -37,8 +37,7 @@ from typing import Callable, Optional, Sequence, Union
 
 from .network import make_secret
 from .proc_tree import terminate_trees
-from .remote import (HostSpec, RemoteSpawner, parse_hosts,  # noqa: F401
-                     require_flat_control)
+from .remote import HostSpec, RemoteSpawner, parse_hosts  # noqa: F401
 from .service import (  # noqa: F401
     DriverService,
     ElasticDriverService,
@@ -112,6 +111,24 @@ def _exit_code(rc: Optional[int]) -> int:
     return 128 - rc if rc < 0 else rc
 
 
+def _maybe_start_control(spawner: RemoteSpawner, driver: DriverService,
+                         world: int, env: Optional[dict]) -> None:
+    """Start per-host control leaders when the tree pays for itself
+    (ctrl.tree.use_tree — multi-host, world >= 3, not knobbed off), so
+    rendezvous/poll traffic reaches the driver via O(hosts) connections.
+    The exported checkpoint directory (streaming cold-start source) is the
+    job's HOROVOD_CKPT_STREAM_DIR, from the call's env or the launcher's.
+    The JAX launcher also asks each leader for its engine-coordinator
+    relay; the port has no such coordinator, so it asks for none."""
+    from ..ctrl.tree import use_tree
+
+    if not use_tree(len(spawner.specs), world):
+        return
+    ckpt_dir = (env or {}).get("HOROVOD_CKPT_STREAM_DIR") \
+        or os.environ.get("HOROVOD_CKPT_STREAM_DIR", "")
+    spawner.start_control(driver.addresses(), ckpt_dir=ckpt_dir)
+
+
 def _remote_spawner(hosts, agent_port, agent_secret) -> RemoteSpawner:
     if agent_secret is None:
         hex_secret = os.environ.get("HOROVOD_AGENT_SECRET")
@@ -154,7 +171,6 @@ def run(fn: Callable, args: tuple = (), kwargs: Optional[dict] = None,
         # shipped in worker env over the unencrypted agent channel.
         secret = spawner.job_secret()
         try:
-            require_flat_control(len(spawner.specs), num_proc)
             driver = DriverService(num_proc, secret, fn=fn, args=args,
                                    kwargs=kwargs)
         except BaseException:
@@ -163,6 +179,7 @@ def run(fn: Callable, args: tuple = (), kwargs: Optional[dict] = None,
         argv = [python or sys.executable, "-m",
                 "horovod_tpu_torch.runner.task_main"]
         try:
+            _maybe_start_control(spawner, driver, num_proc, env)
             spawner.spawn(
                 make_argv=lambda i: argv,
                 make_env=lambda i: _worker_env(i, driver.addresses(), None, env))
@@ -258,16 +275,12 @@ def run_command(command: Sequence[str], num_proc: Optional[int] = None,
             raise ValueError(
                 f"num_proc={num_proc} contradicts hosts spec "
                 f"({spawner.num_proc} total slots)")
-        try:
-            require_flat_control(len(spawner.specs), spawner.num_proc)
-        except NotImplementedError:
-            spawner.close()
-            raise
         secret = spawner.job_secret()  # derived on both ends, never shipped
         driver = DriverService(spawner.num_proc, secret, fn=None)
         argv = ([python or sys.executable, "-m",
                  "horovod_tpu_torch.runner.task_exec"] + list(command))
         try:
+            _maybe_start_control(spawner, driver, spawner.num_proc, env)
             spawner.spawn(
                 make_argv=lambda i: argv,
                 make_env=lambda i: {

@@ -26,9 +26,9 @@ never sent on the wire — both sides prove possession via HMAC over each
 message. Start the agent with `--secret-file` (or HOROVOD_AGENT_SECRET hex).
 
 The port's own copy of ``horovod_tpu.runner.agent``, with the same protocol.
-Its ``telemetry`` and ``ctrl`` requests host modules that are not ported
-yet (the telemetry tree and the control tree): the agent answers them
-with an error that names ``NotImplementedError``.
+A ``ctrl`` request that asks for the JAX package's engine-coordinator relay
+(``relay``) is answered with the ``NotImplementedError`` of
+``ControlAgent.relay_port``: the relay comes with the eager engine.
 """
 
 from __future__ import annotations
@@ -43,7 +43,7 @@ from typing import Any, Optional
 
 from .network import BasicService, derive_key
 from .proc_tree import terminate_trees
-from .service import NOT_PORTED, host_hash, not_ported
+from .service import host_hash
 
 DEFAULT_AGENT_PORT = 9009
 
@@ -65,8 +65,21 @@ class HostAgent(BasicService):
       mid-run without re-keying the world.
     - ``poll`` ``{job_id}`` → ``{ok, workers: [{index, pid, returncode}]}``.
     - ``kill`` ``{job_id}`` → ``{ok}`` — terminate the job's worker trees.
-    - ``telemetry``, ``ctrl`` → ``{ok: False, error}``: the telemetry
-      agent and the control-tree leader are not ported.
+    - ``telemetry`` ``{cmd: start|stop, job_id, flight_dir?, trace_dir?,
+      interval_s?, expected_ranks?}`` → ``{ok, port, host}`` — host a
+      telemetry-tree agent (telemetry/agent.py) for the job, keyed with the
+      same derived job secret the workers hold, so the job's ranks can push
+      metric deltas and probe the host clock without extra key exchange.
+      The telemetry agent's lifetime is the job's: ``kill`` and driver
+      disconnect stop it with the workers.
+    - ``ctrl`` ``{cmd: start|stop, job_id, root?, ckpt_dir?}`` →
+      ``{ok, port, host}`` — host a control-tree leader (ctrl/agent.py
+      ControlAgent) for the job, keyed with the same derived job secret.
+      ``root`` is the driver service's address list; the leader batches
+      its ranks' rendezvous/poll traffic into one upstream connection
+      and serves checkpoint streaming from ``ckpt_dir``. Same lifetime
+      discipline as the telemetry agent. ``relay`` (the JAX package's
+      engine-coordinator relay) is answered with an error.
     """
 
     def __init__(self, key: bytes, host: str = "0.0.0.0", port: int = 0) -> None:
@@ -77,6 +90,10 @@ class HostAgent(BasicService):
         self._spawned_total = 0
         self._exited_nonzero_total = 0
         self._exit_counted: set[int] = set()  # pids already tallied
+        # job_id -> TelemetryAgent (hosted for that job's ranks)
+        self._telemetry: dict[str, Any] = {}
+        # job_id -> ControlAgent (control-tree host leader)
+        self._ctrl: dict[str, Any] = {}
 
     def handle(self, req: Any, client_addr) -> Any:
         kind = req.get("kind")
@@ -113,9 +130,102 @@ class HostAgent(BasicService):
         if kind == "kill":
             self._kill_job(req["job_id"])
             return {"ok": True}
-        if kind in NOT_PORTED:
-            return not_ported(kind)
+        if kind == "telemetry":
+            return self._telemetry_cmd(req, client_addr)
+        if kind == "ctrl":
+            return self._ctrl_cmd(req, client_addr)
         return {"ok": False, "error": f"unknown request {kind}"}
+
+    def _telemetry_cmd(self, req: Any, client_addr) -> Any:
+        job_id = str(req.get("job_id", ""))
+        cmd = req.get("cmd", "start")
+        if cmd == "stop":
+            self._stop_telemetry(job_id)
+            return {"ok": True}
+        if cmd != "start":
+            return {"ok": False, "error": f"unknown telemetry cmd {cmd!r}"}
+        with self._jobs_lock:
+            ta = self._telemetry.get(job_id)
+            if ta is not None:   # idempotent: re-start returns the live one
+                return {"ok": True, "port": ta.port, "host": ta.host_name}
+        from ..telemetry.agent import TelemetryAgent
+
+        job_secret = derive_key(self.key, b"hvd-job:" + job_id.encode())
+        try:
+            ta = TelemetryAgent(
+                job_secret,
+                flight_dir=req.get("flight_dir") or None,
+                trace_dir=req.get("trace_dir") or None,
+                interval_s=req.get("interval_s"),
+                expected_ranks=req.get("expected_ranks"))
+        except Exception as e:
+            return {"ok": False,
+                    "error": f"telemetry agent failed on {host_hash()}: {e}"}
+        with self._jobs_lock:
+            live = self._telemetry.get(job_id)
+            if live is not None:   # lost the race; keep the first
+                ta.stop()
+                return {"ok": True, "port": live.port, "host": live.host_name}
+            self._telemetry[job_id] = ta
+        return {"ok": True, "port": ta.port, "host": ta.host_name}
+
+    def _stop_telemetry(self, job_id: str) -> None:
+        with self._jobs_lock:
+            ta = self._telemetry.pop(job_id, None)
+        if ta is not None:
+            try:
+                ta.stop()
+            except Exception:
+                pass
+
+    def _ctrl_cmd(self, req: Any, client_addr) -> Any:
+        # Same idempotent/race-safe hosting discipline as _telemetry_cmd:
+        # re-start returns the live leader, a construction race keeps the
+        # first instance, and job kill / driver disconnect stop it.
+        job_id = str(req.get("job_id", ""))
+        cmd = req.get("cmd", "start")
+        if cmd == "stop":
+            self._stop_ctrl(job_id)
+            return {"ok": True}
+        if cmd != "start":
+            return {"ok": False, "error": f"unknown ctrl cmd {cmd!r}"}
+        from ..ctrl.agent import RELAY_NOT_PORTED, ControlAgent
+
+        if req.get("relay"):
+            return {"ok": False,
+                    "error": f"NotImplementedError: {RELAY_NOT_PORTED}"}
+        with self._jobs_lock:
+            ca = self._ctrl.get(job_id)
+            if ca is not None:
+                return {"ok": True, "port": ca.port, "host": ca.host_name}
+        job_secret = derive_key(self.key, b"hvd-job:" + job_id.encode())
+        ca = None
+        try:
+            ca = ControlAgent(job_secret,
+                              ckpt_dir=req.get("ckpt_dir") or None)
+            if req.get("root"):
+                ca.attach_root([(h, int(p)) for h, p in req["root"]])
+        except Exception as e:
+            if ca is not None:
+                ca.stop()
+            return {"ok": False,
+                    "error": f"control agent failed on {host_hash()}: {e}"}
+        with self._jobs_lock:
+            live = self._ctrl.get(job_id)
+            if live is not None:   # lost the race; keep the first
+                ca.stop()
+                return {"ok": True, "port": live.port, "host": live.host_name}
+            self._ctrl[job_id] = ca
+        return {"ok": True, "port": ca.port, "host": ca.host_name}
+
+    def _stop_ctrl(self, job_id: str) -> None:
+        with self._jobs_lock:
+            ca = self._ctrl.pop(job_id, None)
+        if ca is not None:
+            try:
+                ca.stop()
+            except Exception:
+                pass
 
     def _spawn(self, req: Any, client_addr) -> Any:
         job_id = req["job_id"]
@@ -126,11 +236,22 @@ class HostAgent(BasicService):
         # (RemoteSpawner.job_secret), so it never crosses the unencrypted
         # channel in worker env.
         job_secret = derive_key(self.key, b"hvd-job:" + str(job_id).encode())
+        # Control tree: if this job has a local control agent, point the
+        # workers' runner-plane traffic at it (loopback, only when it
+        # actually has a root to forward to), unless the driver pinned
+        # something else.
+        with self._jobs_lock:
+            ca = self._ctrl.get(job_id)
+        ctrl_addr = ""
+        if ca is not None and ca.has_root():
+            ctrl_addr = json.dumps([["127.0.0.1", ca.port]])
         try:
             for w in req["workers"]:
                 env = dict(os.environ)
                 env.update(w.get("env") or {})
                 env["HOROVOD_SECRET"] = job_secret.hex()
+                if ctrl_addr:
+                    env.setdefault("HOROVOD_CTRL_ADDRS", ctrl_addr)
                 # Lets the worker's watchdog detect a parent that died
                 # before its first ppid snapshot (task_main.watch_parent).
                 env["HVD_PARENT_PID"] = str(os.getpid())
@@ -168,6 +289,8 @@ class HostAgent(BasicService):
     def _kill_job(self, job_id: str) -> None:
         with self._jobs_lock:
             job = self._jobs.pop(job_id, None)
+        self._stop_telemetry(job_id)
+        self._stop_ctrl(job_id)
         if job is not None:
             terminate_trees(list(job["procs"].values()))
 
@@ -183,8 +306,14 @@ class HostAgent(BasicService):
     def stop(self) -> None:
         with self._jobs_lock:
             jobs = list(self._jobs)
+            tele = list(self._telemetry)
+            ctrl = list(self._ctrl)
         for jid in jobs:
             self._kill_job(jid)
+        for jid in tele:
+            self._stop_telemetry(jid)
+        for jid in ctrl:
+            self._stop_ctrl(jid)
         super().stop()
 
 

@@ -84,8 +84,7 @@ class Channel:
     HOROVOD_FAULT_NET) and costs nothing when injection is unarmed.
 
     The JAX package's raw-buffer frames (``send_bytes``/``recv_bytes``,
-    the eager ring's data plane) and its wire accounting (``stats``, the
-    telemetry tree's) are not ported with those planes."""
+    the eager ring's data plane) are not ported with that plane."""
 
     def __init__(self, sock: socket.socket, key: bytes, server: bool,
                  scope: str = "ctl") -> None:
@@ -103,9 +102,17 @@ class Channel:
 
             if _fault_mod.net_fault_armed():
                 self._fault = _fault_mod
+        # Wire accounting (the telemetry and control trees): every frame's
+        # full on-the-wire size (MAC + length word + payload, plus the
+        # handshake) is tallied so services can report ingest/egress bytes.
+        # Two plain int adds per frame; no locking (a Channel is
+        # single-owner per side).
+        self.bytes_sent = 0
+        self.bytes_received = 0
         if server:
             nonce = _secrets.token_bytes(_NONCE_LEN)
             sock.sendall(_MAGIC + nonce)
+            self.bytes_sent += len(_MAGIC) + _NONCE_LEN
         else:
             try:
                 head = _recv_exact(sock, len(_MAGIC) + _NONCE_LEN)
@@ -122,6 +129,7 @@ class Channel:
             if head[: len(_MAGIC)] != _MAGIC:
                 raise PermissionError(
                     "bad handshake magic: peer is not an hvd service")
+            self.bytes_received += len(head)
             nonce = head[len(_MAGIC):]
         self._key = hmac.new(key, b"hvd-session:" + nonce,
                              hashlib.sha256).digest()
@@ -185,6 +193,7 @@ class Channel:
         self._send_seq += 1
         resilience.send_all(
             self.sock, mac + struct.pack("!Q", len(payload)) + payload)
+        self.bytes_sent += 32 + 8 + len(payload)
 
     def recv(self) -> Any:
         digest = _recv_exact(self.sock, 32)
@@ -199,6 +208,7 @@ class Channel:
                 "HMAC digest mismatch: unauthenticated, replayed, or "
                 "reordered message")
         self._recv_seq += 1
+        self.bytes_received += 32 + 8 + n
         return pickle.loads(payload)
 
 class BasicService:
@@ -210,8 +220,30 @@ class BasicService:
         self.server = socket.create_server((host, port))
         self.port = self.server.getsockname()[1]
         self._stop = threading.Event()
+        # Service-level wire accounting (the telemetry and control trees):
+        # totals across all connections, flushed from each Channel's
+        # per-frame counters after every served request. stats() deltas
+        # taken around a collection tick give the root's actual ingest per
+        # tick.
+        self._stats_lock = threading.Lock()
+        self._bytes_in = 0
+        self._bytes_out = 0
+        self._connections_total = 0
+        self._requests_total = 0
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._thread.start()
+
+    def stats(self) -> dict:
+        """Wire totals since construction: ``bytes_in``/``bytes_out`` (full
+        frame sizes incl. MAC + length word + handshake), ``connections_total``
+        accepted, ``requests_total`` served."""
+        with self._stats_lock:
+            return {
+                "bytes_in": self._bytes_in,
+                "bytes_out": self._bytes_out,
+                "connections_total": self._connections_total,
+                "requests_total": self._requests_total,
+            }
 
     def addresses(self) -> list[tuple[str, int]]:
         """All reachable (ip, port) pairs for this service (reference probes
@@ -245,8 +277,21 @@ class BasicService:
             threading.Thread(target=self._serve, args=(conn, addr), daemon=True).start()
 
     def _serve(self, conn: socket.socket, addr) -> None:
+        ch = None
+        flushed_in = flushed_out = 0
+
+        def _flush_stats() -> None:
+            nonlocal flushed_in, flushed_out
+            with self._stats_lock:
+                self._bytes_in += ch.bytes_received - flushed_in
+                self._bytes_out += ch.bytes_sent - flushed_out
+            flushed_in = ch.bytes_received
+            flushed_out = ch.bytes_sent
+
         try:
             ch = Channel(conn, self.key, server=True)
+            with self._stats_lock:
+                self._connections_total += 1
             while not self._stop.is_set():
                 req = ch.recv()
                 if isinstance(req, dict) and req.get("kind") == "clock_probe":
@@ -258,9 +303,14 @@ class BasicService:
                 else:
                     resp = self.handle(req, addr)
                 ch.send(resp)
+                with self._stats_lock:
+                    self._requests_total += 1
+                _flush_stats()
         except (ConnectionError, OSError, EOFError, PermissionError):
             pass
         finally:
+            if ch is not None:
+                _flush_stats()
             try:
                 conn.close()
             except OSError:
@@ -330,6 +380,19 @@ class BasicClient:
         with self._lock:
             self._ch.send(obj)
             return self._ch.recv()
+
+    def request_counted(self, obj: Any) -> tuple[Any, int, int]:
+        """``request`` plus this exchange's on-the-wire byte counts
+        ``(response, bytes_out, bytes_in)`` — the control tree's
+        ``horovod_ctrl_bytes_total`` accounting reads them per upstream
+        call instead of re-estimating frame overhead."""
+        with self._lock:
+            sent0 = self._ch.bytes_sent
+            recv0 = self._ch.bytes_received
+            self._ch.send(obj)
+            resp = self._ch.recv()
+            return (resp, self._ch.bytes_sent - sent0,
+                    self._ch.bytes_received - recv0)
 
     def close(self) -> None:
         try:

@@ -13,29 +13,12 @@ own via the connection-loss hook, agent.py on_disconnect).
 
 from __future__ import annotations
 
-import os
 import secrets as _secrets
 from dataclasses import dataclass
 from typing import Callable, Optional, Sequence, Union
 
 from .agent import DEFAULT_AGENT_PORT
 from .network import BasicClient, derive_key
-
-
-def require_flat_control(num_hosts: int, world: int) -> None:
-    """The JAX launcher routes a multi-host job of 3 or more ranks through
-    a control tree of per-host leaders unless ``HOROVOD_CTRL_TREE=0``
-    (``horovod_tpu/ctrl/tree.py`` ``use_tree``). The tree is not ported:
-    the port runs the flat rank-to-driver star, and raises
-    ``NotImplementedError`` when ``HOROVOD_CTRL_TREE`` asks for the tree
-    where the JAX launcher would use one."""
-    if os.environ.get("HOROVOD_CTRL_TREE", "") in ("", "0", "false"):
-        return
-    if num_hosts > 1 and world > 2:
-        raise NotImplementedError(
-            "HOROVOD_CTRL_TREE asks for the control tree (horovod_tpu/ctrl/), "
-            "which is not ported to horovod_tpu_torch yet: ROADMAP.md queue A "
-            "item 7; unset it to run the flat control plane")
 
 
 @dataclass(frozen=True)
@@ -192,6 +175,31 @@ class RemoteSpawner:
                     return (f"worker index {w['index']} on {spec.host} exited "
                             f"with code {w['returncode']} before reporting a result")
         return None
+
+    def start_control(self, root_addrs, ckpt_dir: str = "") -> None:
+        """Start each host's control-tree leader (ctrl.ControlAgent) BEFORE
+        :meth:`spawn`, so the agents can point worker env at it.
+        ``root_addrs`` is the driver service's address list; ``ckpt_dir``
+        exports that directory for checkpoint streaming. A leader that
+        fails to start only costs that host the tree (its workers keep the
+        flat path) — logged loudly, never fatal."""
+        from ..utils.logging import log
+
+        for spec, client in zip(self.specs, self._clients):
+            if client is None:
+                continue
+            try:
+                resp = client.request({
+                    "kind": "ctrl", "cmd": "start", "job_id": self.job_id,
+                    "root": [list(a) for a in root_addrs],
+                    "ckpt_dir": ckpt_dir})
+            except (ConnectionError, OSError) as e:
+                resp = {"ok": False, "error": str(e)}
+            if not resp.get("ok"):
+                log("warning",
+                    f"[ctrl] control leader failed to start on {spec.host}: "
+                    f"{resp.get('error')} — that host's workers use the "
+                    "flat control plane")
 
     def poll_returncodes(self) -> Optional[list]:
         """Returncodes for all workers (None entries = still running), or

@@ -22,36 +22,20 @@ import pickle
 import socket
 import threading
 import time
+import zlib
 from typing import Any, Callable, Optional
 
 from .network import BasicClient, BasicService
 
 
-# Requests of the JAX package's launcher that modules the port lacks send:
-# the telemetry tree's and the control tree's.
-NOT_PORTED = {"telemetry": "the telemetry agent (horovod_tpu/telemetry/)",
-              "host_metrics": "the telemetry tree (horovod_tpu/telemetry/)",
-              "ctrl": "the control-tree leader (horovod_tpu/ctrl/)",
-              "host_register": "the control tree (horovod_tpu/ctrl/)",
-              "host_wait_assignment": "the control tree (horovod_tpu/ctrl/)",
-              "host_elastic_poll": "the control tree (horovod_tpu/ctrl/)"}
-
-
-def not_ported(kind: str) -> dict:
-    """The answer to a request in ``NOT_PORTED``: the
-    ``NotImplementedError`` its module would raise, as an error response
-    (a service keeps serving)."""
-    err = NotImplementedError(f"{NOT_PORTED[kind]} is not ported to "
-                              "horovod_tpu_torch yet: ROADMAP.md queue A item 7")
-    return {"ok": False, "error": f"{type(err).__name__}: {err}"}
-
-
 def worker_addresses() -> list:
     """The control-plane address list a spawned worker should dial:
-    ``HOROVOD_DRIVER_ADDRS`` (the driver: the flat star; the control
-    tree's per-host leaders are not ported). Empty list when it is not set
-    (not a launched worker)."""
-    raw = os.environ.get("HOROVOD_DRIVER_ADDRS")
+    ``HOROVOD_CTRL_ADDRS`` — the host's ControlAgent leader, injected by
+    HostAgent._spawn when the job runs a control tree — when present, else
+    ``HOROVOD_DRIVER_ADDRS`` (the driver directly, the flat star). Empty
+    list when neither is set (not a launched worker)."""
+    raw = os.environ.get("HOROVOD_CTRL_ADDRS") \
+        or os.environ.get("HOROVOD_DRIVER_ADDRS")
     return [tuple(a) for a in json.loads(raw)] if raw else []
 
 
@@ -110,7 +94,23 @@ class DriverService(BasicService):
         # request or attached to the final result payload); rank 0 of the
         # control plane — this driver — merges them into the pod view.
         self._metrics: dict[int, dict] = {}
+        # Telemetry-tree root: host leaders push MERGED host partials via
+        # `host_metrics` instead of every rank pushing its own snapshot —
+        # root connections and bytes per tick become O(hosts). Created
+        # lazily on the first leader push so flat (tree-less) jobs pay
+        # nothing.
+        self._telemetry: Optional[Any] = None
         self.coord_addr: Optional[str] = None
+
+    def telemetry_root(self):
+        """The tree root aggregator (telemetry/root.py), created on first
+        use — also the launcher's handle for staleness/coverage views."""
+        with self._lock:
+            if self._telemetry is None:
+                from ..telemetry.root import RootAggregator
+
+                self._telemetry = RootAggregator()
+            return self._telemetry
 
     # -- protocol
 
@@ -154,14 +154,61 @@ class DriverService(BasicService):
             with self._cv:
                 self._metrics[req["rank"]] = req["snapshot"]
             return {"ok": True}
-        if kind in NOT_PORTED:
-            return not_ported(kind)
+        if kind == "host_metrics":
+            # Telemetry-tree leader push: one MERGED host partial (delta-
+            # compressed) per host per collection tick (telemetry/agent.py
+            # push_to_root_once → telemetry/root.py ingest).
+            return self.telemetry_root().ingest(req)
         if kind == "clock_probe":
             # Distributed-tracing clock alignment (tracing/clock.py): one
             # NTP-style round trip — the caller brackets this response with
             # its own monotonic readings and estimates its offset to the
             # driver clock. Stateless, so it needs no lock.
             return {"ok": True, "t": time.monotonic_ns()}
+        # Control-tree leader requests (ctrl/agent.py): one host leader
+        # carries its ranks' registrations and assignment waits in a single
+        # request, so root connections and control bytes stay O(hosts).
+        # Each entry routes through the SAME per-rank handlers (subclass
+        # dispatch included), so the tree path cannot drift from the flat
+        # protocol's semantics.
+        if kind == "host_register":
+            entries = req.get("entries") or []
+            if req.get("entries_z") is not None:
+                # Compressed batch (ctrl/agent.py _pack_register). Nested
+                # pickle adds no new trust surface: the outer frame is
+                # already pickle under the same HMAC key.
+                entries = pickle.loads(zlib.decompress(req["entries_z"]))
+            for e in entries:
+                self.handle(dict(e, kind=e.get("kind", "register")),
+                            client_addr)
+            return {"ok": True, "count": len(entries)}
+        if kind == "host_wait_assignment":
+            out: dict[int, Any] = {}
+            sub_base: dict[str, Any] = {"kind": "wait_assignment"}
+            if req.get("min_generation") is not None:
+                sub_base["min_generation"] = req["min_generation"]
+            # Sequential per-index waits share one formation event AND one
+            # deadline: the first blocks until ranks are assigned, the rest
+            # return immediately (removed indices answer without waiting at
+            # all). The shared deadline bounds the WHOLE request to the
+            # leader's timeout — per-index budgets would stack when the
+            # world hasn't formed, holding the leader's serialized upstream
+            # connection for indices × timeout.
+            deadline = time.monotonic() + float(req.get("timeout", 120.0))
+            for index in req.get("indices") or []:
+                out[int(index)] = self.handle(
+                    dict(sub_base, index=index,
+                         timeout=max(0.0, deadline - time.monotonic())),
+                    client_addr)
+            if req.get("z"):
+                # The host's assignments repeat topology fields and
+                # coordinator addresses — deflate the batch when it wins
+                # (the leader re-inflates and counts the saving).
+                raw = pickle.dumps(out, protocol=pickle.HIGHEST_PROTOCOL)
+                z = zlib.compress(raw, 6)
+                if len(z) < len(raw):
+                    return {"ok": True, "assignments_z": z}
+            return {"ok": True, "assignments": out}
         return {"ok": False, "error": f"unknown request {kind}"}
 
     # -- rank assignment (reference spark/__init__.py:143-152)
@@ -243,14 +290,26 @@ class DriverService(BasicService):
                 for r, v in results.items()}
 
     def pod_metrics(self) -> Optional[dict]:
-        """Pod-wide merge of the per-rank snapshots pushed so far
-        (``metrics`` / final result payloads), in rank order; None when
-        nothing has reported. The merge is associative with exact sums
-        (metrics/aggregate.py)."""
+        """Pod-wide merge of the telemetry collected so far — host partials
+        pushed by telemetry-tree leaders (``host_metrics``) plus per-rank
+        snapshots pushed directly (``metrics`` / final result payloads);
+        None when nothing has reported. A rank covered by a host partial is
+        never double-counted against its own direct push, and because the
+        merge is associative with exact sums (metrics/aggregate.py), the
+        result is bitwise what the flat all-ranks merge would produce."""
         with self._lock:
             snaps = {r: s for r, s in self._metrics.items()
                      if 0 <= r < self.num_proc}
-        if not snaps:
+            telemetry = self._telemetry
+        host_parts: list = []
+        covered: set = set()
+        if telemetry is not None:
+            covered = telemetry.covered_ranks()
+            host_parts = telemetry.partials()
+            # Readers drive staleness refresh: a host that went silent only
+            # ages through here (its own pushes obviously stopped).
+            telemetry.publish()
+        if not snaps and not host_parts:
             return None
         from ..metrics.aggregate import (
             finalize_partial,
@@ -258,8 +317,15 @@ class DriverService(BasicService):
             merge_partials,
         )
 
-        part = merge_partials([lift_snapshot(r, s)
-                               for r, s in sorted(snaps.items())])
+        # Combine in global rank order (host partials slot in at their
+        # lowest member rank) so bucket first-seen order matches the flat
+        # merge exactly.
+        keyed = [(min((int(r) for r in p.get("rank_ids", [])),
+                      default=self.num_proc), p) for p in host_parts]
+        keyed += [(r, lift_snapshot(r, s)) for r, s in sorted(snaps.items())
+                  if r not in covered]
+        keyed.sort(key=lambda kv: kv[0])
+        part = merge_partials([p for _, p in keyed])
         part["ranks"] = max(int(self.num_proc), int(part["ranks"]))
         return finalize_partial(part)
 
@@ -367,6 +433,18 @@ class ElasticDriverService(DriverService):
                          or req.get("generation", 0) != self.generation
                          or req["index"] in self._removed)
             return {"ok": True, "reset_required": reset}
+        if kind == "host_elastic_poll":
+            # Control-tree batched poll: one request answers a whole host's
+            # commit-time membership checks. The leader caches this verdict
+            # for HOROVOD_CTRL_POLL_S, so the root sees one poll per host
+            # per interval instead of one per rank.
+            with self._cv:
+                gen = self.generation
+                reset = self._forming or req.get("generation", 0) != gen
+                removed = sorted(i for i in (req.get("indices") or [])
+                                 if i in self._removed)
+            return {"ok": True, "reset_required": bool(reset),
+                    "generation": gen, "removed": removed}
         return super().handle(req, client_addr)
 
     # -- membership (launcher side)
@@ -430,6 +508,14 @@ class ElasticDriverService(DriverService):
         self._reg_waiting.clear()
         self._pending.clear()
         self._results = {}   # results are per generation
+        if self._telemetry is not None:
+            # Membership changed: drop telemetry-tree state for hosts that
+            # left the world, so an orphaned staleness gauge can't age into
+            # a spurious `telemetry_lag` firing (root.forget_host).
+            try:
+                self._telemetry.keep_only(by_host)
+            except Exception:
+                pass
 
     # -- launcher accessors
 

@@ -188,24 +188,29 @@ class ReplicaManager:
         return self
 
     def _prefetch_checkpoint(self) -> None:
-        """Streaming cold start: in the JAX package a fresh serving host
-        whose checkpoint path does not exist locally fetches the latest
-        committed copy from a peer host leader (``HOROVOD_CKPT_STREAM_FROM``)
-        before the first replica spawns. That fetch lives in
-        ``ckpt_async/stream.py``, which the port does not have yet (ROADMAP
-        queue A item 3, the pod-scale trees): with no stream sources set,
-        or the path already present, this is a no-op, as it is there; when
-        ``HOROVOD_CKPT_STREAM_FROM`` asks for the fetch it raises
-        ``NotImplementedError``."""
+        """Streaming cold start: a fresh serving host whose checkpoint path
+        does not exist locally fetches the latest committed copy from a
+        peer host leader (``HOROVOD_CKPT_STREAM_FROM``, authenticated by
+        ``HOROVOD_SECRET``) BEFORE the first replica spawns — otherwise
+        every replica would fail bring-up against a missing path and burn
+        the startup-failure budget. Best-effort: with no sources configured
+        or the path already present, this is a no-op; a failed fetch
+        degrades to the old behavior (spawn fails loudly against the
+        missing path)."""
         if not self.checkpoint or os.path.exists(self.checkpoint):
             return
-        if not os.environ.get("HOROVOD_CKPT_STREAM_FROM", "").strip():
+        from ..ckpt_async.stream import fetch_from_peer, stream_sources_from_env
+
+        sources = stream_sources_from_env()
+        key_hex = os.environ.get("HOROVOD_SECRET", "")
+        if not sources or not key_hex:
             return
-        raise NotImplementedError(
-            "HOROVOD_CKPT_STREAM_FROM asks to stream the serving checkpoint "
-            "from a peer (horovod_tpu/ckpt_async/stream.py), which is not "
-            "ported to horovod_tpu_torch yet: ROADMAP.md queue A item 3; "
-            "copy the checkpoint to the serving host or unset it")
+        try:
+            fetch_from_peer(sources, bytes.fromhex(key_hex), self.checkpoint)
+        except Exception as e:  # noqa: BLE001 - spawn reports the real miss
+            log("warning", f"serving: checkpoint streaming from "
+                           f"{sources} failed ({e}); replicas will try the "
+                           f"local path {self.checkpoint!r} as-is")
 
     def stop(self) -> None:
         self._closed.set()

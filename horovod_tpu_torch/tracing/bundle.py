@@ -15,11 +15,9 @@ a human (or a bug report) can carry:
 - ``MANIFEST.md`` — the human-readable index: which processes dumped and
   why, which replicas died, which anomalies fired, what is in each file.
 
-The port's own copy of ``horovod_tpu.tracing.bundle``. Its ``--leader``
-sweep needs the telemetry tree, which the port does not have yet: it
-raises ``NotImplementedError`` (ROADMAP.md queue A item 3). In the JAX
-package: at pod scale the interesting flight rings and span files live on
-OTHER hosts. ``--leader host:port`` (repeatable) sweeps them through the
+The port's own copy of ``horovod_tpu.tracing.bundle``. At pod scale the
+interesting flight rings and span files live on OTHER hosts. ``--leader
+host:port`` (repeatable) sweeps them through the
 telemetry-tree host leaders (telemetry/agent.py ``sweep``): rings are
 decoded host-side and streamed back host-by-host, so the bundle machine
 opens O(hosts) connections, never O(world). Every leader is accounted for
@@ -98,14 +96,107 @@ def _collect_flight(flight_dir: str, out: str) -> tuple[list, list, list]:
     return rows, events, errors
 
 
-def _collect_leaders(leaders: list, key, out: str):
-    """The JAX package's sweep of the telemetry-tree host leaders
-    (``horovod_tpu/tracing/bundle.py`` ``_collect_leaders``): the port has
-    no telemetry tree yet."""
-    raise NotImplementedError(
-        "bundle --leader sweeps the telemetry tree (horovod_tpu/telemetry/), "
-        "which is not ported to horovod_tpu_torch yet: ROADMAP.md queue A "
-        "item 3")
+def _leader_key(hex_key: Optional[str]) -> bytes:
+    """The sweep credential: ``--leader-key`` hex, else the job secret the
+    ranks already hold (HOROVOD_SECRET / HOROVOD_AGENT_SECRET)."""
+    raw = hex_key or os.environ.get("HOROVOD_SECRET") \
+        or os.environ.get("HOROVOD_AGENT_SECRET")
+    if not raw:
+        raise SystemExit(
+            "bundle --leader needs the telemetry secret: pass --leader-key "
+            "or set HOROVOD_SECRET (hex)")
+    return bytes.fromhex(raw)
+
+
+def _judge_coverage(host: str, cov: dict) -> dict:
+    """Turn one leader's per-rank coverage into a named verdict row.
+    A rank is STALE past TELEMETRY_LAG_TICKS collection intervals — the
+    same threshold the ``telemetry_lag`` anomaly fires on."""
+    from ..metrics.anomaly import TELEMETRY_LAG_TICKS
+
+    interval = float(cov.get("interval_s") or 1.0)
+    expected = [int(r) for r in cov.get("expected") or []]
+    ranks = cov.get("ranks") or {}
+    missing = [r for r in expected if str(r) not in ranks]
+    stale = [int(r) for r, st in ranks.items()
+             if float(st.get("age_s", 0.0))
+             > TELEMETRY_LAG_TICKS * interval]
+    if missing or stale:
+        why = []
+        if missing:
+            why.append(f"ranks {missing} never pushed")
+        if stale:
+            why.append(f"ranks {sorted(stale)} stale "
+                       f">{TELEMETRY_LAG_TICKS} intervals")
+        status, reason = "partial", "; ".join(why)
+    else:
+        status, reason = "ok", "-"
+    return {"host": host, "status": status, "reason": reason,
+            "expected": len(expected), "reporting": len(ranks),
+            "missing": missing, "stale": sorted(stale)}
+
+
+def _collect_leaders(leaders: list, key: bytes, out: str
+                     ) -> tuple[list, list, list, list, Optional[str]]:
+    """Sweep every telemetry-tree leader; returns (coverage rows,
+    flight rows, flight decode failures, events, staged spans dir)."""
+    from ..runner.network import BasicClient
+
+    coverage: list[dict] = []
+    rows: list[dict] = []
+    errors: list[dict] = []
+    events: list[dict] = []
+    spans_dir: Optional[str] = None
+    dst = os.path.join(out, "flight")
+    for addr in leaders:
+        host_part, _, port_part = addr.rpartition(":")
+        try:
+            client = BasicClient([(host_part or "127.0.0.1",
+                                   int(port_part))], key,
+                                 timeout=60.0, connect_retry_s=5.0)
+        except (OSError, ValueError) as e:
+            coverage.append({"host": addr, "status": "unreachable",
+                             "reason": str(e)[:200], "expected": 0,
+                             "reporting": 0, "missing": [], "stale": []})
+            continue
+        try:
+            resp = client.request({"kind": "sweep",
+                                   "want": ["flight", "spans"]})
+        except Exception as e:  # noqa: BLE001 - a dead leader is the finding
+            coverage.append({"host": addr, "status": "unreachable",
+                             "reason": str(e)[:200], "expected": 0,
+                             "reporting": 0, "missing": [], "stale": []})
+            continue
+        finally:
+            try:
+                client.close()
+            except Exception:
+                pass
+        host = str(resp.get("host", addr))
+        coverage.append(_judge_coverage(host, resp.get("coverage") or {}))
+        for item in resp.get("flight") or []:
+            os.makedirs(dst, exist_ok=True)
+            name = f"{host}-{item['name']}"
+            with open(os.path.join(dst, name), "w") as f:
+                json.dump(item["doc"], f)
+            row, evs = _flight_row_and_events(name, item.get("kind", "?"),
+                                              item["doc"])
+            rows.append(row)
+            events.extend(evs)
+        for err in resp.get("flight_errors") or []:
+            errors.append(dict(err, host=host))
+        for item in resp.get("spans") or []:
+            if spans_dir is None:
+                spans_dir = os.path.join(out, "spans")
+                os.makedirs(spans_dir, exist_ok=True)
+            name = item["name"]
+            if os.path.exists(os.path.join(spans_dir, name)):
+                # same rank file swept from two leaders (shared FS): the
+                # copies are identical, keep the first
+                continue
+            with open(os.path.join(spans_dir, name), "w") as f:
+                f.write(item["text"])
+    return coverage, rows, errors, events, spans_dir
 
 
 def _collect_trace(trace_dir: str, out: str) -> tuple[Optional[dict],
@@ -270,7 +361,8 @@ def make_bundle(out: str, trace_dir: str = "", flight_dir: str = "",
     coverage_rows: Optional[list] = None
     if leaders:
         coverage_rows, l_rows, l_errors, l_events, swept_spans = \
-            _collect_leaders(list(leaders), leader_key, out)
+            _collect_leaders(list(leaders), leader_key or _leader_key(None),
+                             out)
         flight_rows += l_rows
         flight_errors += l_errors
         events += l_events
@@ -343,7 +435,8 @@ def main(argv: Optional[list] = None) -> int:
     summary = make_bundle(out, trace_dir=args.trace_dir,
                           flight_dir=args.flight_dir, stats=args.stats,
                           leaders=args.leader,
-                          leader_key=args.leader_key)
+                          leader_key=_leader_key(args.leader_key)
+                          if args.leader else None)
     if not summary["flight_files"] and not summary["trace"] \
             and not summary["stats"] and not summary["hosts_swept"]:
         print(f"bundle: nothing to collect (trace_dir="

@@ -21,7 +21,10 @@ layouts and the ladder of four GPUs laid out 2 x 2, each candidate's
 updates against flat DP's (tests/torch_port_autotune_worker.py); elastic
 training of the full-width TransformerLM on four GPUs, a worker killed and
 respawned, against a run without a fault
-(tests/torch_port_elastic_worker.py).
+(tests/torch_port_elastic_worker.py); the same elastic training across
+two fake hosts of two cards each through the control tree's host leaders,
+against the run without a fault and the flat control plane (``-k
+ctrl_world``).
 
 Needs an NVIDIA Hopper GPU and nvcc; elsewhere every test skips. Run on
 the card with (conftest.py imports jax, which the GPU machine need not
@@ -1047,3 +1050,167 @@ def test_tracing_world_attributes_the_sleep_and_times_the_buckets(tracing_world)
               f"{statistics.median(dev_ms):.4f} (min {min(dev_ms):.4f}, max "
               f"{max(dev_ms):.4f}), exposed after the backward median "
               f"{statistics.median(exposed_ms):.4f} ms")
+
+
+# ------------------------------------------------ the control tree on four cards
+
+def _fake_host(name: str, secret: bytes, cards: str):
+    """An hvd-agent standing in for host ``name`` (HOROVOD_HOSTNAME) whose
+    workers see ``cards`` (CUDA_VISIBLE_DEVICES); returns (process, port)."""
+    import json
+    import threading
+
+    env = dict(os.environ, HOROVOD_HOSTNAME=name, HOROVOD_AGENT_SECRET=secret.hex(),
+               CUDA_VISIBLE_DEVICES=cards,
+               PYTHONPATH=os.pathsep.join([os.path.join(REPO, "tests"), REPO]))
+    env.pop("HOROVOD_CTRL_TREE", None)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "horovod_tpu_torch.runner.agent", "--port", "0"],
+        env=env, cwd=REPO, stdout=subprocess.PIPE, text=True)
+    info = json.loads(proc.stdout.readline())
+    assert info["agent"] == "ready", info
+    # the workers it spawns share its stdout: keep the pipe drained
+    threading.Thread(target=proc.stdout.read, daemon=True).start()
+    return proc, info["port"]
+
+
+def _ctrl_job(tmp, name, spec, secret, tree, index=None):
+    """One ``run_elastic`` of tests/torch_port_elastic_worker.py's
+    ``lm_train`` at full width across the fake hosts ``spec``, over NCCL,
+    checkpointing at every 3rd commit (steps 2 and 5), task ``index``
+    killed at step 2's commit when given; ``tree`` leaves
+    HOROVOD_CTRL_TREE unset (the tree on), else sets it to 0. Returns
+    (results, the parameters of each rank, the driver's events, the
+    requests the driver handled as (kind, client address))."""
+    import json
+    import threading
+
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    import torch_port_elastic_worker as worker
+
+    from horovod_tpu_torch.runner import run_elastic
+    from horovod_tpu_torch.runner import service
+
+    out = os.path.join(tmp, name)
+    os.makedirs(out)
+    events = os.path.join(out, "events.jsonl")
+    env = {"PYTHONPATH": os.pathsep.join([os.path.join(REPO, "tests"), REPO]),
+           "HOROVOD_STALL_SHUTDOWN_TIME": str(ELASTIC_STALL_S),
+           "HOROVOD_ELASTIC_EVENT_LOG": events,
+           "HOROVOD_ELASTIC_BLACKLIST_THRESHOLD": "2", "HOROVOD_CKPT_ASYNC": "0"}
+    if index is not None:
+        env.update({"HOROVOD_FAULT_INJECT_STEP": str(ELASTIC_FAULT_STEP),
+                    "HOROVOD_FAULT_INJECT_INDEX": str(index)})
+    base = service.ElasticDriverService
+    seen, depth = [], threading.local()
+
+    class Recording(base):
+        def handle(self, req, client_addr):
+            n = getattr(depth, "n", 0)
+            if n == 0:
+                seen.append((req.get("kind"), client_addr))
+            depth.n = n + 1
+            try:
+                return super().handle(req, client_addr)
+            finally:
+                depth.n = n
+
+    prev = os.environ.pop("HOROVOD_CTRL_TREE", None)
+    if not tree:
+        os.environ["HOROVOD_CTRL_TREE"] = "0"
+    service.ElasticDriverService = Recording
+    try:
+        results = run_elastic(worker.lm_train, args=("cuda", {}, ELASTIC_STEPS, out),
+                              kwargs={"checkpoint_dir": os.path.join(out, "ckpt"),
+                                      "checkpoint_every": ELASTIC_CKPT_EVERY},
+                              hosts=spec, agent_secret=secret, timeout=900, env=env)
+    finally:
+        service.ElasticDriverService = base
+        os.environ.pop("HOROVOD_CTRL_TREE", None)
+        if prev is not None:
+            os.environ["HOROVOD_CTRL_TREE"] = prev
+    params = [torch.load(os.path.join(out, f"params.{r}.pt"), weights_only=True)
+              for r in range(len(results))]
+    with open(events) as f:
+        log = [json.loads(line) for line in f]
+    return results, params, log, seen
+
+
+@pytest.fixture(scope="module")
+def ctrl_world(tmp_path_factory):
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 or more CUDA devices")
+    tmp = str(tmp_path_factory.mktemp("ctrl"))
+    secret = os.urandom(32)
+    hosts = [_fake_host("a", secret, "0,1"), _fake_host("b", secret, "2,3")]
+    try:
+        spec = ",".join(f"127.0.0.1@{port}:2" for _, port in hosts)
+        runs = {"no fault, tree": _ctrl_job(tmp, "straight", spec, secret, True),
+                "index 3 killed, tree": _ctrl_job(tmp, "kill3", spec, secret, True,
+                                                  index=3),
+                "index 3 killed, flat": _ctrl_job(tmp, "kill3flat", spec, secret,
+                                                  False, index=3)}
+    finally:
+        for proc, _ in hosts:
+            proc.terminate()
+        for proc, _ in hosts:
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+    cards = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout
+    return runs, cards
+
+
+def test_ctrl_world_elastic_through_the_host_leaders(ctrl_world):
+    """``run_elastic`` of the full-width flash TransformerLM over NCCL on
+    four cards, laid out as two fake hosts ``a`` and ``b`` of two cards each
+    (hvd-agents with HOROVOD_HOSTNAME and CUDA_VISIBLE_DEVICES), with the
+    control tree on by default, a checkpoint at steps 2 and 5, and task
+    index 3 (host ``b``'s second slot) killed after step 2's commit: every
+    rank at step 6 bit-equal to the run without a fault and to the same job
+    under HOROVOD_CTRL_TREE=0, the respawned worker cold-started from step
+    2's checkpoint on the dead one's card; with the tree, the driver saw
+    one request connection per host (and one wait connection per host) and
+    no registration but inside a host leader's ``host_register``."""
+    runs, cards = ctrl_world
+    print(f"cards (name, power limit):\n{cards}")
+    straight, ref_params, _, _ = runs["no fault, tree"]
+    for label, (results, params, log, seen) in runs.items():
+        events = [e["event"] for e in log]
+        failed = [e for e in log if e["event"] == "worker_failed"]
+        gens = [e["generation"] for e in log if e["event"] == "rendezvous_complete"]
+        kinds = {}
+        for kind, addr in seen:
+            kinds.setdefault(kind, set()).add(addr)
+        print(f"{label}: events {events}; driver requests by kind (connections) "
+              f"{ {k: len(v) for k, v in sorted(kinds.items())} }")
+        assert [r["step"] for r in results] == [ELASTIC_STEPS] * 4
+        assert [r["rank"] for r in results] == [0, 1, 2, 3]
+        assert sorted(r["device"] for r in results) == [0, 0, 1, 1]
+        for r in results:
+            print(f"  rank {r['rank']} on card {r['device']} of its host: "
+                  f"generation {r['generation']}, resumed from "
+                  f"{r['resumed_from']}, losses {[round(x, 6) for x in r['losses']]}")
+        differ = [k for k in ref_params[0]
+                  if not all(torch.equal(p[k], ref_params[0][k]) for p in params)]
+        print(f"  parameters: {len(differ)} of {len(ref_params[0])} differ from "
+              "the run without a fault, on any rank")
+        assert not differ, (label, differ[:5])
+        assert results[0]["losses"] == straight[0]["losses"], label
+        if "tree" in label:
+            assert "register" not in kinds and "rendezvous" not in kinds, label
+            request = set().union(*(v for k, v in kinds.items()
+                                    if k != "host_wait_assignment"))
+            assert len(request) == 2 and len(kinds["host_wait_assignment"]) == 2
+        else:
+            assert "host_register" not in kinds and kinds["register"], label
+        if label.startswith("no fault"):
+            assert gens == [1] and not failed
+            continue
+        assert len(failed) == 1 and gens == [1, 2], (label, events)
+        (respawned,) = [r for r in results if r["generation"] == 2
+                        and r["resumed_from"] == ELASTIC_FAULT_STEP]
+        assert respawned["device"] == 1, label

@@ -309,8 +309,21 @@ def test_driver_results_and_pending():
         d.handle({"kind": "result", "rank": 0, "value": {"ok": True, "value": "a"}},
                  None)
         assert d.wait_results(timeout=5) == {0: "a", 1: "b"}
-        resp = d.handle({"kind": "host_metrics"}, None)
-        assert not resp["ok"] and "NotImplementedError" in resp["error"]
+        # a telemetry-tree leader's push lands at the driver's root, as in
+        # the JAX package's driver
+        from horovod_tpu_torch.metrics.aggregate import lift_snapshot
+
+        push = {"kind": "host_metrics", "host": "h", "seq": 0, "full": True,
+                "body": lift_snapshot(1, {"counters": {"c_total": 2.0}}),
+                "interval_s": 1.0}
+        ref = jservice.DriverService(2, pnet.make_secret())
+        try:
+            assert d.handle(dict(push), None) == ref.handle(dict(push), None) \
+                == {"ok": True, "need_full": False}
+            assert d.pod_metrics()["counters"] == ref.pod_metrics()["counters"] \
+                == {"c_total": 2.0}
+        finally:
+            ref.stop()
     finally:
         d.stop()
 
@@ -329,16 +342,22 @@ def test_ship_fn_without_cloudpickle(monkeypatch):
     assert fn(*args, **kwargs) == os.path.join("a", "b")
 
 
-def test_require_flat_control(monkeypatch):
-    monkeypatch.delenv("HOROVOD_CTRL_TREE", raising=False)
-    premote.require_flat_control(2, 8)
-    monkeypatch.setenv("HOROVOD_CTRL_TREE", "1")
-    premote.require_flat_control(1, 8)      # one host: no tree to build
-    premote.require_flat_control(2, 2)      # world 2: degenerate
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
-        premote.require_flat_control(2, 3)
-    monkeypatch.setenv("HOROVOD_CTRL_TREE", "0")
-    premote.require_flat_control(2, 8)
+def test_use_tree_gate(monkeypatch):
+    """The launcher's gate for the control tree: the JAX package's
+    ``use_tree``, on by default for a multi-host world of 3 or more."""
+    from horovod_tpu.ctrl import tree as jtree
+    from horovod_tpu_torch.ctrl import tree as ptree
+
+    for env in (None, "1", "0"):
+        if env is None:
+            monkeypatch.delenv("HOROVOD_CTRL_TREE", raising=False)
+        else:
+            monkeypatch.setenv("HOROVOD_CTRL_TREE", env)
+        for hosts, world in ((2, 8), (1, 8), (2, 2), (2, 3)):
+            assert ptree.use_tree(hosts, world) == jtree.use_tree(hosts, world)
+    monkeypatch.delenv("HOROVOD_CTRL_TREE")
+    assert ptree.use_tree(2, 3) and not ptree.use_tree(1, 8)
+    assert not hasattr(premote, "require_flat_control")
 
 
 def test_clock_offset_against_driver():
@@ -515,7 +534,8 @@ def _start_agent(fake_host: str, secret: bytes):
 def test_remote_run_two_agents():
     """``run(fn, hosts=...)`` through two port agents standing in for two
     machines: 2 hosts x 2 slots, the topology and the collective right; the
-    agents refuse the telemetry and control-tree requests they cannot host."""
+    agents host the telemetry and control-tree leaders, and refuse the
+    engine-coordinator relay the port does not have."""
     from horovod_tpu_torch.runner import run
 
     secret = pnet.make_secret()
@@ -524,7 +544,11 @@ def test_remote_run_two_agents():
         c = pnet.BasicClient([("127.0.0.1", agents[0][1])], secret)
         for kind in ("telemetry", "ctrl"):
             resp = c.request({"kind": kind, "cmd": "start", "job_id": "j"})
-            assert not resp["ok"] and "NotImplementedError" in resp["error"]
+            assert resp["ok"] and resp["port"] > 0, resp
+            assert c.request({"kind": kind, "cmd": "stop", "job_id": "j"})["ok"]
+        resp = c.request({"kind": "ctrl", "cmd": "start", "job_id": "j",
+                          "relay": True})
+        assert not resp["ok"] and "NotImplementedError" in resp["error"]
         c.close()
 
         def train_fn():

@@ -235,13 +235,36 @@ def test_manager_places_replicas_on_cards_and_respawns_keep_theirs(monkeypatch):
 
 
 def test_checkpoint_streaming_is_refused_until_ported(monkeypatch, tmp_path):
+    """The streaming cold start, now ported: with no sources a no-op, as in
+    JAX; a fetch that fails logs and falls through; with a leader
+    exporting the checkpoint the missing path is fetched before any
+    replica spawns, byte-identical to the leader's copy."""
+    from horovod_tpu_torch import checkpoint as pckpt
+    from horovod_tpu_torch.ctrl.agent import ControlAgent
+
     cfg = pcfg.ServeConfig.from_env(port=0)
-    mgr = pman.ReplicaManager(cfg, None, None, device="cpu",
-                              checkpoint=str(tmp_path / "missing"))
+    dest = tmp_path / "missing"
+    mgr = pman.ReplicaManager(cfg, None, None, device="cpu", checkpoint=str(dest))
+    monkeypatch.delenv("HOROVOD_CKPT_STREAM_FROM", raising=False)
     mgr._prefetch_checkpoint()          # no sources: a no-op, as in JAX
+    key = b"serve-stream-secret"
+    monkeypatch.setenv("HOROVOD_SECRET", key.hex())
     monkeypatch.setenv("HOROVOD_CKPT_STREAM_FROM", "127.0.0.1:1")
-    with pytest.raises(NotImplementedError, match="queue A item 3"):
+    mgr._prefetch_checkpoint()          # unreachable: logged, falls through
+    assert not dest.exists()
+    src = str(tmp_path / "exported")
+    pckpt.export_for_inference(src, {"params": {"w": torch.arange(6.0)}})
+    leader = ControlAgent(key, ckpt_dir=src)
+    try:
+        monkeypatch.setenv("HOROVOD_CKPT_STREAM_FROM", f"127.0.0.1:{leader.port}")
         mgr._prefetch_checkpoint()
+    finally:
+        leader.stop()
+    with open(os.path.join(src, pckpt.STATE_FILE), "rb") as a, \
+            open(dest / pckpt.STATE_FILE, "rb") as b:
+        assert a.read() == b.read()
+    assert torch.equal(pckpt.load_for_inference(str(dest))["params"]["w"],
+                       torch.arange(6.0))
 
 
 # -- generation requests and queues ---------------------------------------------

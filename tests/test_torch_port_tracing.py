@@ -227,8 +227,14 @@ def test_bundle_matches(tmp_path):
     for name in ("critical_path.json", "trace.json"):
         with open(tmp_path / "port" / name) as a, open(tmp_path / "ref" / name) as b:
             assert json.load(a) == json.load(b)
-    with pytest.raises(NotImplementedError, match="queue A item 3"):
-        bundle.make_bundle(str(tmp_path / "lead"), leaders=["127.0.0.1:1"])
+    # the --leader sweep: an unreachable leader is named a coverage gap
+    lead = {name: mod.make_bundle(str(tmp_path / f"lead-{name}"),
+                                  leaders=["127.0.0.1:1"], leader_key=b"k")
+            for name, mod in (("port", bundle), ("jax", ref_bundle))}
+    for summary in lead.values():
+        summary.pop("bundle")
+    assert lead["port"] == lead["jax"]
+    assert lead["port"]["coverage_gaps"] == ["127.0.0.1:1"]
 
 
 # -- the collectives' telemetry, a world of one (gloo) ------------------------------

@@ -290,9 +290,37 @@ prints no result):
     with the tree, one request and one wait connection per host at the
     driver and each host's registrations in one ``host_register``; the
     driver's control bytes, tree against flat;
-27. the ``{"kernels": [...]}`` line (all six kernels, each with its
-    launches on every path above; phases 10, 14 and 25 run none of them),
-    then ``{"ok": true, ...}`` last.
+27. the eager engine (``common/engine.py``: negotiated host collectives),
+    with the CPU model printed beside the card's line, since its times are
+    host times: (a) ``examples/torch_mnist_eager.py`` under the launcher's
+    CLI at ``-np 2``, both ranks on ``cuda:0`` (``HOROVOD_DEVICE_ORDINAL=0``;
+    the example issues no ``torch.distributed`` collective), 2 epochs of
+    8 steps: every rank's final parameters bitwise equal, step 1's
+    averaged gradient leaves bitwise ``_ring_order_reduce`` of the two
+    ranks' local leaves, a finite and falling loss, rank 0's host pane
+    (``timeline.trace``) holding every ``grad.*`` name; (b) a launched
+    world of 4 processes on this machine (``init(device="cpu")``,
+    ``tests/torch_port_engine_world_worker.py``) allreducing a 64 MiB
+    float32 tensor and 32 small ones, enqueued in a different order on each
+    rank, on the ring and then on the star plane, under the none, fp16,
+    bf16 and topk wires (a fresh engine each; on the star the big tensor
+    under none only), cold and cached: every result's SHA-256 the
+    canonical oracle's (the port's ``_ring_order_reduce`` over every
+    rank's seeded payloads, computed here meanwhile), the ring's GB/s (3
+    synchronous allreduces of the big tensor per wire), the control bytes
+    per exchange cold and cached, the cache hits, and gloo's
+    ``torch.distributed`` allreduce of the same tensors; (c) the same
+    world across fake hosts a:2 and b:2 (hvd-agents, as in 26d) through
+    the control tree, each host's ranks dialing their leader's
+    ``CoordRelay``, run while (a) runs: on the flat ring (the big tensor
+    under none only) every result bitwise (b)'s, on the two-level plane
+    the two-level order's oracle (the grid reduces in another order, so
+    its bits are not the flat ring's), and 2 control connections at the
+    coordinator against (b)'s 4; each rank counts its attention-kernel
+    launches, and no rank launches any;
+28. the ``{"kernels": [...]}`` line (all six kernels, each with its
+    launches on every path above; phases 10, 14, 25 and 27 run none of
+    them), then ``{"ok": true, ...}`` last.
 
 Both CUDA sources build at once, one nvcc each, at the start.
 """
@@ -4730,6 +4758,204 @@ def trees_phase(torch, fa, rf, basics, train_mod, card, dev, paths, want_losses,
     log(f"  phase 26 took {time.perf_counter() - t_phase:.1f} s ({card})")
 
 
+# -- phase 27: the eager engine --------------------------------------------------
+
+ENGINE_TIMED = 3                   # timed allreduces of the big tensor, ring only
+ENGINE_SLOTS = (2, 2)
+EAGER_EPOCHS, EAGER_STEPS = 2, 8
+
+
+def world_worker():
+    """tests/torch_port_engine_world_worker.py: phase 27's engine world, its
+    launchers, its sizes and its oracle."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                    "tests"))
+    import torch_port_engine_world_worker as W
+
+    return W
+
+
+def cpu_model() -> str:
+    """The host's CPU and core count from /proc/cpuinfo: its model name, or,
+    where the machine reports none ("unknown" in a sandbox), its vendor,
+    family, model number and clock."""
+    import platform
+
+    info = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if not line.strip():
+                    break                      # the first processor's block
+                key, _, value = line.partition(":")
+                info[key.strip()] = value.strip()
+    except OSError:
+        pass
+    name = info.get("model name", "")
+    if name in ("", "unknown", "-") and info.get("vendor_id"):
+        name = (f"{info['vendor_id']} family {info.get('cpu family', '?')} "
+                f"model {info.get('model', '?')}, {info.get('cpu MHz', '?')} MHz")
+    return f"{name or platform.machine() or 'unknown CPU'}, {os.cpu_count()} cores"
+
+
+def eager_mnist(tmp, card, cpu, device="cuda") -> dict:
+    """27a: the eager MNIST example, two ranks on the one card; the
+    attention kernels' launches that its ranks counted."""
+    from horovod_tpu_torch.common.engine import _ring_order_reduce
+
+    import numpy as np
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    dump, trace = os.path.join(tmp, "dump"), os.path.join(tmp, "trace")
+    env = dict(launcher_env(), HOROVOD_DEVICE_ORDINAL="0",
+               MNIST_EPOCHS=str(EAGER_EPOCHS), MNIST_STEPS=str(EAGER_STEPS))
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, "-m", "horovod_tpu_torch.runner", "-np", "2",
+                    "--", sys.executable,
+                    os.path.join(root, "examples", "torch_mnist_eager.py"),
+                    "--device", device, "--dump", dump, "--trace", trace],
+                   env=env, cwd=root, check=True, timeout=600)
+    secs = time.perf_counter() - t0
+    d = [np.load(os.path.join(dump, f"rank{r}.npz")) for r in range(2)]
+    params = [k for k in d[0].files if k.startswith("param.")]
+    grads = [k[4:] for k in d[0].files if k.startswith("avg.")]
+    if not params or len(grads) != len(params):
+        raise AssertionError(f"27a: the dump lacks leaves: {d[0].files}")
+    for k in params:
+        if d[0][k].tobytes() != d[1][k].tobytes():
+            raise AssertionError(f"27a: the ranks' {k} differ")
+    for n in grads:
+        want = _ring_order_reduce([d[0]["local." + n], d[1]["local." + n]], True)
+        for r in range(2):
+            if d[r]["avg." + n].tobytes() != want.tobytes():
+                raise AssertionError(f"27a: rank {r}'s averaged grad.{n} is not "
+                                     "the canonical reduction")
+    losses = [float(x) for x in d[0]["losses"]]
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"27a: losses {losses} not finite and falling")
+    with open(os.path.join(trace, "host_timeline.json")) as f:
+        names = {e["args"]["name"] for e in json.load(f) if e.get("ph") == "M"}
+    missing = {f"grad.{n}" for n in grads} - names
+    if missing:
+        raise AssertionError(f"27a: the host pane lacks {sorted(missing)}")
+    log(f"  (27a) eager MNIST, 2 ranks on cuda:0, {EAGER_EPOCHS} x {EAGER_STEPS} "
+        f"steps in {secs:.1f} s (launch to exit, beside (c)'s world): "
+        f"losses {losses}; parameters bitwise equal across ranks; step 1's "
+        f"{len(grads)} averaged leaves bitwise the canonical reduction; host "
+        f"pane {len(names)} names ({card}; host {cpu})")
+    return {k: sum(int(d[r][f"launches.{k}"]) for r in range(2))
+            for k in [*KERNELS, *RING_KERNELS]}
+
+
+def hold_orders(label, reports) -> None:
+    if len({tuple(rep["order"]) for rep in reports}) != len(reports):
+        raise AssertionError(f"27 {label}: the ranks did not each submit in an "
+                             "order of their own")
+
+
+def report_world(W, label, reports, light, card, cpu) -> None:
+    r0 = reports[0]
+    mib = W.ELEMS * 4 / 2 ** 20
+    world = len(reports)
+    log(f"  (27) {label}: planes {list(r0['planes'])} x {len(W.COMPS)} wires x "
+        f"{W.STEPS} steps of {mib:.0f} MiB (under none only on {light}) + "
+        f"{W.SMALL} small tensors in {r0['_secs']:.1f} s (launch to exit), every "
+        f"result the oracle's")
+    for plane in r0["planes"]:
+        log(f"    {plane}: coordinator connections "
+            f"{sorted(set(r0['accepted'][plane].values()))}")
+        for comp in W.COMPS:
+            (cold_b, cold_x), (hot_b, hot_x) = \
+                r0["ctrl_bytes_per_exchange"][plane][comp][:2]
+            line = (f"      {comp}: control bytes per exchange cold "
+                    f"{cold_b / max(cold_x, 1):.0f} B ({cold_x:.0f} exchanges), "
+                    f"cached {hot_b / max(hot_x, 1):.0f} B ({hot_x:.0f}); cache "
+                    f"hits {r0['hits'][plane][comp]}")
+            secs = r0["engine_s"][plane].get(comp)
+            if secs:
+                med = statistics.median(secs)
+                alg = W.ELEMS * 4 / med / 1e9
+                line += (f"; {mib:.0f} MiB allreduce {med * 1e3:.1f} ms median "
+                         f"of {len(secs)} ({min(secs) * 1e3:.1f}-"
+                         f"{max(secs) * 1e3:.1f}), {alg:.3f} GB/s algbw, "
+                         f"{alg * 2 * (world - 1) / world:.3f} GB/s busbw")
+            log(line)
+    if "dist_s" in r0:
+        g = r0["dist_s"]
+        med = statistics.median(g["big"])
+        log(f"    {g['backend']} (torch.distributed) allreduce of the same "
+            f"{mib:.0f} MiB: "
+            f"{med * 1e3:.1f} ms median of {len(g['big'])} "
+            f"({W.ELEMS * 4 / med / 1e9:.3f} GB/s algbw); the "
+            f"{W.SMALL} small ones one after another "
+            f"{g['small_all'] * 1e3:.1f} ms")
+    log(f"    ({card}; host {cpu})")
+
+
+def engine_phase(card, paths, device="cuda") -> None:
+    """27a beside (c)'s world on the fake hosts (neither is timed), then
+    (b)'s world alone, the ring timed. Each world runs two planes, and
+    the big tensor under every wire on one of them. Each rank counts its
+    own attention-kernel launches; the sums are the paths' counts."""
+    import secrets
+    import tempfile
+
+    W = world_worker()
+    t_phase = time.perf_counter()
+    cpu = cpu_model()
+    log(f"  host CPU: {cpu}; {card}")
+    world = sum(ENGINE_SLOTS)
+    shape = W.sizes(W.ELEMS, W.SMALL)
+    with ThreadPoolExecutor(2) as pool, \
+            tempfile.TemporaryDirectory(prefix="chip_smoke_engine_") as tmp:
+        oracle = pool.submit(W.oracle_digests, W.COMPS, W.STEPS, world, shape,
+                             grids=(None, (2, 2)))
+        t0 = time.perf_counter()
+        mnist = pool.submit(eager_mnist, tmp, card, cpu, device)
+        secret = secrets.token_bytes(32)
+        with fake_hosts(("a", "b"), secret) as ports:
+            spec = ",".join(f"127.0.0.1@{p}:{n}"
+                            for p, n in zip(ports, ENGINE_SLOTS))
+            relayed = W.launch(os.path.join(tmp, "relayed"), {
+                "T_PLANES": "ring,hier", "T_LIGHT": "ring"}, world, spec, secret)
+        mnist_counts = mnist.result()
+        log(f"  27a beside (c)'s world took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        flat = W.launch(os.path.join(tmp, "flat"), {
+            "T_PLANES": "ring,star", "T_LIGHT": "star",
+            "T_TIMED": str(ENGINE_TIMED), "T_DIST": "1"}, world)
+        log(f"  (b)'s world took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        want = oracle.result()
+        log(f"  the oracle was ready {time.perf_counter() - t0:.1f} s later")
+    # Both rings held to the flat oracle: the relayed ring is (b)'s, bitwise.
+    W.hold(flat, "ring", want[None])
+    W.hold(flat, "star", want[None], light=True)
+    W.hold(relayed, "ring", want[None], light=True)
+    W.hold(relayed, "hier", want[(2, 2)])
+    hold_orders("b", flat)
+    hold_orders("c", relayed)
+    conns = {(label, plane): set(reps[0]["accepted"][plane].values())
+             for label, reps in (("b", flat), ("c", relayed))
+             for plane in reps[0]["planes"]}
+    if conns != {("b", "ring"): {4}, ("b", "star"): {4}, ("c", "ring"): {2},
+                 ("c", "hier"): {2}}:
+        raise AssertionError(f"27: coordinator connections {conns}, expected 4 "
+                             "flat and 2 through the relays")
+    report_world(W, "(b) one host, ring and star", flat, "star", card, cpu)
+    report_world(W, "(c) fake hosts a:2,b:2 through the relays, ring and "
+                 "two-level", relayed, "ring", card, cpu)
+    runs = {"27a: eager MNIST, 2 ranks on the card": mnist_counts,
+            "27b/c: engine worlds (host tensors)": {
+                k: sum(rep["launches"][k] for rep in flat + relayed)
+                for k in [*KERNELS, *RING_KERNELS]}}
+    for label, counts in runs.items():
+        hold_counts(label, counts, {})
+        paths[label] = counts
+    log(f"  phase 27 took {time.perf_counter() - t_phase:.1f} s ({card}; host "
+        f"{cpu})")
+
+
 def config_label(config) -> str:
     return "TrainConfig(sp=1)" if config.sp else "TrainConfig()"
 
@@ -4951,6 +5177,15 @@ def main() -> int:
                 untraced)
     del untraced
 
+    W = world_worker()
+    log(f"[27] the eager engine: eager MNIST with two ranks on the card; "
+        f"4-process host worlds ({W.ELEMS * 4 >> 20} MiB + {W.SMALL} "
+        f"small tensors) on the ring and star planes and through the control "
+        f"tree's relays, every wire, cold and cached")
+    gc.collect()
+    torch.cuda.empty_cache()
+    engine_phase(card, paths)
+
     kernels = []
     for source, names in SOURCES.items():
         for kname in names:
@@ -4967,6 +5202,7 @@ def main() -> int:
                                       "compiled": compiled[kname]}
             kernels.append(row)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
+    log(f"host CPU: {cpu_model()}")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

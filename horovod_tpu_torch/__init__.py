@@ -43,12 +43,21 @@ retunes them while a job runs, through ``train.TrainRecapture``'s
 ``rejit``; ``utils/roofline.py`` and ``utils/timeline.py`` say where the
 step's device time goes.
 
+``allreduce``/``allgather``/``broadcast``/``alltoall``/``reducescatter``
+of a numpy array or a Python scalar run on the eager engine
+(``common/engine.py``, attached on first use by ``common.basics.engine``):
+collectives negotiated by name across the world, async handles
+(``enqueue``/``poll``/``synchronize``), the response cache, a TCP ring or
+two-level data plane with fp16, bf16 and top-k wires, and the per-host
+relay of its coordinator (``ctrl/relay.py``). ``mpi_ops`` serves CPU
+torch tensors through it; tensors on the card keep NCCL.
+
 Entry points run on the card unless the caller passes ``device="cpu"``.
 The flash-attention kernels (``ops/flash_attention.py``) are CUDA C++
 built from ``csrc/`` on first use.
 """
 
-from . import callbacks, checkpoint, elastic, metrics, runner
+from . import callbacks, checkpoint, elastic, metrics, mpi_ops, runner
 from .common.basics import (HorovodInternalError, cross_rank, cross_size,
                             device, init, is_initialized, local_rank,
                             local_size, rank, shutdown, size)
@@ -74,7 +83,7 @@ __all__ = [
     "allgather_object", "allreduce", "alltoall", "broadcast",
     "broadcast_object", "broadcast_optimizer_state", "broadcast_parameters",
     "broadcast_sharded_state", "bucketed_allreduce", "callbacks",
-    "checkpoint", "cross_rank", "elastic", "runner",
+    "checkpoint", "cross_rank", "elastic", "mpi_ops", "runner",
     "cross_size", "device", "grouped_allreduce", "hierarchical_allgather",
     "hierarchical_allreduce", "hierarchical_groups", "init", "is_initialized",
     "local_rank", "local_size", "metric_average", "metrics", "parse_mesh_spec",

@@ -31,6 +31,14 @@ off), so the reset path can abort the communicators itself
 (``shutdown(abort=True)``). The layouts a reset cannot carry refuse to
 build there (``require_not_elastic``).
 
+``engine()`` attaches the eager engine (``common/engine.py``) on first use,
+as the JAX package's does: the negotiated host collectives of numpy values
+and CPU tensors (``hvd.allreduce(np_array)``, ``mpi_ops``). Its rank-0
+coordinator binds a port the kernel picks and publishes ``host:port``
+through this world's store (``StoreRendezvous``), since
+``HOROVOD_COORD_ADDR`` is the store's own address; a sub-world's engine
+spans the sub-world. ``shutdown`` (``abort=True`` too) shuts it down.
+
 ``init`` also starts this rank's telemetry, as the JAX package's does: the
 identity gauges; the metrics exposition at ``HOROVOD_METRICS_PORT`` plus
 the local rank; under ``HOROVOD_TRACE_DIR`` the span recorder, with its
@@ -79,6 +87,10 @@ class _State:
         self.sequence = itertools.count()
         self.watchdog = None
         self.metrics_server = None
+        self.engine = None
+        # Engines attached in this world, so that each attach publishes the
+        # coordinator under a store key of its own.
+        self.engines_made = 0
 
 
 _state = _State()
@@ -239,6 +251,7 @@ def init(device=None, comm: Optional[Sequence[int]] = None) -> None:
         _state.config = config
         _state.device = device
         _state.sequence = itertools.count()
+        _state.engines_made = 0
         _start_telemetry(topo, config)
 
 
@@ -335,6 +348,7 @@ def shutdown(abort: bool = False) -> None:
     with _state.lock:
         if _state.topology is None:
             return
+        _stop_engine()
         _stop_telemetry(abort)
         try:
             if abort and dist.get_backend() == "nccl":
@@ -345,6 +359,58 @@ def shutdown(abort: bool = False) -> None:
             _state.topology = None
             _state.config = None
             _state.device = None
+
+
+def _coordinator_host() -> str:
+    """The address rank 0's engine coordinator binds and publishes: the
+    host of the rendezvous address (every rank reaches it), else
+    loopback."""
+    env = os.environ
+    if env.get("MASTER_ADDR") and env.get("MASTER_PORT"):
+        return env["MASTER_ADDR"]
+    if env.get("HOROVOD_COORD_ADDR"):
+        return env["HOROVOD_COORD_ADDR"].rsplit(":", 1)[0]
+    return "127.0.0.1"
+
+
+def engine():
+    """The eager engine of this world, attached on first use (every rank
+    must attach it: its coordinator and ring form across the world)."""
+    _topo()
+    with _state.lock:
+        if _state.engine is None:
+            from . import engine as engine_mod
+
+            rendezvous = None
+            if _state.topology.size > 1:
+                rendezvous = engine_mod.StoreRendezvous(
+                    store=dist.distributed_c10d._get_default_store(),
+                    key=f"horovod_engine_coord/{_state.engines_made}",
+                    host=_coordinator_host())
+            _state.engines_made += 1
+            _state.engine = engine_mod.create(
+                _state.topology, _state.config, rendezvous=rendezvous,
+                watchdog=_state.watchdog)
+        return _state.engine
+
+
+def _stop_engine() -> None:
+    """Shut the engine down (its threads and sockets end; pending handles
+    fail). The next ``engine()`` of this world attaches a fresh one."""
+    eng, _state.engine = _state.engine, None
+    if eng is not None:
+        try:
+            eng.shutdown()
+        except Exception as e:  # noqa: BLE001 - teardown goes on
+            log("warning", f"engine shutdown failed: {e}")
+
+
+def reset_engine() -> None:
+    """Drop this world's engine, so that the next ``engine()`` builds a new
+    one from the config as it then stands: no cached response or retained
+    result outlives the call. Every rank must call it alike."""
+    with _state.lock:
+        _stop_engine()
 
 
 def is_initialized() -> bool:

@@ -5,9 +5,12 @@ plane reads: the fusion threshold, the bucket count, the wire compression,
 the hierarchical ladder's switch and DCN-tier bucket cap, the sharded
 layout, the latency-hiding switch, the elastic switch, the stall
 watchdog's times (the shutdown time also bounds a collective's wait
-under the elastic switch), and the tracing and metrics exposition knobs,
-with the same env knobs and the same defaults, so one env var tunes both packages
-the same way. Three knobs are read where the JAX package's compiled plane
+under the elastic switch), the tracing and metrics exposition knobs, and
+the eager engine's (``common/engine.py``: cycle time, timeline, response
+cache, ring plane, error feedback, top-k ratio), with the same env knobs
+and the same defaults, so one env var tunes both packages the same way.
+The engine's cache, ring and compression fields read the env also when a
+``Config`` is built directly, as the JAX package's do. Three knobs are read where the JAX package's compiled plane
 reads them, when the wires are chosen: HOROVOD_DCN_COMPRESSION
 (``env_dcn_compression``), HOROVOD_TOPK_RATIO
 (``compression.topk_ratio_from_env``) and HOROVOD_TOPK_MIN_BYTES
@@ -18,7 +21,7 @@ from __future__ import annotations
 
 import os
 import sys
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 from ..compression import WIRE_DTYPES, parse_spec
 
@@ -29,6 +32,8 @@ DEFAULT_NUM_BUCKETS = 1
 # Buckets below this byte size skip wire compression: the cast pair costs
 # more than it saves, and scalars keep full precision.
 DEFAULT_COMPRESSION_MIN_BYTES = 4096
+# The eager engine's negotiation cycle: 5 ms (the reference's default).
+DEFAULT_CYCLE_TIME_MS = 5.0
 
 
 def _env_int(name: str, default: int) -> int:
@@ -127,6 +132,24 @@ class Config:
     trace_dir: str = ""                                 # HOROVOD_TRACE_DIR
     # Rank r serves /metrics at this port + its local rank (0: off).
     metrics_port: int = 0                               # HOROVOD_METRICS_PORT
+    # The eager engine (common/engine.py).
+    cycle_time_ms: float = DEFAULT_CYCLE_TIME_MS        # HOROVOD_CYCLE_TIME
+    timeline: str = ""                                  # HOROVOD_TIMELINE
+    timeline_mark_cycles: bool = False                  # HOROVOD_TIMELINE_MARK_CYCLES
+    # Warned about and run flat: the two-stage allgather is the native
+    # engine's.
+    hierarchical_allgather: bool = False                # HOROVOD_HIERARCHICAL_ALLGATHER
+    cache_capacity: int = field(                        # HOROVOD_CACHE_CAPACITY (0 disables)
+        default_factory=lambda: max(
+            0, _env_int("HOROVOD_CACHE_CAPACITY", 1024)))
+    ring_data_plane: bool = field(                      # HOROVOD_RING_DATA_PLANE (0 disables)
+        default_factory=lambda: _env_bool("HOROVOD_RING_DATA_PLANE", True))
+    compression_error_feedback: bool = field(           # HOROVOD_COMPRESSION_ERROR_FEEDBACK
+        default_factory=lambda: _env_bool(
+            "HOROVOD_COMPRESSION_ERROR_FEEDBACK", False))
+    # 0.0: unset, resolved to HOROVOD_TOPK_RATIO or 1% at use.
+    topk_ratio: float = field(                          # HOROVOD_TOPK_RATIO
+        default_factory=lambda: _env_float("HOROVOD_TOPK_RATIO", 0.0))
 
     @classmethod
     def from_env(cls) -> "Config":
@@ -152,4 +175,10 @@ class Config:
             stall_warning_s=_env_stall_check_time(),
             trace_dir=os.environ.get("HOROVOD_TRACE_DIR", ""),
             metrics_port=_env_int("HOROVOD_METRICS_PORT", 0),
+            cycle_time_ms=_env_float("HOROVOD_CYCLE_TIME",
+                                     DEFAULT_CYCLE_TIME_MS),
+            timeline=os.environ.get("HOROVOD_TIMELINE", ""),
+            timeline_mark_cycles=_env_bool("HOROVOD_TIMELINE_MARK_CYCLES"),
+            hierarchical_allgather=_env_bool(
+                "HOROVOD_HIERARCHICAL_ALLGATHER"),
         )

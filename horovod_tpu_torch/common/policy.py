@@ -12,9 +12,10 @@ ranks agree on each bucket's wire format without a negotiation:
     dcn   | other floats >= min_bytes                 | bf16
 
 The port's collectives have static shapes, so a 'topk' answer ships as
-``COMPILED_TOPK_SUBSTITUTE`` (``compiled_tier_format``). The live-telemetry
-half (``refresh``, ``sparse_tiers``) steers the host engines' sparse
-framing and waits for them.
+``COMPILED_TOPK_SUBSTITUTE`` (``compiled_tier_format``). The eager engine
+(``common/engine.py``) applies the table per tensor (``resolve``), and the
+live-telemetry half (``refresh``, ``sparse_tiers``) steers its
+value-neutral choice of sparse or dense frames per link tier.
 """
 
 from __future__ import annotations
@@ -49,17 +50,24 @@ def _float_itemsize(dtype) -> int:
 
 class CompressionPolicy:
     """The HOROVOD_COMPRESSION=adaptive table. ``config`` (a
-    ``common.config.Config``) supplies min_bytes, 4096 without one; the
-    topk ratio and floor are HOROVOD_TOPK_RATIO and HOROVOD_TOPK_MIN_BYTES,
-    as in the reference."""
+    ``common.config.Config``) supplies min_bytes, 4096 without one, and the
+    topk ratio (else HOROVOD_TOPK_RATIO); the floor is
+    HOROVOD_TOPK_MIN_BYTES, as in the reference. ``topo`` says whether the
+    world crosses a host boundary (no DCN hop: full width everywhere)."""
 
-    def __init__(self, config=None) -> None:
+    def __init__(self, config=None, topo=None) -> None:
         self.min_bytes = int(getattr(config, "compression_min_bytes",
                                      DEFAULT_COMPRESSION_MIN_BYTES)
                              or DEFAULT_COMPRESSION_MIN_BYTES)
-        self.topk_ratio = topk_ratio_from_env()
+        self.topk_ratio = float(getattr(config, "topk_ratio", 0.0)
+                                or topk_ratio_from_env())
         self.topk_min_bytes = max(self.min_bytes, _env_int(
             "HOROVOD_TOPK_MIN_BYTES", DEFAULT_TOPK_MIN_BYTES))
+        self.has_dcn = bool(topo is None or getattr(topo, "cross_size", 1) > 1)
+        # Where topk frames ship sparse: DCN until refresh() sees the wire
+        # time move to the local fabric.
+        self._sparse_tiers = {"cross"}
+        self._diag: dict = {}
 
     def decide(self, nbytes: int, dtype, tier: str) -> str:
         """Wire format for a tensor of ``nbytes`` and ``dtype`` (torch or
@@ -72,6 +80,61 @@ class CompressionPolicy:
                 dtype, nbytes, self.topk_ratio, self.min_bytes):
             return "topk"
         return "bf16"
+
+    def resolve(self, nbytes: int, dtype) -> str:
+        """The one value-changing format the eager engine gives a tensor:
+        the decision for the slowest fabric its bytes cross."""
+        return self.decide(nbytes, dtype, "dcn" if self.has_dcn else "ici")
+
+    def sparse_tiers(self) -> frozenset:
+        """Link tiers ('local'/'cross') where topk hops frame sparse."""
+        return frozenset(self._sparse_tiers)
+
+    def refresh(self, snapshot: dict) -> dict:
+        """Steer the sparse framing from a metrics snapshot: the per-tier
+        ``horovod_wire_bytes_total`` counters and the
+        ``horovod_critical_path_wire_seconds`` gauges. Value-neutral, so
+        ranks may disagree. Returns (and keeps) the diagnosis."""
+        counters = snapshot.get("counters", {}) or {}
+        gauges = snapshot.get("gauges", {}) or {}
+
+        def tier(series: dict, name: str, t: str) -> float:
+            return float(series.get(f'{name}{{tier="{t}"}}', 0) or 0)
+
+        local_b = tier(counters, "horovod_wire_bytes_total", "local")
+        cross_b = tier(counters, "horovod_wire_bytes_total", "cross")
+        local_s = tier(gauges, "horovod_critical_path_wire_seconds", "local")
+        cross_s = tier(gauges, "horovod_critical_path_wire_seconds", "cross")
+        if local_s or cross_s:
+            bottleneck = "dcn" if cross_s >= local_s else "ici"
+        elif local_b or cross_b:
+            bottleneck = "dcn" if cross_b >= local_b else "ici"
+        else:
+            bottleneck = "dcn" if self.has_dcn else "ici"
+        tiers = {"cross"}
+        if bottleneck == "ici" and (local_s > 0 or local_b > 0):
+            tiers.add("local")
+        self._sparse_tiers = tiers
+        self._diag = {
+            "bottleneck_tier": bottleneck,
+            "wire_bytes": {"local": local_b, "cross": cross_b},
+            "wire_seconds": {"local": local_s, "cross": cross_s},
+            "sparse_tiers": sorted(tiers),
+        }
+        return dict(self._diag)
+
+    def report(self, nbytes: int = 1 << 22, dtype=np.float32) -> dict:
+        """The table for a representative large gradient plus the live
+        diagnosis (``PyEngine.cache_stats()['policy']``)."""
+        return {
+            "ici": self.decide(nbytes, dtype, "ici"),
+            "dcn": self.decide(nbytes, dtype, "dcn"),
+            "resolved": self.resolve(nbytes, dtype),
+            "topk_ratio": self.topk_ratio,
+            "has_dcn": self.has_dcn,
+            "sparse_tiers": sorted(self._sparse_tiers),
+            "diag": dict(self._diag),
+        }
 
 
 def compiled_tier_format(nbytes: int, dtype, tier: str,

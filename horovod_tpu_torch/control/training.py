@@ -11,10 +11,12 @@ registry where something sets them, and the anomaly firings
 
 Actuators:
 
-- ``ENGINE_KNOBS`` (wire format, top-k ratio, plane) through an engine's
-  ``set_knobs`` when one is attached. The port has no host engine yet,
-  so with ``engine=None`` they go through ``rejit``, as a compiled-plane
-  job of the JAX package's does (``:159-175``);
+- ``ENGINE_KNOBS`` (wire format, top-k ratio, plane) through the eager
+  engine's ``set_knobs`` when one is attached (``engine=``,
+  ``basics.engine()``): the coordinator commits the table world-wide
+  through its knob epoch (``knob_change``), so every rank's engine adopts
+  it at once. With ``engine=None`` they go through ``rejit``, as a
+  compiled-plane job of the JAX package's does (``:159-175``);
 - ``REJIT_KNOBS`` (fusion threshold, bucket count, ladder, mesh) through
   the ``rejit`` callback: the optimizer rebuilt with the new value and the
   CUDA graph captured again, keeping the model, the optimizer state and

@@ -15,10 +15,10 @@ the metrics plane:
   serves checkpoint streaming to cold-starting joiners
   (ckpt_async/stream.py).
 
-The JAX package's third module, ``ctrl/relay.py`` (``CoordRelay``, the
-per-host leader of its eager engine's coordinator wire), comes with that
-engine: GPU collectives go to NCCL, and ``ControlAgent.relay_port`` raises
-``NotImplementedError`` (ROADMAP.md queue A item 4).
+- :mod:`~.relay` — :class:`CoordRelay`, the per-host relay of the eager
+  engine's coordinator wire (``common/engine.py``): the host's ranks dial
+  it (``HOROVOD_CTRL_RELAY``) and it coalesces their ticks into one
+  upstream connection. ``ControlAgent.relay_port`` starts it.
 """
 
 from .tree import (  # noqa: F401

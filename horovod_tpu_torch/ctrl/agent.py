@@ -56,14 +56,6 @@ from .tree import ctrl_batch_s, ctrl_poll_s
 FRAME_OVERHEAD = 2 * (32 + 8)
 
 
-#: why :meth:`ControlAgent.relay_port` raises (and a HostAgent refuses a
-#: ``relay`` start request).
-RELAY_NOT_PORTED = (
-    "the control tree's engine-coordinator relay (horovod_tpu/ctrl/relay.py) "
-    "relays the eager engine's coordinator, which is not ported to "
-    "horovod_tpu_torch yet: ROADMAP.md queue A item 4")
-
-
 def _flat_bytes(req: Any, resp: Any = None) -> int:
     """Flat-equivalent wire size of a request (+ optional response) had
     it crossed to the root directly."""
@@ -115,13 +107,29 @@ class ControlAgent(BasicService):
         self._poll_lock = threading.Lock()
         self._poll_fetch_lock = threading.Lock()
         self._poll_cache: Optional[dict] = None
+        # Engine-plane relay (ctrl/relay.py), keyed as the workers' engines
+        # key their coordinator frames: with the text of HOROVOD_SECRET,
+        # which the launcher sets to this job secret's hex (the JAX package
+        # keys its relay with the raw secret, which no worker's engine
+        # frame authenticates under). Started by the first relay_port(): the
+        # hvd-agent calls it when a ctrl start asks for the relay, as the
+        # launcher and the elastic driver do for every job on the tree.
+        self._relay_lock = threading.Lock()
+        self._relay: Optional[Any] = None
 
     def relay_port(self) -> int:
-        """The JAX package's engine-coordinator relay (``ctrl/relay.py``
-        ``CoordRelay``) relays its eager engine's coordinator wire. The port
-        has no such coordinator (GPU collectives go to NCCL), so the relay
-        comes with the engine."""
-        raise NotImplementedError(RELAY_NOT_PORTED)
+        """Start (once) and return the engine coordinator relay's port."""
+        with self._relay_lock:
+            if self._relay is None:
+                from .relay import CoordRelay
+
+                self._relay = CoordRelay(self.key.hex().encode())
+            return self._relay.port
+
+    def relay_running(self) -> bool:
+        """Whether :meth:`relay_port` has started the relay."""
+        with self._relay_lock:
+            return self._relay is not None
 
     # -- upstream ------------------------------------------------------------
 
@@ -388,6 +396,13 @@ class ControlAgent(BasicService):
                 "reset_required": bool(c["reset"] or index in c["removed"])}
 
     def stop(self) -> None:
+        with self._relay_lock:
+            relay, self._relay = self._relay, None
+        if relay is not None:
+            try:
+                relay.stop()
+            except Exception:
+                pass
         with self._root_lock:
             clients = (self._root_client, self._wait_client)
             self._root_client = self._wait_client = None

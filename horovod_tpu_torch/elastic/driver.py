@@ -157,7 +157,8 @@ class AgentSlotPool:
         try:
             resp = client.request({
                 "kind": "ctrl", "cmd": "start", "job_id": self.job_id,
-                "root": self._ctrl_root, "ckpt_dir": self._ctrl_ckpt_dir})
+                "root": self._ctrl_root, "relay": True,
+                "ckpt_dir": self._ctrl_ckpt_dir})
         except (ConnectionError, OSError) as e:
             resp = {"ok": False, "error": str(e)}
         if resp.get("ok"):

@@ -20,8 +20,11 @@ port's collectives raise as ``HorovodInternalError`` — or a membership
 change the driver signalled (:class:`HostsUpdatedInterrupt` out of
 ``state.commit()``), the wrapper:
 
-1. tears the world down: every process group, NCCL's communicators
-   aborted first (``shutdown(abort=True)``), and the rendezvous store;
+1. tears the world down: the eager engine (its response cache flushed
+   first, so no response of the old membership is ever served; the next
+   generation attaches a new engine), every process group, NCCL's
+   communicators aborted first (``shutdown(abort=True)``), and the
+   rendezvous store;
 2. rolls the state back to the last commit (skipped for the clean
    host-update interrupt, which is raised post-commit), in place;
 3. re-registers with the driver and blocks for the next generation's
@@ -205,6 +208,16 @@ def run(fn: Callable) -> Callable:
                         f"{type(exc).__name__}: {exc}; "
                         f"{'rolling back to last commit' if rollback else 'state already committed'}"
                         " and re-rendezvousing")
+                    # The engine's response cache is flushed FIRST, on every
+                    # rank: a bit bound under the old membership must never
+                    # serve a negotiation in the new one, even if the
+                    # teardown below is interrupted. shutdown() then ends
+                    # the engine; the next generation attaches a new one.
+                    try:
+                        if basics._state.engine is not None:
+                            basics._state.engine.cache_flush()
+                    except Exception:  # noqa: BLE001 - the world is gone
+                        pass
                     # A collective of the dead world may still be in flight
                     # on the card: abort NCCL's communicators before the
                     # groups are destroyed, or the teardown waits on it.

@@ -10,8 +10,7 @@ and applies DETERMINISTIC threshold rules — no learned models, the same
 inputs always produce the same verdict, which is what lets the unit tests
 drive every kind by hand and the nominal-load smokes assert zero firings.
 
-Kinds (the sensor vocabulary ROADMAP item 4's runtime controller will
-consume):
+Kinds (the sensors of the runtime controller, ``control/``):
 
 - ``ttft_slo``      — TTFT p99 over the SLO, or the admission controller's
   *projected* wait already past it (Clipper framing: the breach is judged

@@ -101,7 +101,9 @@ class StallWatchdog:
         # ~1.25x of check_time even for sub-second test configurations.
         self.poll_interval_s = poll_interval_s or max(
             0.05, min(1.0, self.check_time_s / 4.0))
-        self._sources: list[Callable[[], list]] = []
+        # (source, its abort hook or None for on_abort)
+        self._sources: list[tuple] = []
+        self._source_aborts: dict = {}
         self._last_warned: dict[str, float] = {}
         self._aborted: set[str] = set()
         self._stop = threading.Event()
@@ -119,10 +121,20 @@ class StallWatchdog:
             target=self._loop, name="hvd_stall_watchdog", daemon=True)
         self._thread.start()
 
-    def add_source(self, fn: Callable[[], list]) -> None:
+    def add_source(self, fn: Callable[[], list],
+                   on_abort: Optional[Callable[[StallInfo], None]] = None
+                   ) -> None:
         """``fn() -> list[StallInfo]`` describing the caller's in-flight set
-        (any age; the watchdog applies the thresholds)."""
-        self._sources.append(fn)
+        (any age; the watchdog applies the thresholds). ``on_abort``, when
+        given, fails this source's stalled entries in place of the
+        watchdog's own hook (the eager engine's queue and the collectives
+        of ``init`` share one watchdog)."""
+        self._sources.append((fn, on_abort))
+
+    def remove_source(self, fn: Callable[[], list]) -> None:
+        """Drop a source given to :meth:`add_source` (equal callables
+        match: a bound method fetched twice)."""
+        self._sources = [s for s in self._sources if s[0] != fn]
 
     def stop(self) -> None:
         self._stop.set()
@@ -136,11 +148,16 @@ class StallWatchdog:
 
     def _collect(self) -> list:
         infos: list = []
-        for fn in list(self._sources):
+        aborts: dict = {}
+        for fn, on_abort in list(self._sources):
             try:
-                infos.extend(fn() or [])
+                got = list(fn() or [])
             except Exception:   # a dying source must not kill its watchdog
-                pass
+                continue
+            infos.extend(got)
+            if on_abort is not None:
+                aborts.update((id(s), on_abort) for s in got)
+        self._source_aborts = aborts
         return infos
 
     def _loop(self) -> None:
@@ -204,8 +221,11 @@ class StallWatchdog:
         if attribution:
             rep_d["straggler_attribution"] = attribution
         self.reg.set_info("stall_report", rep_d)
-        if self.shutdown_time_s > 0 and self.on_abort is not None:
+        if self.shutdown_time_s > 0:
             for s in stalled:
+                on_abort = self._source_aborts.get(id(s), self.on_abort)
+                if on_abort is None:
+                    continue
                 if s.age_s > self.shutdown_time_s and s.name not in self._aborted:
                     self._aborted.add(s.name)
                     log("error",
@@ -225,7 +245,7 @@ class StallWatchdog:
                     # yet": retry on the next scan instead of marking the
                     # tensor dealt with forever.
                     try:
-                        handled = self.on_abort(s)
+                        handled = on_abort(s)
                     except Exception:
                         handled = False
                     if handled is False:

@@ -5,6 +5,13 @@ all-to-all, the sparse allreduce, and the point-to-point
 differentiable ``ppermute`` of pipeline parallelism), and the host-side
 ``broadcast_object``/``allgather_object`` of picklable Python objects.
 
+``allreduce``, ``allgather``, ``broadcast``, ``alltoall`` and
+``reducescatter`` of a numpy array or a Python scalar (anything but a
+``torch.Tensor``) go to the eager engine (``basics.engine()``), negotiated
+by ``name`` over the whole world, and return numpy, as
+``horovod_tpu``'s eager calls do; averaging is the engine's. A tensor, on
+the CPU or the card, keeps the ``torch.distributed`` path below.
+
 The counterparts of ``horovod_tpu.parallel.collectives``, where a mesh
 axis becomes a process group: ``group=None`` is the whole world, and the
 ladder takes the ``('dcn', 'ici')`` groups of
@@ -102,12 +109,21 @@ _OP_OF = {"allreduce_": "allreduce", "allreduce_async_": "allreduce",
           "allgather_object": "allgather"}
 
 
+# Calls whose host-value (non-tensor) form runs on the eager engine, which
+# counts its own errors.
+_EAGER_FORMS = ("broadcast", "allgather", "reducescatter", "alltoall")
+
+
 def _backend_errors(fn):
-    """``fn`` with ``backend_errors`` around it."""
+    """``fn`` with ``backend_errors`` around it (not around a host value's
+    eager-engine call)."""
     op = _OP_OF.get(fn.__name__)
+    eager = fn.__name__ in _EAGER_FORMS
 
     @functools.wraps(fn)
     def wrapper(*args, **kwargs):
+        if eager and args and not isinstance(args[0], torch.Tensor):
+            return fn(*args, **kwargs)
         with backend_errors(fn.__name__, op):
             return fn(*args, **kwargs)
     return wrapper
@@ -171,9 +187,28 @@ def allreduce_async_(tensor: torch.Tensor, op: ReduceOp = ReduceOp.AVERAGE,
     return Pending(work, tensor, divisor, f)
 
 
+def _eager(op: str, value, group: Group, **kw):
+    """A host value's collective through the eager engine (numpy out)."""
+    import numpy as np
+
+    if group is not None:
+        raise ValueError(
+            f"{op} of a host value runs on the eager engine, which spans the "
+            "whole world: group= takes torch tensors only")
+    return basics.engine().run(op, np.asarray(value), **kw)
+
+
 def allreduce(tensor: torch.Tensor, op: ReduceOp = ReduceOp.AVERAGE,
               group: Group = None, name: Optional[str] = None) -> torch.Tensor:
-    """Allreduce into a new tensor (default: average, as hvd.allreduce)."""
+    """Allreduce into a new tensor (default: average, as hvd.allreduce).
+    A numpy array or scalar goes through the eager engine (SUM or
+    AVERAGE)."""
+    if not isinstance(tensor, torch.Tensor):
+        if op not in (ReduceOp.SUM, ReduceOp.AVERAGE):
+            raise ValueError(f"the eager engine reduces by SUM or AVERAGE, "
+                             f"not {op.name}")
+        return _eager("allreduce", tensor, group, name=name,
+                      average=op == ReduceOp.AVERAGE)
     return allreduce_(tensor.clone(), op, group, name)
 
 
@@ -202,7 +237,11 @@ def _global(group: Group, rank: int) -> int:
 def broadcast(tensor: torch.Tensor, root_rank: int = 0,
               group: Group = None, name: Optional[str] = None) -> torch.Tensor:
     """Overwrite ``tensor`` with the value of ``root_rank`` (a rank within
-    ``group``), in place."""
+    ``group``), in place. A host value: root's value, through the eager
+    engine."""
+    if not isinstance(tensor, torch.Tensor):
+        return _eager("broadcast", tensor, group, name=name,
+                      root_rank=root_rank)
     _run("broadcast", tensor, name, lambda: dist.broadcast(
         tensor, src=_global(group, root_rank), group=group, async_op=True))
     return tensor
@@ -211,7 +250,10 @@ def broadcast(tensor: torch.Tensor, root_rank: int = 0,
 @_backend_errors
 def allgather(tensor: torch.Tensor, group: Group = None,
               name: Optional[str] = None) -> torch.Tensor:
-    """Concatenate every rank's tensor along dim 0 (shapes must match)."""
+    """Concatenate every rank's tensor along dim 0 (shapes must match; a
+    host value's dim 0 may differ, through the eager engine)."""
+    if not isinstance(tensor, torch.Tensor):
+        return _eager("allgather", tensor, group, name=name)
     parts = [torch.empty_like(tensor) for _ in range(dist.get_world_size(group))]
     src = tensor.contiguous()
     _run("allgather", src, name, lambda: dist.all_gather(
@@ -224,7 +266,10 @@ def reducescatter(x: torch.Tensor, group: Group = None,
                   average: bool = False, name: Optional[str] = None
                   ) -> torch.Tensor:
     """Sum ``x`` over ``group`` and hand group rank j the j-th of n equal
-    dim-0 shards (dim 0 must divide by n)."""
+    dim-0 shards (dim 0 must divide by n; a host value's shards are
+    ``np.array_split``'s, through the eager engine)."""
+    if not isinstance(x, torch.Tensor):
+        return _eager("reducescatter", x, group, name=name, average=average)
     n = dist.get_world_size(group)
     if x.shape[0] % n:
         raise ValueError(f"dim 0 of {tuple(x.shape)} not divisible by {n} ranks")
@@ -240,7 +285,13 @@ def alltoall(x: torch.Tensor, group: Group = None, split_dim: int = 0,
              concat_dim: int = 0, name: Optional[str] = None) -> torch.Tensor:
     """Cut ``x`` into n pieces along ``split_dim``, send piece j to group
     rank j, and concatenate the pieces received along ``concat_dim`` in
-    rank order (``lax.all_to_all(..., tiled=True)``)."""
+    rank order (``lax.all_to_all(..., tiled=True)``). A host value: dim-0
+    pieces through the eager engine (``split_dim``/``concat_dim`` 0)."""
+    if not isinstance(x, torch.Tensor):
+        if split_dim or concat_dim:
+            raise ValueError("the eager engine's alltoall splits and "
+                             "concatenates dim 0")
+        return _eager("alltoall", x, group, name=name)
     n = dist.get_world_size(group)
     if x.shape[split_dim] % n:
         raise ValueError(f"dim {split_dim} of {tuple(x.shape)} not divisible "
@@ -405,7 +456,8 @@ def broadcast_object(obj, root_rank: int = 0, name: Optional[str] = None):
     ``torch.distributed.broadcast_object_list`` over the world. In a world
     of one it returns ``obj`` at once. ``name`` is accepted as the JAX
     package's is; calls pair up by their order on each rank. Host-side
-    only, and it unpickles root's bytes: use it within one job."""
+    only, and it unpickles root's bytes: use it within one job. It stays
+    on ``torch.distributed`` (the JAX package's rides its eager engine)."""
     if basics.size() == 1:
         return obj
     box = [obj if basics.rank() == root_rank else None]
@@ -420,7 +472,7 @@ def allgather_object(obj, name: Optional[str] = None) -> list:
     """``[obj of rank 0, obj of rank 1, ...]`` on every rank, through
     ``torch.distributed.all_gather_object``; the objects may differ in size.
     In a world of one ``[obj]`` at once. ``name`` as in
-    :func:`broadcast_object`."""
+    :func:`broadcast_object`; on ``torch.distributed``, as there."""
     if basics.size() == 1:
         return [obj]
     out = [None] * basics.size()

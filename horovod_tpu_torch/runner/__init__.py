@@ -118,8 +118,7 @@ def _maybe_start_control(spawner: RemoteSpawner, driver: DriverService,
     rendezvous/poll traffic reaches the driver via O(hosts) connections.
     The exported checkpoint directory (streaming cold-start source) is the
     job's HOROVOD_CKPT_STREAM_DIR, from the call's env or the launcher's.
-    The JAX launcher also asks each leader for its engine-coordinator
-    relay; the port has no such coordinator, so it asks for none."""
+    Each leader also hosts the eager engine's coordinator relay."""
     from ..ctrl.tree import use_tree
 
     if not use_tree(len(spawner.specs), world):

@@ -26,9 +26,6 @@ never sent on the wire — both sides prove possession via HMAC over each
 message. Start the agent with `--secret-file` (or HOROVOD_AGENT_SECRET hex).
 
 The port's own copy of ``horovod_tpu.runner.agent``, with the same protocol.
-A ``ctrl`` request that asks for the JAX package's engine-coordinator relay
-(``relay``) is answered with the ``NotImplementedError`` of
-``ControlAgent.relay_port``: the relay comes with the eager engine.
 """
 
 from __future__ import annotations
@@ -72,14 +69,16 @@ class HostAgent(BasicService):
       metric deltas and probe the host clock without extra key exchange.
       The telemetry agent's lifetime is the job's: ``kill`` and driver
       disconnect stop it with the workers.
-    - ``ctrl`` ``{cmd: start|stop, job_id, root?, ckpt_dir?}`` →
-      ``{ok, port, host}`` — host a control-tree leader (ctrl/agent.py
-      ControlAgent) for the job, keyed with the same derived job secret.
-      ``root`` is the driver service's address list; the leader batches
-      its ranks' rendezvous/poll traffic into one upstream connection
-      and serves checkpoint streaming from ``ckpt_dir``. Same lifetime
-      discipline as the telemetry agent. ``relay`` (the JAX package's
-      engine-coordinator relay) is answered with an error.
+    - ``ctrl`` ``{cmd: start|stop, job_id, root?, relay?, ckpt_dir?}`` →
+      ``{ok, port, host[, relay_port]}`` — host a control-tree leader
+      (ctrl/agent.py ControlAgent) for the job, keyed with the same
+      derived job secret. ``root`` is the driver service's address list;
+      the leader batches its ranks' rendezvous/poll traffic into one
+      upstream connection and serves checkpoint streaming from
+      ``ckpt_dir``; ``relay`` also starts its eager-engine coordinator
+      relay (ctrl/relay.py), whose loopback address the job's workers
+      get as ``HOROVOD_CTRL_RELAY``. Same lifetime discipline as the
+      telemetry agent.
     """
 
     def __init__(self, key: bytes, host: str = "0.0.0.0", port: int = 0) -> None:
@@ -189,15 +188,18 @@ class HostAgent(BasicService):
             return {"ok": True}
         if cmd != "start":
             return {"ok": False, "error": f"unknown ctrl cmd {cmd!r}"}
-        from ..ctrl.agent import RELAY_NOT_PORTED, ControlAgent
+        from ..ctrl.agent import ControlAgent
 
-        if req.get("relay"):
-            return {"ok": False,
-                    "error": f"NotImplementedError: {RELAY_NOT_PORTED}"}
+        def answer(agent) -> dict:
+            out = {"ok": True, "port": agent.port, "host": agent.host_name}
+            if req.get("relay"):
+                out["relay_port"] = agent.relay_port()
+            return out
+
         with self._jobs_lock:
             ca = self._ctrl.get(job_id)
             if ca is not None:
-                return {"ok": True, "port": ca.port, "host": ca.host_name}
+                return answer(ca)
         job_secret = derive_key(self.key, b"hvd-job:" + job_id.encode())
         ca = None
         try:
@@ -205,6 +207,8 @@ class HostAgent(BasicService):
                               ckpt_dir=req.get("ckpt_dir") or None)
             if req.get("root"):
                 ca.attach_root([(h, int(p)) for h, p in req["root"]])
+            if req.get("relay"):
+                ca.relay_port()
         except Exception as e:
             if ca is not None:
                 ca.stop()
@@ -214,9 +218,9 @@ class HostAgent(BasicService):
             live = self._ctrl.get(job_id)
             if live is not None:   # lost the race; keep the first
                 ca.stop()
-                return {"ok": True, "port": live.port, "host": live.host_name}
+                return answer(live)
             self._ctrl[job_id] = ca
-        return {"ok": True, "port": ca.port, "host": ca.host_name}
+        return answer(ca)
 
     def _stop_ctrl(self, job_id: str) -> None:
         with self._jobs_lock:
@@ -238,13 +242,17 @@ class HostAgent(BasicService):
         job_secret = derive_key(self.key, b"hvd-job:" + str(job_id).encode())
         # Control tree: if this job has a local control agent, point the
         # workers' runner-plane traffic at it (loopback, only when it
-        # actually has a root to forward to), unless the driver pinned
+        # actually has a root to forward to) and, when its engine relay is
+        # running, their coordinator hop too, unless the driver pinned
         # something else.
         with self._jobs_lock:
             ca = self._ctrl.get(job_id)
-        ctrl_addr = ""
-        if ca is not None and ca.has_root():
-            ctrl_addr = json.dumps([["127.0.0.1", ca.port]])
+        relay_addr = ctrl_addr = ""
+        if ca is not None:
+            if ca.has_root():
+                ctrl_addr = json.dumps([["127.0.0.1", ca.port]])
+            if ca.relay_running():
+                relay_addr = f"127.0.0.1:{ca.relay_port()}"
         try:
             for w in req["workers"]:
                 env = dict(os.environ)
@@ -252,6 +260,8 @@ class HostAgent(BasicService):
                 env["HOROVOD_SECRET"] = job_secret.hex()
                 if ctrl_addr:
                     env.setdefault("HOROVOD_CTRL_ADDRS", ctrl_addr)
+                if relay_addr:
+                    env.setdefault("HOROVOD_CTRL_RELAY", relay_addr)
                 # Lets the worker's watchdog detect a parent that died
                 # before its first ppid snapshot (task_main.watch_parent).
                 env["HVD_PARENT_PID"] = str(os.getpid())

@@ -78,13 +78,12 @@ class Channel:
     (direction, seq, payload), so neither cross-connection replay nor
     in-connection replay/reflection authenticates.
 
-    ``scope`` names what the channel carries ("ctl" control traffic, the
-    only kind the port opens so far) — it selects which channels the
-    env-triggered network chaos hooks target (elastic/fault.py,
-    HOROVOD_FAULT_NET) and costs nothing when injection is unarmed.
-
-    The JAX package's raw-buffer frames (``send_bytes``/``recv_bytes``,
-    the eager ring's data plane) are not ported with that plane."""
+    ``scope`` names what the channel carries ("ctl" control traffic,
+    "ring" the eager engine's data-plane links) — it selects which
+    channels the env-triggered network chaos hooks target
+    (elastic/fault.py, HOROVOD_FAULT_NET) and costs nothing when injection
+    is unarmed. ``send_bytes``/``recv_bytes`` move raw buffers (the eager
+    ring's chunks) under the same session key and sequence numbers."""
 
     def __init__(self, sock: socket.socket, key: bytes, server: bool,
                  scope: str = "ctl") -> None:
@@ -102,6 +101,11 @@ class Channel:
 
             if _fault_mod.net_fault_armed():
                 self._fault = _fault_mod
+        # Tracing IO hook: when set, every raw frame's wire time is reported
+        # as io_hook(direction, nbytes, t0_ns, t1_ns), direction "send" or
+        # "recv". Measured around the socket calls, because the eager ring
+        # sends from a queue and a thread. None costs one attribute check.
+        self.io_hook = None
         # Wire accounting (the telemetry and control trees): every frame's
         # full on-the-wire size (MAC + length word + payload, plus the
         # handshake) is tallied so services can report ingest/egress bytes.
@@ -210,6 +214,56 @@ class Channel:
         self._recv_seq += 1
         self.bytes_received += 32 + 8 + n
         return pickle.loads(payload)
+
+    # Raw-buffer frames: the eager ring's chunk bytes, whose shape and dtype
+    # follow from protocol position, so pickling them buys nothing. Same
+    # session key, sequence numbers and MAC, but a lower-case direction tag
+    # separates raw frames from pickled ones: a captured raw frame never
+    # authenticates where an object is expected, and raw frames are never
+    # unpickled.
+
+    def send_bytes(self, data) -> None:
+        view = memoryview(data).cast("B")
+        corrupt = False
+        if self._fault is not None:
+            action = self._inject_fault(len(view))
+            if action == "drop":
+                # Seq still advances, as in send().
+                self._send_seq += 1
+                return
+            corrupt = action == "corrupt"
+        mac = self._mac(self._send_dir.lower(), self._send_seq, view)
+        if corrupt:
+            mac = bytes([mac[0] ^ 0xFF]) + mac[1:]
+        self._send_seq += 1
+        hook = self.io_hook
+        t0 = time.monotonic_ns() if hook else 0
+        resilience.send_all(self.sock, mac + struct.pack("!Q", len(view)))
+        resilience.send_all(self.sock, view)
+        self.bytes_sent += 32 + 8 + len(view)
+        if hook:
+            hook("send", len(view), t0, time.monotonic_ns())
+
+    def recv_bytes(self) -> bytearray:
+        hook = self.io_hook
+        t0 = time.monotonic_ns() if hook else 0
+        digest = _recv_exact(self.sock, 32)
+        (n,) = struct.unpack("!Q", _recv_exact(self.sock, 8))
+        if n > MAX_PAYLOAD:
+            raise PermissionError(f"payload length {n} exceeds cap {MAX_PAYLOAD}")
+        payload = _recv_exact(self.sock, n)
+        if not hmac.compare_digest(
+                digest,
+                self._mac(self._recv_dir.lower(), self._recv_seq, payload)):
+            resilience.frames_rejected_counter().inc()
+            raise PermissionError(
+                "HMAC digest mismatch: unauthenticated, replayed, or "
+                "reordered message")
+        self._recv_seq += 1
+        self.bytes_received += 32 + 8 + n
+        if hook:
+            hook("recv", n, t0, time.monotonic_ns())
+        return payload
 
 class BasicService:
     """Threaded request/response TCP server (reference BasicService,

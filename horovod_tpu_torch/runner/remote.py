@@ -177,12 +177,13 @@ class RemoteSpawner:
         return None
 
     def start_control(self, root_addrs, ckpt_dir: str = "") -> None:
-        """Start each host's control-tree leader (ctrl.ControlAgent) BEFORE
-        :meth:`spawn`, so the agents can point worker env at it.
-        ``root_addrs`` is the driver service's address list; ``ckpt_dir``
-        exports that directory for checkpoint streaming. A leader that
-        fails to start only costs that host the tree (its workers keep the
-        flat path) — logged loudly, never fatal."""
+        """Start each host's control-tree leader (ctrl.ControlAgent), with
+        the eager engine's coordinator relay, BEFORE :meth:`spawn`, so the
+        agents can point worker env at both. ``root_addrs`` is the driver
+        service's address list; ``ckpt_dir`` exports that directory for
+        checkpoint streaming. A leader that fails to start only costs that
+        host the tree (its workers keep the flat path) — logged loudly,
+        never fatal."""
         from ..utils.logging import log
 
         for spec, client in zip(self.specs, self._clients):
@@ -192,7 +193,7 @@ class RemoteSpawner:
                 resp = client.request({
                     "kind": "ctrl", "cmd": "start", "job_id": self.job_id,
                     "root": [list(a) for a in root_addrs],
-                    "ckpt_dir": ckpt_dir})
+                    "relay": True, "ckpt_dir": ckpt_dir})
             except (ConnectionError, OSError) as e:
                 resp = {"ok": False, "error": str(e)}
             if not resp.get("ok"):

@@ -1,5 +1,5 @@
 """Horovod Timeline: Chrome-tracing (catapult) JSON of per-tensor
-collective phases, and ``trace(log_dir)``, the device pane of a step. The
+collective phases, and ``trace(log_dir)``, both panes of a step. The
 port of ``horovod_tpu/utils/timeline.py`` (``Timeline`` ``:32-160``,
 ``trace`` ``:167``).
 
@@ -14,10 +14,10 @@ drains the queue and closes the JSON array.
 
 ``trace(log_dir)`` records the device pane: a ``torch.profiler`` Chrome
 trace of everything in its scope (host ops, and the card's kernels where
-there is one) in ``<log_dir>/device_trace.json``. The JAX package also
-writes the eager engine's host timeline there (``host_timeline.json``)
-when an engine exposes ``timeline_start``; the port has no host engine
-yet, so its ``trace`` writes the device pane alone.
+there is one) in ``<log_dir>/device_trace.json``; and, when the eager
+engine is attached (``common/engine.py``), its host pane, this
+``Timeline`` of the engine's collectives, in
+``<log_dir>/host_timeline.json`` (rank 0 writes it).
 """
 
 from __future__ import annotations
@@ -32,6 +32,7 @@ import time
 import torch
 
 DEVICE_TRACE = "device_trace.json"
+HOST_TIMELINE = "host_timeline.json"
 
 
 class Timeline:
@@ -167,12 +168,18 @@ class Timeline:
 
 
 @contextlib.contextmanager
-def trace(log_dir: str):
-    """The device pane of "where did the step go": ``<log_dir>/
-    device_trace.json``, the ``torch.profiler`` Chrome trace of everything
-    in the scope (the card's kernels where there is one; open it with
-    Perfetto or chrome://tracing). The JAX package's ``trace`` also writes
-    the eager engine's host pane there; the port has no host engine yet.
+def trace(log_dir: str, mark_cycles: bool = False):
+    """Both panes of "where did the step go" in one directory:
+
+    - device pane: ``<log_dir>/device_trace.json``, the ``torch.profiler``
+      Chrome trace of everything in the scope (the card's kernels where
+      there is one; open it with Perfetto or chrome://tracing);
+    - host pane: ``<log_dir>/host_timeline.json``, the attached eager
+      engine's timeline of the same interval (``mark_cycles`` adds its
+      cycle markers). If the engine already writes one
+      (HOROVOD_TIMELINE), that file keeps recording and is left alone;
+      otherwise a timeline is attached for the scope (rank 0 writes, as
+      in the reference). Without an engine there is no host pane.
 
     Usage::
 
@@ -183,10 +190,21 @@ def trace(log_dir: str):
     """
     from torch.profiler import ProfilerActivity, profile
 
+    from ..common import basics
+
     os.makedirs(log_dir, exist_ok=True)
+    eng = basics._state.engine if basics.is_initialized() else None
+    owned = 0
+    if eng is not None:
+        owned = eng.timeline_start(os.path.join(log_dir, HOST_TIMELINE),
+                                   mark_cycles)
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities) as prof:
-        yield log_dir
-    prof.export_chrome_trace(os.path.join(log_dir, DEVICE_TRACE))
+    try:
+        with profile(activities=activities) as prof:
+            yield log_dir
+        prof.export_chrome_trace(os.path.join(log_dir, DEVICE_TRACE))
+    finally:
+        if owned:
+            eng.timeline_stop()

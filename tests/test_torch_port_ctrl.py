@@ -8,7 +8,8 @@ agent in front of its own package's driver; the straggler, removal,
 pass-through and no-root cases; the ``HostAgent``'s ``ctrl`` and
 ``telemetry`` hosting (idempotent, the first instance kept when starts
 race, stopped with the job, ``HOROVOD_CTRL_ADDRS`` injected into workers
-only when the leader has a root, the relay refused); and, end to end over
+only when the leader has a root, the engine relay started on request);
+and, end to end over
 gloo, ``run(fn, hosts=...)`` across fake hosts ``a:2,b:2`` with the tree
 on equal to the flat run, and ``run_elastic`` across the same fake hosts
 with a killed worker whose respawn rendezvouses through its host's leader.
@@ -23,6 +24,7 @@ import json
 import os
 import pickle
 import signal
+import socket
 import subprocess
 import sys
 import threading
@@ -360,12 +362,34 @@ def test_control_agent_without_root_errors_loudly():
 
 
 def test_relay_port_names_the_engine_item():
+    """``relay_port`` starts the engine coordinator relay once (the same
+    port again), keyed as a worker's engine keys its frames (the text of
+    HOROVOD_SECRET, the leader key's hex); a rank's hello and clock probe
+    pass through it to an engine coordinator; ``stop`` ends it."""
+    from horovod_tpu_torch.common.engine import (_Coordinator, _recv_msg,
+                                                 _send_msg)
+
+    key = KEY.hex().encode()
+    coord = _Coordinator(1, LOOP, 0, key=key)
+    coord.start()
     ca = pagent.ControlAgent(KEY)
     try:
-        with pytest.raises(NotImplementedError, match="queue A item 4"):
-            ca.relay_port()
+        assert not ca.relay_running()
+        port = ca.relay_port()
+        assert port > 0 and ca.relay_port() == port and ca.relay_running()
+        sock = socket.create_connection((LOOP, port), timeout=10)
+        _send_msg(sock, {"kind": "relay_hello", "rank": 0, "local": 1,
+                         "coord": [LOOP, coord.server.getsockname()[1]]},
+                  key)
+        assert _recv_msg(sock, key) == {"ok": 1}
+        _send_msg(sock, {"kind": "clock_probe", "rank": 0}, key)
+        assert _recv_msg(sock, key)["t"] > 0
+        _send_msg(sock, {"kind": "bye"}, key)
+        sock.close()
     finally:
         ca.stop()
+        coord.stop()
+    assert not ca.relay_running()
 
 
 def test_worker_addresses_prefers_ctrl(monkeypatch):
@@ -385,8 +409,8 @@ def test_worker_addresses_prefers_ctrl(monkeypatch):
 
 def test_host_agent_ctrl_cmd_idempotent():
     """``ctrl`` start is idempotent (same leader and port), keyed with the
-    derived job secret; a ``relay`` request is refused with the engine
-    item's error; job kill stops the leader."""
+    derived job secret; a ``relay`` request starts the leader's engine
+    relay and answers its port; job kill stops the leader."""
     from horovod_tpu_torch.runner.agent import HostAgent
 
     agent_secret = b"agent-secret-ctrl"
@@ -399,8 +423,8 @@ def test_host_agent_ctrl_cmd_idempotent():
         assert b["port"] == a["port"]
         r = client.request({"kind": "ctrl", "cmd": "start", "job_id": "j1",
                             "relay": True})
-        assert not r["ok"] and "NotImplementedError" in r["error"] \
-            and "queue A item 4" in r["error"]
+        assert r["ok"] and r["port"] == a["port"] and r["relay_port"] > 0
+        assert agent._ctrl["j1"].relay_port() == r["relay_port"]
         bad = client.request({"kind": "ctrl", "cmd": "bogus", "job_id": "j1"})
         assert not bad["ok"]
         job_secret = pnet.derive_key(agent_secret, b"hvd-job:j1")

@@ -24,7 +24,11 @@ respawned, against a run without a fault
 (tests/torch_port_elastic_worker.py); the same elastic training across
 two fake hosts of two cards each through the control tree's host leaders,
 against the run without a fault and the flat control plane (``-k
-ctrl_world``).
+ctrl_world``); the eager engine on four cards, one rank per card (``-k
+engine_world``): the eager MNIST example at ``-np 4`` and phase 27's
+engine worlds (tests/torch_port_engine_world_worker.py with ``init`` on
+the card), flat and through the control tree's relays, every result
+bitwise the canonical oracle, the engine's allreduce timed beside NCCL's.
 
 Needs an NVIDIA Hopper GPU and nvcc; elsewhere every test skips. Run on
 the card with (conftest.py imports jax, which the GPU machine need not
@@ -1214,3 +1218,93 @@ def test_ctrl_world_elastic_through_the_host_leaders(ctrl_world):
         (respawned,) = [r for r in results if r["generation"] == 2
                         and r["resumed_from"] == ELASTIC_FAULT_STEP]
         assert respawned["device"] == 1, label
+
+
+# -- the eager engine on four cards ------------------------------------------------
+
+@pytest.fixture(scope="module")
+def engine_world(tmp_path_factory):
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 or more CUDA devices")
+    import numpy as np
+    import torch_port_engine_world_worker as W
+
+    tmp = str(tmp_path_factory.mktemp("engine"))
+    env = dict(os.environ, MNIST_EPOCHS="2", MNIST_STEPS="8", PYTHONPATH=REPO)
+    for var in ("HOROVOD_DEVICE_ORDINAL", "CUDA_VISIBLE_DEVICES"):
+        env.pop(var, None)
+    subprocess.run(
+        [sys.executable, "-m", "horovod_tpu_torch.runner", "-np", "4", "--",
+         sys.executable, os.path.join(REPO, "examples", "torch_mnist_eager.py"),
+         "--dump", os.path.join(tmp, "mnist")],
+        env=env, cwd=REPO, check=True, timeout=900)
+    mnist = [dict(np.load(os.path.join(tmp, "mnist", f"rank{r}.npz")))
+             for r in range(4)]
+    base = {"T_DEVICE": "cuda"}
+    runs = {"ring": W.launch(os.path.join(tmp, "ring"),
+                             dict(base, T_TIMED="3", T_DIST="1"), timeout=900)}
+    secret = os.urandom(32)
+    hosts = [_fake_host("a", secret, "0,1"), _fake_host("b", secret, "2,3")]
+    try:
+        spec = ",".join(f"127.0.0.1@{port}:2" for _, port in hosts)
+        runs["relayed hier"] = W.launch(
+            os.path.join(tmp, "hier"),
+            dict(base, T_PLANES="hier"),
+            hosts=spec, secret=secret, timeout=900)
+    finally:
+        for proc, _ in hosts:
+            proc.terminate()
+        for proc, _ in hosts:
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+    cards = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout
+    return mnist, runs, cards
+
+
+def test_engine_world_on_four_cards(engine_world):
+    """The eager MNIST example at ``-np 4``, one rank per card: every
+    rank's final parameters bitwise equal, step 1's averaged leaves bitwise
+    ``_ring_order_reduce`` of the four local leaves, the loss falling; the
+    engine worlds with ``init`` on each rank's card: every result the
+    canonical oracle's (the grid order through the relays), 2 coordinator
+    connections through the relays against 4; the engine's 64 MiB
+    allreduce printed beside NCCL's."""
+    import statistics
+
+    import numpy as np
+    import torch_port_engine_world_worker as W
+
+    from horovod_tpu_torch.common.engine import _ring_order_reduce
+
+    mnist, runs, cards = engine_world
+    print(f"cards (name, power limit):\n{cards}")
+    params = [k for k in mnist[0] if k.startswith("param.")]
+    for k in params:
+        assert all(m[k].tobytes() == mnist[0][k].tobytes() for m in mnist), k
+    for k in [k for k in mnist[0] if k.startswith("avg.")]:
+        n = k[4:]
+        want = _ring_order_reduce([m["local." + n] for m in mnist], True)
+        assert all(m[k].tobytes() == want.tobytes() for m in mnist), k
+    losses = mnist[0]["losses"]
+    print(f"eager MNIST on 4 cards: losses {losses.tolist()}")
+    assert np.all(np.isfinite(losses)) and losses[-1] < losses[0]
+    oracle = W.oracle_digests(W.COMPS, W.STEPS, 4, W.sizes(W.ELEMS, W.SMALL),
+                              grids=(None, (2, 2)))
+    for label, grid, plane, conns in (("ring", None, "ring", 4),
+                                      ("relayed hier", (2, 2), "hier", 2)):
+        reports = runs[label]
+        W.hold(reports, plane, oracle[grid])
+        assert set(reports[0]["accepted"][plane].values()) == {conns}
+        for comp, secs in reports[0]["engine_s"][plane].items():
+            print(f"{label} {comp}: 64 MiB engine allreduce median "
+                  f"{statistics.median(secs) * 1e3:.1f} ms of {len(secs)}; "
+                  f"control bytes per exchange cold/cached "
+                  f"{reports[0]['ctrl_bytes_per_exchange'][plane][comp]}")
+        if "dist_s" in reports[0]:
+            d = reports[0]["dist_s"]
+            print(f"{d['backend']} allreduce of the same 64 MiB: median "
+                  f"{statistics.median(d['big']) * 1e3:.2f} ms")

@@ -534,8 +534,8 @@ def _start_agent(fake_host: str, secret: bytes):
 def test_remote_run_two_agents():
     """``run(fn, hosts=...)`` through two port agents standing in for two
     machines: 2 hosts x 2 slots, the topology and the collective right; the
-    agents host the telemetry and control-tree leaders, and refuse the
-    engine-coordinator relay the port does not have."""
+    agents host the telemetry and control-tree leaders, the latter with
+    its engine-coordinator relay on request."""
     from horovod_tpu_torch.runner import run
 
     secret = pnet.make_secret()
@@ -548,7 +548,8 @@ def test_remote_run_two_agents():
             assert c.request({"kind": kind, "cmd": "stop", "job_id": "j"})["ok"]
         resp = c.request({"kind": "ctrl", "cmd": "start", "job_id": "j",
                           "relay": True})
-        assert not resp["ok"] and "NotImplementedError" in resp["error"]
+        assert resp["ok"] and resp["relay_port"] > 0, resp
+        assert c.request({"kind": "ctrl", "cmd": "stop", "job_id": "j"})["ok"]
         c.close()
 
         def train_fn():

@@ -290,8 +290,8 @@ prints no result):
     with the tree, one request and one wait connection per host at the
     driver and each host's registrations in one ``host_register``; the
     driver's control bytes, tree against flat;
-27. the eager engine (``common/engine.py``: negotiated host collectives),
-    with the CPU model printed beside the card's line, since its times are
+27. the eager engine (``common/engine.py``: negotiated host collectives;
+    every world pins ``HOROVOD_ENGINE=python``), with the CPU model printed beside the card's line, since its times are
     host times: (a) ``examples/torch_mnist_eager.py`` under the launcher's
     CLI at ``-np 2``, both ranks on ``cuda:0`` (``HOROVOD_DEVICE_ORDINAL=0``;
     the example issues no ``torch.distributed`` collective), 2 epochs of
@@ -318,11 +318,30 @@ prints no result):
     its bits are not the flat ring's), and 2 control connections at the
     coordinator against (b)'s 4; each rank counts its attention-kernel
     launches, and no rank launches any;
-28. the ``{"kernels": [...]}`` line (all six kernels, each with its
-    launches on every path above; phases 10, 14, 25 and 27 run none of
-    them), then ``{"ok": true, ...}`` last.
+28. the native eager engine (``horovod_tpu_torch/cc``: the C++ core,
+    built from ``cc/src`` by g++ beside the two nvcc at the start, and
+    ``NativeEngine``), every world under ``HOROVOD_ENGINE=native!`` (no
+    fallback), with the CPU model, the card's line and ``/dev/shm``'s
+    size: (a) 27a's eager MNIST and its checks on the native engine, each
+    rank reporting ``NativeEngine``; (b) 27b's world on the ring
+    (``HOROVOD_FUSION_THRESHOLD=0`` in b and c: a fused bucket folds in
+    the bucket's chunk order, not each tensor's), with the
+    same-host shm links on (2 per rank) and off (``HOROVOD_SHM=0``): every
+    result's SHA-256 27b's oracle's, 3 synchronous 64 MiB allreduces per
+    wire, the cache hits, printed beside 27b's Python ring and gloo; (c)
+    the same world across fake hosts a:2 and b:2 on the flat ring and the
+    two-level plane (the grid oracle), and a ragged allgather flat and
+    two-stage (``hierarchical_allgather``), bitwise equal, each two-level
+    run's cross-host ring bytes (``hvd_ring_cross_bytes_sent``) below the
+    flat run's; (d) ``examples/torch_engine_benchmark.py`` at ``-np 4``,
+    float32 and bf16, 100 MB over 160 tensors, 3 steps: GB/s; each rank
+    counts its attention-kernel launches, and no rank launches any;
+29. the ``{"kernels": [...]}`` line (all six kernels, each with its
+    launches on every path above; phases 10, 14, 25, 27 and 28 run none
+    of them), then ``{"ok": true, ...}`` last.
 
-Both CUDA sources build at once, one nvcc each, at the start.
+Both CUDA sources build at once, one nvcc each, at the start, beside the
+native core's g++.
 """
 
 from __future__ import annotations
@@ -4798,9 +4817,14 @@ def cpu_model() -> str:
     return f"{name or platform.machine() or 'unknown CPU'}, {os.cpu_count()} cores"
 
 
-def eager_mnist(tmp, card, cpu, device="cuda") -> dict:
-    """27a: the eager MNIST example, two ranks on the one card; the
-    attention kernels' launches that its ranks counted."""
+ENGINE_CLASSES = {"python": "PyEngine", "native!": "NativeEngine"}
+
+
+def eager_mnist(tmp, card, cpu, device="cuda", engine="python",
+                label="27a") -> dict:
+    """27a (28a on the native engine): the eager MNIST example, two ranks
+    on the one card, on ``engine`` (HOROVOD_ENGINE); the attention
+    kernels' launches that its ranks counted."""
     from horovod_tpu_torch.common.engine import _ring_order_reduce
 
     import numpy as np
@@ -4808,6 +4832,7 @@ def eager_mnist(tmp, card, cpu, device="cuda") -> dict:
     root = os.path.dirname(os.path.abspath(__file__))
     dump, trace = os.path.join(tmp, "dump"), os.path.join(tmp, "trace")
     env = dict(launcher_env(), HOROVOD_DEVICE_ORDINAL="0",
+               HOROVOD_ENGINE=engine,
                MNIST_EPOCHS=str(EAGER_EPOCHS), MNIST_STEPS=str(EAGER_STEPS))
     t0 = time.perf_counter()
     subprocess.run([sys.executable, "-m", "horovod_tpu_torch.runner", "-np", "2",
@@ -4817,60 +4842,77 @@ def eager_mnist(tmp, card, cpu, device="cuda") -> dict:
                    env=env, cwd=root, check=True, timeout=600)
     secs = time.perf_counter() - t0
     d = [np.load(os.path.join(dump, f"rank{r}.npz")) for r in range(2)]
+    engines = [str(d[r]["engine"]) for r in range(2)]
+    if engines != [ENGINE_CLASSES[engine]] * 2:
+        raise AssertionError(f"{label}: the ranks ran {engines}, not "
+                             f"{ENGINE_CLASSES[engine]}")
     params = [k for k in d[0].files if k.startswith("param.")]
     grads = [k[4:] for k in d[0].files if k.startswith("avg.")]
     if not params or len(grads) != len(params):
-        raise AssertionError(f"27a: the dump lacks leaves: {d[0].files}")
+        raise AssertionError(f"{label}: the dump lacks leaves: {d[0].files}")
     for k in params:
         if d[0][k].tobytes() != d[1][k].tobytes():
-            raise AssertionError(f"27a: the ranks' {k} differ")
+            raise AssertionError(f"{label}: the ranks' {k} differ")
     for n in grads:
         want = _ring_order_reduce([d[0]["local." + n], d[1]["local." + n]], True)
         for r in range(2):
             if d[r]["avg." + n].tobytes() != want.tobytes():
-                raise AssertionError(f"27a: rank {r}'s averaged grad.{n} is not "
+                raise AssertionError(f"{label}: rank {r}'s averaged grad.{n} is not "
                                      "the canonical reduction")
     losses = [float(x) for x in d[0]["losses"]]
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
-        raise AssertionError(f"27a: losses {losses} not finite and falling")
+        raise AssertionError(f"{label}: losses {losses} not finite and falling")
     with open(os.path.join(trace, "host_timeline.json")) as f:
         names = {e["args"]["name"] for e in json.load(f) if e.get("ph") == "M"}
     missing = {f"grad.{n}" for n in grads} - names
     if missing:
-        raise AssertionError(f"27a: the host pane lacks {sorted(missing)}")
-    log(f"  (27a) eager MNIST, 2 ranks on cuda:0, {EAGER_EPOCHS} x {EAGER_STEPS} "
+        raise AssertionError(f"{label}: the host pane lacks {sorted(missing)}")
+    log(f"  ({label}) eager MNIST, 2 ranks on cuda:0, {EAGER_EPOCHS} x {EAGER_STEPS} "
         f"steps in {secs:.1f} s (launch to exit, beside (c)'s world): "
         f"losses {losses}; parameters bitwise equal across ranks; step 1's "
         f"{len(grads)} averaged leaves bitwise the canonical reduction; host "
-        f"pane {len(names)} names ({card}; host {cpu})")
+        f"pane {len(names)} names; every rank on {engines[0]} ({card}; host "
+        f"{cpu})")
     return {k: sum(int(d[r][f"launches.{k}"]) for r in range(2))
             for k in [*KERNELS, *RING_KERNELS]}
 
 
 def hold_orders(label, reports) -> None:
     if len({tuple(rep["order"]) for rep in reports}) != len(reports):
-        raise AssertionError(f"27 {label}: the ranks did not each submit in an "
+        raise AssertionError(f"{label}: the ranks did not each submit in an "
                              "order of their own")
 
 
-def report_world(W, label, reports, light, card, cpu) -> None:
+def report_world(W, label, reports, light, card, cpu, phase="27") -> None:
     r0 = reports[0]
     mib = W.ELEMS * 4 / 2 ** 20
     world = len(reports)
-    log(f"  (27) {label}: planes {list(r0['planes'])} x {len(W.COMPS)} wires x "
-        f"{W.STEPS} steps of {mib:.0f} MiB (under none only on {light}) + "
+    native = r0.get("engine") == "NativeEngine"
+    comps = list(next(iter(r0["planes"].values())))
+    log(f"  ({phase}) {label}: planes {list(r0['planes'])} x {len(comps)} wires x "
+        f"{W.STEPS} steps of {mib:.0f} MiB"
+        f"{f' (under none only on {light})' if light else ''} + "
         f"{W.SMALL} small tensors in {r0['_secs']:.1f} s (launch to exit), every "
         f"result the oracle's")
     for plane in r0["planes"]:
-        log(f"    {plane}: coordinator connections "
-            f"{sorted(set(r0['accepted'][plane].values()))}")
-        for comp in W.COMPS:
+        if native:
+            log(f"    {plane}: NativeEngine; shm links per rank "
+                f"{[rep['shm_links'][plane]['none'] for rep in reports]}; "
+                f"cross-host ring bytes, all ranks, under none "
+                f"{sum(rep['cross_bytes'][plane]['none'] for rep in reports)}")
+        else:
+            log(f"    {plane}: coordinator connections "
+                f"{sorted(set(r0['accepted'][plane].values()))}")
+        for comp in comps:
             (cold_b, cold_x), (hot_b, hot_x) = \
                 r0["ctrl_bytes_per_exchange"][plane][comp][:2]
             line = (f"      {comp}: control bytes per exchange cold "
                     f"{cold_b / max(cold_x, 1):.0f} B ({cold_x:.0f} exchanges), "
-                    f"cached {hot_b / max(hot_x, 1):.0f} B ({hot_x:.0f}); cache "
-                    f"hits {r0['hits'][plane][comp]}")
+                    f"cached {hot_b / max(hot_x, 1):.0f} B ({hot_x:.0f})"
+                    if not native else
+                    f"      {comp}: control bytes not measured (the native "
+                    f"core counts none)")
+            line += f"; cache hits {r0['hits'][plane][comp]}"
             secs = r0["engine_s"][plane].get(comp)
             if secs:
                 med = statistics.median(secs)
@@ -4892,11 +4934,13 @@ def report_world(W, label, reports, light, card, cpu) -> None:
     log(f"    ({card}; host {cpu})")
 
 
-def engine_phase(card, paths, device="cuda") -> None:
+def engine_phase(card, paths, device="cuda") -> tuple:
     """27a beside (c)'s world on the fake hosts (neither is timed), then
     (b)'s world alone, the ring timed. Each world runs two planes, and
     the big tensor under every wire on one of them. Each rank counts its
-    own attention-kernel launches; the sums are the paths' counts."""
+    own attention-kernel launches; the sums are the paths' counts. Every
+    world pins the Python engine (HOROVOD_ENGINE=python). Returns the
+    oracle's digests and (b)'s reports, which phase 28 reuses."""
     import secrets
     import tempfile
 
@@ -4917,12 +4961,13 @@ def engine_phase(card, paths, device="cuda") -> None:
             spec = ",".join(f"127.0.0.1@{p}:{n}"
                             for p, n in zip(ports, ENGINE_SLOTS))
             relayed = W.launch(os.path.join(tmp, "relayed"), {
-                "T_PLANES": "ring,hier", "T_LIGHT": "ring"}, world, spec, secret)
+                "HOROVOD_ENGINE": "python", "T_PLANES": "ring,hier",
+                "T_LIGHT": "ring"}, world, spec, secret)
         mnist_counts = mnist.result()
         log(f"  27a beside (c)'s world took {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         flat = W.launch(os.path.join(tmp, "flat"), {
-            "T_PLANES": "ring,star", "T_LIGHT": "star",
+            "HOROVOD_ENGINE": "python", "T_PLANES": "ring,star", "T_LIGHT": "star",
             "T_TIMED": str(ENGINE_TIMED), "T_DIST": "1"}, world)
         log(f"  (b)'s world took {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
@@ -4933,8 +4978,8 @@ def engine_phase(card, paths, device="cuda") -> None:
     W.hold(flat, "star", want[None], light=True)
     W.hold(relayed, "ring", want[None], light=True)
     W.hold(relayed, "hier", want[(2, 2)])
-    hold_orders("b", flat)
-    hold_orders("c", relayed)
+    hold_orders("27 b", flat)
+    hold_orders("27 c", relayed)
     conns = {(label, plane): set(reps[0]["accepted"][plane].values())
              for label, reps in (("b", flat), ("c", relayed))
              for plane in reps[0]["planes"]}
@@ -4953,6 +4998,168 @@ def engine_phase(card, paths, device="cuda") -> None:
         hold_counts(label, counts, {})
         paths[label] = counts
     log(f"  phase 27 took {time.perf_counter() - t_phase:.1f} s ({card}; host "
+        f"{cpu})")
+    return want, flat
+
+
+# -- phase 28: the native eager engine -------------------------------------------
+
+BENCH_DTYPES = ("f32", "bf16")
+BENCH_STEPS = 3
+# The shm=0 world runs the two wires whose cost is the link: the native
+# top-k selection takes seconds on the 64 MiB tensor on either link, and
+# the fp16 conversion is slower than the link (PERF.md §6), so neither is
+# timed and neither runs without shm.
+NATIVE_TIMED_COMPS = ("none", "bf16")
+
+
+def build_native() -> tuple:
+    """The native core built from horovod_tpu_torch/cc/src (g++, the flags
+    of cc/Makefile): its library and the seconds the build took here."""
+    from horovod_tpu_torch import cc
+
+    t0 = time.perf_counter()
+    built = os.path.exists(cc.library_path())
+    return cc.lib_path(), time.perf_counter() - t0, built
+
+
+def engine_benchmark() -> dict:
+    """28d: examples/torch_engine_benchmark.py at -np 4 on the native
+    engine, its default payload (100 MB over 160 tensors), each dtype of
+    BENCH_DTYPES in one world; {dtype: its JSON line}."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run(
+        [sys.executable, "-m", "horovod_tpu_torch.runner", "-np", "4", "--",
+         sys.executable, os.path.join(root, "examples",
+                                      "torch_engine_benchmark.py"),
+         "--dtype", ",".join(BENCH_DTYPES), "--steps", str(BENCH_STEPS)],
+        env=dict(launcher_env(), HOROVOD_ENGINE="native!"), cwd=root,
+        capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"28d: the benchmark exited {proc.returncode}:"
+                             f"\n{proc.stderr[-3000:]}")
+    lines = {ln["dtype"]: ln for ln in map(json.loads, (
+        t for t in proc.stdout.splitlines() if t.startswith("{")))}
+    if sorted(lines) != sorted(BENCH_DTYPES) or any(
+            ln["engine"] != "NativeEngine" or not ln["correct"]
+            for ln in lines.values()):
+        raise AssertionError(f"28d: {lines}")
+    return lines
+
+
+def hold_cross(label, flat: int, two: int) -> None:
+    if not 0 < two < flat:
+        raise AssertionError(f"{label}: cross-host bytes {two} two-level "
+                             f"against {flat} flat, not lower")
+
+
+def native_phase(card, paths, want, python_world, native, device="cuda") -> None:
+    """28: the native core on this host. (a) beside (c) on the fake hosts,
+    then (b)'s world with the shm links on and off, the ring timed, then
+    (d). Every world runs HOROVOD_ENGINE=native!: a failed build or init
+    fails the phase; nothing falls back to the Python engine. ``want`` is
+    phase 27's oracle; ``python_world`` its (b) reports (the Python ring's
+    and gloo's times, printed beside)."""
+    import secrets
+    import tempfile
+
+    from horovod_tpu_torch import cc
+
+    W = world_worker()
+    t_phase = time.perf_counter()
+    cpu = cpu_model()
+    lib, build_s, prebuilt = native
+    if cc.lib_path() != lib:
+        raise AssertionError(f"28: the library moved from {lib} to "
+                             f"{cc.lib_path()}")
+    st = os.statvfs("/dev/shm")
+    log(f"  host CPU: {cpu}; {card}")
+    log(f"  native core: {lib}, built from horovod_tpu_torch/cc/src in "
+        f"{build_s:.1f} s at the start of the run"
+        f"{' (found built)' if prebuilt else ''}; /dev/shm "
+        f"{st.f_blocks * st.f_frsize / 2 ** 30:.2f} GiB, "
+        f"{st.f_bavail * st.f_frsize / 2 ** 30:.2f} GiB free")
+    world = sum(ENGINE_SLOTS)
+    # The native core fuses the tensors that are ready in one cycle into a
+    # bucket and folds the bucket's ring chunks, so a fused tensor's
+    # elements fold from other ranks than its own chunks would; the oracle
+    # folds each tensor alone. b and c therefore fuse nothing; d fuses.
+    native_env = {"HOROVOD_ENGINE": "native!", "HOROVOD_FUSION_THRESHOLD": "0"}
+    with ThreadPoolExecutor(1) as pool, \
+            tempfile.TemporaryDirectory(prefix="chip_smoke_native_") as tmp:
+        t0 = time.perf_counter()
+        mnist = pool.submit(eager_mnist, tmp, card, cpu, device, "native!",
+                            "28a")
+        secret = secrets.token_bytes(32)
+        with fake_hosts(("a", "b"), secret) as ports:
+            spec = ",".join(f"127.0.0.1@{p}:{n}"
+                            for p, n in zip(ports, ENGINE_SLOTS))
+            hosts = W.launch(os.path.join(tmp, "hosts"), dict(
+                native_env, T_PLANES="ring,hier", T_LIGHT="ring",
+                T_GATHER="flat,hier"), world, spec, secret)
+        mnist_counts = mnist.result()
+        log(f"  28a beside (c)'s world took {time.perf_counter() - t0:.1f} s")
+        shm = {}
+        for on, comps in (("1", W.COMPS), ("0", NATIVE_TIMED_COMPS)):
+            t0 = time.perf_counter()
+            shm[on] = W.launch(os.path.join(tmp, f"shm{on}"), dict(
+                native_env, HOROVOD_SHM=on, T_PLANES="ring",
+                T_COMPS=",".join(comps), T_TIMED=str(ENGINE_TIMED),
+                T_TIMED_COMPS=",".join(NATIVE_TIMED_COMPS)), world)
+            log(f"  (b)'s world, HOROVOD_SHM={on}, took "
+                f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        bench = engine_benchmark()
+        log(f"  (d) took {time.perf_counter() - t0:.1f} s")
+    for on, reps in shm.items():
+        W.hold(reps, "ring", {c: want[None][c] for c in reps[0]["planes"]["ring"]})
+        hold_orders(f"28 b, HOROVOD_SHM={on}", reps)
+        links = [rep["shm_links"]["ring"][c] for rep in reps
+                 for c in rep["shm_links"]["ring"]]
+        if set(links) != {2 if on == "1" else 0}:
+            raise AssertionError(f"28 b: HOROVOD_SHM={on} gave shm links "
+                                 f"{links}")
+    W.hold(hosts, "ring", want[None], light=True)
+    W.hold(hosts, "hier", want[(2, 2)])
+    hold_orders("28 c", hosts)
+    cross = {p: sum(rep["cross_bytes"][p]["none"] for rep in hosts)
+             for p in ("ring", "hier")}
+    hold_cross("28 c allreduce", cross["ring"], cross["hier"])
+    gathers = [rep["gather"] for rep in hosts]
+    digests = {g[m]["digest"] for g in gathers for m in ("flat", "hier")}
+    if len(digests) != 1 or {g["hier"]["two_stage"] for g in gathers} != {1} \
+            or {g["flat"]["two_stage"] for g in gathers} != {0}:
+        raise AssertionError(f"28 c: the ragged allgathers {gathers}")
+    gcross = {m: sum(g[m]["cross_bytes"] for g in gathers)
+              for m in ("flat", "hier")}
+    hold_cross("28 c allgather", gcross["flat"], gcross["hier"])
+    for on, reps in shm.items():
+        report_world(W, f"(b) one host, ring, HOROVOD_SHM={on}", reps, "",
+                     card, cpu, phase="28")
+    report_world(W, "(b) of phase 27, the Python engine, ring and star, beside "
+                 "it", python_world, "star", card, cpu, phase="28")
+    report_world(W, "(c) fake hosts a:2,b:2, ring and two-level", hosts,
+                 "ring", card, cpu, phase="28")
+    rows = gathers[0]["flat"]["rows"]
+    log(f"  (28c) allreduce cross-host bytes under none, all ranks: two-level "
+        f"{cross['hier']} against flat {cross['ring']}; the ragged allgather "
+        f"({rows} rows of 4099 float32) two-stage bitwise the flat one, "
+        f"cross-host bytes {gcross['hier']} against {gcross['flat']}")
+    for dt, line in bench.items():
+        log(f"  (28d) engine benchmark, 4 ranks, {dt}: "
+            f"{line['payload_bytes'] / 1e6:.1f} MB x {line['tensors']} tensors, "
+            f"{line['ms_per_step']:.1f} ms/step, {line['gb_per_s']:.3f} GB/s "
+            f"per rank ({line['steps']} steps; shm links "
+            f"{line['shm_links']}; {card}; host {cpu})")
+    runs = {"28a: eager MNIST on the native engine": mnist_counts,
+            "28b/c: native engine worlds (host tensors)": {
+                k: sum(rep["launches"][k] for reps in (*shm.values(), hosts)
+                       for rep in reps)
+                for k in [*KERNELS, *RING_KERNELS]}}
+    for label, counts in runs.items():
+        hold_counts(label, counts, {})
+        paths[label] = counts
+    log(f"  phase 28 took {time.perf_counter() - t_phase:.1f} s ({card}; host "
         f"{cpu})")
 
 
@@ -4986,10 +5193,14 @@ def main() -> int:
     log(f"[1] device: {card}")
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(SOURCES)) as pool:
+    with ThreadPoolExecutor(len(SOURCES) + 1) as pool:
+        native = pool.submit(build_native)
         list(pool.map(_build.build, SOURCES))
-    log(f"[2] kernels built in {time.perf_counter() - t0:.1f} s "
-        f"({', '.join(SOURCES)}, one nvcc each, at once)")
+        log(f"[2] kernels built in {time.perf_counter() - t0:.1f} s "
+            f"({', '.join(SOURCES)}, one nvcc each, at once)")
+        native = native.result()
+    log(f"  the native eager engine's core (g++, beside them) in "
+        f"{native[1]:.1f} s: {native[0]}")
     compiled = check_compiled(_build.build)
     errs = None
     timing_inputs = None
@@ -5184,7 +5395,16 @@ def main() -> int:
         f"tree's relays, every wire, cold and cached")
     gc.collect()
     torch.cuda.empty_cache()
-    engine_phase(card, paths)
+    oracle, python_world = engine_phase(card, paths)
+
+    log(f"[28] the native eager engine (horovod_tpu_torch/cc): eager MNIST "
+        f"with two ranks on the card; 4-process host worlds "
+        f"({W.ELEMS * 4 >> 20} MiB + {W.SMALL} small tensors) with the shm "
+        f"links on and off, and across fake hosts on the ring and two-level "
+        f"planes with the two-stage allgather, every wire, cold and cached; "
+        f"the engine benchmark")
+    native_phase(card, paths, oracle, python_world, native)
+    del oracle, python_world
 
     kernels = []
     for source, names in SOURCES.items():

@@ -2,9 +2,11 @@
 ``examples/jax_mnist_eager.py`` (the reference's tensorflow_mnist_eager:
 per-step allreduces of eagerly computed gradients).
 
-"Eager" means the negotiated host engine (``common/engine.py``:
-coordinator negotiation by name, the response cache, the ring or star
-plane, the timeline) instead of the NCCL collectives of
+"Eager" means the negotiated host engine (the native C++ core,
+``cc/native_engine.py``, by default, or the Python engine of
+``common/engine.py`` under ``HOROVOD_ENGINE=python``: coordinator
+negotiation by name, the response cache, the ring or star plane, the
+timeline) instead of the NCCL collectives of
 ``DistributedOptimizer``: each rank computes its gradients with the port's
 ``ConvNet`` on its device, copies them to the host, enqueues one async
 allreduce per leaf, and waits for them in one ``synchronize`` sweep. The
@@ -17,8 +19,8 @@ one card (``HOROVOD_DEVICE_ORDINAL=0``)::
 
 ``--device cpu`` runs off the card; ``--dump DIR`` writes each rank's
 step-1 local and averaged gradient leaves, its final parameters, its
-epoch losses and the attention kernels' launch counts (``launches.<kernel>``;
-the ConvNet runs none) to ``DIR/rank<r>.npz``; ``--trace DIR`` records rank 0's
+epoch losses, the engine's class name (``engine``) and the attention
+kernels' launch counts (``launches.<kernel>``; the ConvNet runs none) to ``DIR/rank<r>.npz``; ``--trace DIR`` records rank 0's
 steps under ``utils.timeline.trace`` (the device pane and the engine's
 host pane, ``host_timeline.json``). ``MNIST_EPOCHS`` and ``MNIST_STEPS``
 set the length (3 epochs of 8 steps).
@@ -113,7 +115,8 @@ def main(argv=None):
                 epoch_loss / STEPS, name=f"loss.ep{epoch}"))[0])
             losses.append(mean_loss)
             if rank == 0:
-                print(f"epoch {epoch}: loss {mean_loss:.4f} (eager engine, "
+                print(f"epoch {epoch}: loss {mean_loss:.4f} "
+                      f"({type(engine).__name__}, "
                       f"averaged over {size} ranks)", flush=True)
         if dev.type == "cuda":
             torch.cuda.synchronize()
@@ -124,7 +127,8 @@ def main(argv=None):
         for k, n in {**flash_attention.launches, **ring_flash.launches}.items():
             dump[f"launches.{k}"] = np.int64(n)
         np.savez(os.path.join(args.dump, f"rank{rank}.npz"),
-                 losses=np.array(losses), **dump)
+                 losses=np.array(losses), engine=type(engine).__name__,
+                 **dump)
     hvd.shutdown()
 
 

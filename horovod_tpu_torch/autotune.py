@@ -35,19 +35,27 @@ Counterparts: ``Measurement``/``TuneReport`` (``:47``, ``:73``),
 ``measure_steps_per_s`` (``:111``), ``_expected_improvement`` (``:136``),
 ``_ei_suggest`` (``:146``), ``_ei_suggest_joint`` (``:178``), ``tune``
 (``:230``) and ``OnlineTuner`` (``:392``).
+
+The native core's own tuner is here too, as in ``horovod_tpu.autotune``:
+``ParameterManager`` (the eager engine embeds one under
+``HOROVOD_AUTOTUNE=1``; this is the same object over ctypes) and
+``gp_fit_predict``, the native ``GaussianProcess``. ``tune`` uses the
+Python GP of ``autotune_gp``, which needs no build.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 import sys
 import time
 from dataclasses import dataclass, field
 from typing import Callable, Optional, Sequence
 
+import numpy as np
 import torch
 
-from .autotune_gp import gp_fit_predict
+from . import autotune_gp
 
 # The coarse seed grid of fusion thresholds, 1 to 256 MiB.
 DEFAULT_THRESHOLDS = (1 << 20, 4 << 20, 16 << 20, 64 << 20, 256 << 20)
@@ -183,7 +191,7 @@ def _ei_suggest(measured: dict[int, float], lo: int, hi: int) -> Optional[int]:
         if any(abs(math.log2(t) - mx) < 0.14 for mx in xs):
             continue
         try:
-            mu, sigma = gp_fit_predict(X, yn, [x])
+            mu, sigma = autotune_gp.gp_fit_predict(X, yn, [x])
         except RuntimeError:
             return None
         ei = _expected_improvement(mu, sigma, best)
@@ -232,7 +240,7 @@ def _ei_suggest_joint(measured: dict[tuple[int, int], float],
                    for p in X):
                 continue
             try:
-                mu, sigma = gp_fit_predict(X, yn, q)
+                mu, sigma = autotune_gp.gp_fit_predict(X, yn, q)
             except RuntimeError:
                 return None
             ei = _expected_improvement(mu, sigma, best)
@@ -451,3 +459,151 @@ class OnlineTuner:
         if th is None or (th, nb) in self.measured:
             return None
         return (int(th), int(nb))
+
+
+# ---------------------------------------------- the native core's tuner
+
+def _lib():
+    from .cc import lib_path
+
+    lib = ctypes.CDLL(lib_path())
+    lib.hvd_pm_create.restype = ctypes.c_void_p
+    lib.hvd_pm_create.argtypes = [ctypes.c_longlong, ctypes.c_double,
+                                  ctypes.c_int, ctypes.c_int]
+    lib.hvd_pm_destroy.argtypes = [ctypes.c_void_p]
+    lib.hvd_pm_update.restype = ctypes.c_int
+    lib.hvd_pm_update.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_double]
+    lib.hvd_pm_active.restype = ctypes.c_int
+    lib.hvd_pm_active.argtypes = [ctypes.c_void_p]
+    lib.hvd_pm_fusion_threshold.restype = ctypes.c_longlong
+    lib.hvd_pm_fusion_threshold.argtypes = [ctypes.c_void_p]
+    lib.hvd_pm_cycle_time_ms.restype = ctypes.c_double
+    lib.hvd_pm_cycle_time_ms.argtypes = [ctypes.c_void_p]
+    lib.hvd_pm_set_log.argtypes = [ctypes.c_void_p, ctypes.c_char_p]
+    lib.hvd_pm_set_hierarchy.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                         ctypes.c_int, ctypes.c_int,
+                                         ctypes.c_int]
+    lib.hvd_pm_enable_hierarchy.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                            ctypes.c_int]
+    lib.hvd_pm_hier_allreduce.restype = ctypes.c_int
+    lib.hvd_pm_hier_allreduce.argtypes = [ctypes.c_void_p]
+    lib.hvd_pm_hier_allgather.restype = ctypes.c_int
+    lib.hvd_pm_hier_allgather.argtypes = [ctypes.c_void_p]
+    lib.hvd_pm_set_num_buckets.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                           ctypes.c_int]
+    lib.hvd_pm_num_buckets.restype = ctypes.c_int
+    lib.hvd_pm_num_buckets.argtypes = [ctypes.c_void_p]
+    lib.hvd_gp_fit_predict.restype = ctypes.c_int
+    lib.hvd_gp_fit_predict.argtypes = [
+        ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_double),
+        ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_double),
+        ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_double),
+    ]
+    return lib
+
+
+def gp_fit_predict(X: Sequence[Sequence[float]], y: Sequence[float],
+                   xstar: Sequence[float]) -> tuple[float, float]:
+    """Fit the native GP and predict (mu, sigma) at ``xstar``."""
+    lib = _lib()
+    Xa = np.ascontiguousarray(X, dtype=np.float64)
+    ya = np.ascontiguousarray(y, dtype=np.float64)
+    xs = np.ascontiguousarray(xstar, dtype=np.float64)
+    mu = ctypes.c_double()
+    sigma = ctypes.c_double()
+    rc = lib.hvd_gp_fit_predict(
+        Xa.shape[0], Xa.shape[1],
+        Xa.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+        ya.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+        xs.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+        ctypes.byref(mu), ctypes.byref(sigma),
+    )
+    if rc != 0:
+        raise RuntimeError("GP fit failed (matrix not positive definite?)")
+    return mu.value, sigma.value
+
+
+class ParameterManager:
+    """Tunes (fusion_threshold, cycle_time_ms) from throughput samples;
+    pass ``num_buckets`` to open the overlap scheduler's bucket-count
+    dimension and search (fusion_threshold, num_buckets) jointly."""
+
+    def __init__(self, fusion_threshold: int = 64 << 20,
+                 cycle_time_ms: float = 5.0,
+                 threshold_pinned: bool = False, cycle_pinned: bool = False,
+                 num_buckets: Optional[int] = None,
+                 num_buckets_pinned: bool = False,
+                 log_path: Optional[str] = None) -> None:
+        self._lib = _lib()
+        self._h = self._lib.hvd_pm_create(
+            fusion_threshold, cycle_time_ms, int(threshold_pinned),
+            int(cycle_pinned))
+        if num_buckets is not None:
+            self._lib.hvd_pm_set_num_buckets(self._h, int(num_buckets),
+                                             int(num_buckets_pinned))
+        if log_path:
+            self._lib.hvd_pm_set_log(self._h, log_path.encode())
+
+    def update(self, bytes_moved: int, seconds: float) -> bool:
+        """Record one sample; returns True when the knobs changed."""
+        return bool(self._lib.hvd_pm_update(self._h, bytes_moved, seconds))
+
+    @property
+    def active(self) -> bool:
+        return bool(self._lib.hvd_pm_active(self._h))
+
+    @property
+    def fusion_threshold(self) -> int:
+        return int(self._lib.hvd_pm_fusion_threshold(self._h))
+
+    @property
+    def cycle_time_ms(self) -> float:
+        return float(self._lib.hvd_pm_cycle_time_ms(self._h))
+
+    @property
+    def num_buckets(self) -> int:
+        return int(self._lib.hvd_pm_num_buckets(self._h))
+
+    def set_num_buckets(self, num_buckets: int, pinned: bool = False) -> None:
+        """Seed the overlap scheduler's bucket count and open (default) or
+        pin its joint search dimension."""
+        self._lib.hvd_pm_set_num_buckets(self._h, int(num_buckets),
+                                         int(pinned))
+
+    def set_hierarchy(self, allreduce_on: bool, allgather_on: bool,
+                      allreduce_pinned: bool = False,
+                      allgather_pinned: bool = False) -> None:
+        """Seed the categorical hierarchical knobs (and optionally pin them
+        out of the search), mirroring the env-seeded values the eager
+        engine's embedded manager starts from."""
+        self._lib.hvd_pm_set_hierarchy(
+            self._h, int(allreduce_on), int(allgather_on),
+            int(allreduce_pinned), int(allgather_pinned))
+
+    def enable_hierarchy(self, allreduce_capable: bool = True,
+                         allgather_capable: bool = True) -> None:
+        """Open the categorical hierarchical dimensions for exploration
+        (reference parameter_manager.h:172 tunes the same flags). Only
+        meaningful on a multi-host topology; the eager engine's embedded
+        manager calls this automatically after registration."""
+        self._lib.hvd_pm_enable_hierarchy(
+            self._h, int(allreduce_capable), int(allgather_capable))
+
+    @property
+    def hier_allreduce(self) -> bool:
+        return bool(self._lib.hvd_pm_hier_allreduce(self._h))
+
+    @property
+    def hier_allgather(self) -> bool:
+        return bool(self._lib.hvd_pm_hier_allgather(self._h))
+
+    def close(self) -> None:
+        if self._h:
+            self._lib.hvd_pm_destroy(self._h)
+            self._h = None
+
+    def __del__(self):  # pragma: no cover
+        try:
+            self.close()
+        except Exception:
+            pass

@@ -31,11 +31,13 @@ off), so the reset path can abort the communicators itself
 (``shutdown(abort=True)``). The layouts a reset cannot carry refuse to
 build there (``require_not_elastic``).
 
-``engine()`` attaches the eager engine (``common/engine.py``) on first use,
-as the JAX package's does: the negotiated host collectives of numpy values
-and CPU tensors (``hvd.allreduce(np_array)``, ``mpi_ops``). Its rank-0
-coordinator binds a port the kernel picks and publishes ``host:port``
-through this world's store (``StoreRendezvous``), since
+``engine()`` attaches the eager engine on first use, as the JAX package's
+does: the native core (``cc/native_engine.py``) by default, the Python
+engine (``common/engine.py``) under ``HOROVOD_ENGINE=python``
+(``engine.create`` decides); the negotiated host collectives of numpy
+values and CPU tensors (``hvd.allreduce(np_array)``, ``mpi_ops``). Its
+rank-0 coordinator binds a port the kernel picks and publishes
+``host:port`` through this world's store (``StoreRendezvous``), since
 ``HOROVOD_COORD_ADDR`` is the store's own address; a sub-world's engine
 spans the sub-world. ``shutdown`` (``abort=True`` too) shuts it down.
 

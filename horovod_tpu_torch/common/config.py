@@ -6,8 +6,10 @@ the hierarchical ladder's switch and DCN-tier bucket cap, the sharded
 layout, the latency-hiding switch, the elastic switch, the stall
 watchdog's times (the shutdown time also bounds a collective's wait
 under the elastic switch), the tracing and metrics exposition knobs, and
-the eager engine's (``common/engine.py``: cycle time, timeline, response
-cache, ring plane, error feedback, top-k ratio), with the same env knobs
+the eager engines' (``common/engine.py`` and the native core,
+``cc/native_engine.py``: cycle time, timeline, response cache, ring plane,
+error feedback, top-k ratio, the same-host shm links, the engine-embedded
+autotuner and the knobs the environment pinned), with the same env knobs
 and the same defaults, so one env var tunes both packages the same way.
 The engine's cache, ring and compression fields read the env also when a
 ``Config`` is built directly, as the JAX package's do. Three knobs are read where the JAX package's compiled plane
@@ -96,6 +98,23 @@ def env_dcn_compression() -> str:
     return os.environ.get("HOROVOD_DCN_COMPRESSION", "").lower()
 
 
+def clamp_shm_bytes(v: int) -> int:
+    """Mirror of the native clamp (shm_ring.h shm_ring_capacity): power of
+    two in [64 KiB, 1 GiB], so config() reports the EFFECTIVE capacity."""
+    v = max(1 << 16, min(int(v), 1 << 30))
+    p = 1
+    while p * 2 <= v:
+        p *= 2
+    return p
+
+
+# The knobs whose explicit setting pins them: the native engine's autotuner
+# leaves a pinned knob as it is.
+PINNABLE = ("HOROVOD_FUSION_THRESHOLD", "HOROVOD_NUM_BUCKETS",
+            "HOROVOD_CYCLE_TIME", "HOROVOD_HIERARCHICAL_ALLREDUCE",
+            "HOROVOD_HIERARCHICAL_ALLGATHER")
+
+
 @dataclass
 class Config:
     fusion_threshold: int = DEFAULT_FUSION_THRESHOLD    # HOROVOD_FUSION_THRESHOLD
@@ -136,8 +155,8 @@ class Config:
     cycle_time_ms: float = DEFAULT_CYCLE_TIME_MS        # HOROVOD_CYCLE_TIME
     timeline: str = ""                                  # HOROVOD_TIMELINE
     timeline_mark_cycles: bool = False                  # HOROVOD_TIMELINE_MARK_CYCLES
-    # Warned about and run flat: the two-stage allgather is the native
-    # engine's.
+    # The two-stage allgather: the native engine runs it; the Python engine
+    # warns and runs the allgather flat.
     hierarchical_allgather: bool = False                # HOROVOD_HIERARCHICAL_ALLGATHER
     cache_capacity: int = field(                        # HOROVOD_CACHE_CAPACITY (0 disables)
         default_factory=lambda: max(
@@ -151,9 +170,24 @@ class Config:
     topk_ratio: float = field(                          # HOROVOD_TOPK_RATIO
         default_factory=lambda: _env_float("HOROVOD_TOPK_RATIO", 0.0))
 
+    # Shared-memory data plane for same-host ring links of the native engine
+    # (cc/src/shm_ring.h). The native binding exports these into the env
+    # right before engine init; env-aware defaults, so that a Config built
+    # directly honours HOROVOD_SHM=0 from the launcher env.
+    shm: bool = field(                                  # HOROVOD_SHM (0 disables)
+        default_factory=lambda: _env_bool("HOROVOD_SHM", True))
+    shm_bytes: int = field(                             # HOROVOD_SHM_BYTES
+        default_factory=lambda: clamp_shm_bytes(
+            _env_int("HOROVOD_SHM_BYTES", 16 << 20)))
+    # The native engine's embedded autotuner (cc/src/autotuner.h).
+    autotune: bool = False                              # HOROVOD_AUTOTUNE
+    autotune_log: str = ""                              # HOROVOD_AUTOTUNE_LOG
+    # Which of PINNABLE the environment set: the autotuner leaves them.
+    pinned: set = field(default_factory=set)
+
     @classmethod
     def from_env(cls) -> "Config":
-        return cls(
+        cfg = cls(
             fusion_threshold=_env_int("HOROVOD_FUSION_THRESHOLD",
                                       DEFAULT_FUSION_THRESHOLD),
             num_buckets=max(1, _env_int("HOROVOD_NUM_BUCKETS",
@@ -181,4 +215,9 @@ class Config:
             timeline_mark_cycles=_env_bool("HOROVOD_TIMELINE_MARK_CYCLES"),
             hierarchical_allgather=_env_bool(
                 "HOROVOD_HIERARCHICAL_ALLGATHER"),
+            autotune=_env_bool("HOROVOD_AUTOTUNE"),
+            autotune_log=os.environ.get("HOROVOD_AUTOTUNE_LOG", ""),
         )
+        cfg.pinned.update(v for v in PINNABLE
+                          if os.environ.get(v) not in (None, ""))
+        return cfg

@@ -1338,7 +1338,7 @@ class PyEngine:
             log("warning",
                 "HOROVOD_HIERARCHICAL_ALLGATHER is implemented by the "
                 "native engine only; the Python engine runs flat "
-                "allgathers (the native engine is not ported yet)")
+                "allgathers (set HOROVOD_ENGINE=native to honor the knob)")
         self.handles = HandleManager()
         self._shutdown = threading.Event()
         self._wake = threading.Event()   # wake-on-enqueue (adaptive cycle)
@@ -3693,24 +3693,34 @@ class _Client:
 
 
 def create(topo: Topology, config: Config, **kw):
-    """Build the eager engine: :class:`PyEngine`, with ``kw`` passed on.
+    """Factory: the native C++ engine when it builds, the Python engine
+    otherwise; ``kw`` (``rendezvous``, ``watchdog``) goes to either.
 
-    ``HOROVOD_ENGINE`` unset or ``python``, or ``HOROVOD_NATIVE_DATA_PLANE=0``,
-    builds it. ``native`` and ``native!`` ask for the JAX package's C++
-    engine, which is not ported yet: they raise ``NotImplementedError`` on
-    every rank rather than fall back, since ranks that chose differently
-    could not talk."""
+    ``HOROVOD_ENGINE=python`` forces the Python engine; ``native`` (the
+    default) tries the native one first; ``native!`` raises instead of
+    falling back. In multi-process worlds the fallback is NOT silent: the
+    two engines speak different wire protocols, so a mixed world would
+    hang; every rank must make the same choice, hence a failed build raises
+    there. ``HOROVOD_NATIVE_DATA_PLANE=0`` is the other spelling of the
+    Python engine; an explicit ``HOROVOD_ENGINE`` wins when both are set."""
     impl = (os.environ.get("HOROVOD_ENGINE") or "").lower()
-    if impl in ("native", "native!"):
-        raise NotImplementedError(NATIVE_NOT_PORTED)
-    if impl not in ("", "python"):
-        log("warning", f"unknown HOROVOD_ENGINE={impl!r}; using 'python'")
+    if not impl:
+        ndp = os.environ.get("HOROVOD_NATIVE_DATA_PLANE", "1")
+        impl = "python" if ndp in ("0", "false") else "native"
+    if impl not in ("native", "native!", "python"):
+        log("warning", f"unknown HOROVOD_ENGINE={impl!r}; using 'native'")
+        impl = "native"
+    if impl.startswith("native"):
+        try:
+            from ..cc.native_engine import NativeEngine
+
+            return NativeEngine(topo, config, **kw)
+        except Exception as e:
+            if impl == "native!" or topo.size > 1:
+                raise HorovodInternalError(
+                    f"native engine unavailable ({e}); in multi-process worlds "
+                    "all ranks must use the same engine — fix the native build "
+                    "or set HOROVOD_ENGINE=python on every rank"
+                ) from e
+            log("debug", f"native engine unavailable ({e}); using Python engine")
     return PyEngine(topo, config, **kw)
-
-
-#: Why ``create`` refuses HOROVOD_ENGINE=native.
-NATIVE_NOT_PORTED = (
-    "HOROVOD_ENGINE=native asks for the native C++ eager engine "
-    "(horovod_tpu/cc), which horovod_tpu_torch has not ported yet "
-    "(ROADMAP.md queue A item 4, its native-engine slice); unset HOROVOD_ENGINE or set it "
-    "to 'python' on every rank")

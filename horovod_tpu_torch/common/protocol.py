@@ -8,8 +8,8 @@ function:
   ``WIRE_FORMATS``, the field orders of the native control messages, the
   response cache's signature facets, and ``COORD_WIRE_KINDS``, the
   coordinator's dispatch alphabet that ``ctrl/relay.py`` checks itself
-  against. They equal the JAX package's tables entry by entry, so that the
-  native engine, when it is ported, reads the same contract.
+  against. They equal the JAX package's tables entry by entry: the two
+  packages' native engines speak one wire.
 - **Canonical reduction semantics**: :func:`chunk_bounds`,
   :func:`fold_start`, :func:`reduce_plan`. Chunk c folds contributions in
   ring order from rank (c+1) % world; the accumulator runs at the payload's
@@ -18,14 +18,17 @@ function:
 - **The state machine**: :class:`Machine`, a pure validator of
   negotiation/cache/demote transition traces.
 
-The JAX package also checks these tables against ``docs/protocol_spec.json``,
-which is extracted from its native C++ core (``verify_spec``); that check
-comes with the native engine's port.
+:func:`verify_spec` checks these tables against ``protocol_spec.json``
+beside this module, the spec machine-extracted from the port's own C++ core
+(``cc/src``) and engines by ``tools/analyze/protocol.py``'s ``extract``,
+and names the first divergent entry.
 """
 
 from __future__ import annotations
 
-from typing import Iterable
+import json
+import os
+from typing import Iterable, Optional
 
 import numpy as np
 
@@ -83,6 +86,72 @@ COORD_WIRE_KINDS = ["exchange", "batch_exchange", "ring_hello",
                     "ring_confirm", "batch_ring_hello",
                     "batch_ring_confirm", "relay_hello", "peer_lost",
                     "plane_fault", "knob_change", "clock_probe", "bye"]
+
+SPEC_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "protocol_spec.json")
+
+
+def load_spec(path: Optional[str] = None) -> dict:
+    with open(path or SPEC_PATH, encoding="utf-8") as f:
+        return json.load(f)
+
+
+def verify_spec(spec: Optional[dict] = None,
+                path: Optional[str] = None) -> list[str]:
+    """Check this module against the machine-extracted protocol spec.
+
+    Returns a list of human-readable mismatch strings (empty = conformant),
+    each naming the first divergent entry of its table."""
+    if spec is None:
+        spec = load_spec(path)
+    native = spec.get("native", {})
+    py = spec.get("python", {})
+    out: list[str] = []
+
+    def _pair(what: str, theirs, mine) -> None:
+        """``theirs``: the spec's entry; ``mine``: this module's."""
+        if mine == theirs:
+            return
+        if isinstance(mine, list) and isinstance(theirs, list):
+            for i, (a, b) in enumerate(zip(mine, theirs)):
+                if a != b:
+                    out.append(f"{what}[{i}]: protocol.py has {a!r}, "
+                               f"spec has {b!r}")
+                    return
+            out.append(f"{what}: length {len(mine)} (protocol.py) != "
+                       f"{len(theirs)} (spec)")
+            return
+        out.append(f"{what}: protocol.py has {mine!r}, spec has {theirs!r}")
+
+    enums = native.get("enums", {})
+    _pair("OpType", {k.lower(): v for k, v in
+                     enums.get("OpType", {}).items()}, OPS)
+    _pair("DataType-count", len(enums.get("DataType", {})), len(DTYPES))
+    _pair("StatusNames",
+          {int(k): v for k, v in py.get("status_names", {}).items()},
+          STATUS_NAMES)
+    msgs = native.get("messages", {})
+    _pair("Request.wire_order",
+          msgs.get("Request", {}).get("wire_order", []), REQUEST_WIRE_ORDER)
+    _pair("TickRequest.wire_order",
+          msgs.get("TickRequest", {}).get("wire_order", []), TICK_WIRE_ORDER)
+    _pair("ResponseList.wire_order",
+          msgs.get("ResponseList", {}).get("wire_order", []),
+          RESPONSE_LIST_WIRE_ORDER)
+    _pair("native cache_key", native.get("cache_key_fields", []),
+          NATIVE_CACHE_KEY_FIELDS)
+    _pair("python request_key", py.get("request_key_fields", []),
+          PY_REQUEST_KEY_FIELDS)
+    _pair("python request fields", py.get("request_fields", []),
+          PY_REQUEST_FIELDS)
+    _pair("python optional request fields",
+          py.get("request_optional_fields", []), PY_REQUEST_OPTIONAL_FIELDS)
+    _pair("python dtypes", py.get("dtypes", []), DTYPES)
+    _pair("python ops", py.get("ops", {}), OPS)
+    _pair("coordinator wire kinds", py.get("coord_wire_kinds", []),
+          COORD_WIRE_KINDS)
+    return out
+
 
 # ------------------------------------------- canonical reduction semantics
 

@@ -47,29 +47,39 @@ def _library_path(source: str) -> str:
     return os.path.join(BUILD_DIR, f"{stem}-{digest.hexdigest()[:16]}.so")
 
 
-def build(source: str) -> str:
-    """Compile ``csrc/<source>`` unless its library is cached; return the
-    library's path. Processes that build at once wait on a file lock; the
-    compiler's resource report goes to ``<library>.log``."""
-    out = _library_path(source)
+def build_locked(out: str, command, error=RuntimeError) -> str:
+    """Make ``out`` with ``command(tmp)`` (an argv that writes ``tmp``)
+    unless it exists; return ``out``. Processes that build at once wait on a
+    file lock beside ``out``, so one builds and the rest load its result;
+    the compiler's output goes to ``<out>.log``. A failed build raises
+    ``error``."""
     if os.path.exists(out):
         return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    os.makedirs(os.path.dirname(out), exist_ok=True)
     with open(out + ".lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if not os.path.exists(out):
             tmp = f"{out}.{os.getpid()}.tmp"
-            proc = subprocess.run(
-                [nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, source)],
-                capture_output=True, text=True)
+            argv = command(tmp)
+            proc = subprocess.run(argv, capture_output=True, text=True)
             with open(out + ".log", "w") as log:
                 log.write(proc.stdout + proc.stderr)
             if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed on {source} ({proc.returncode}):\n"
-                    f"{proc.stderr[-4000:]}")
+                raise error(
+                    f"{argv[0]} failed on {os.path.basename(out)} "
+                    f"({proc.returncode}):\n{proc.stderr[-4000:]}")
             os.replace(tmp, out)
     return out
+
+
+def build(source: str) -> str:
+    """Compile ``csrc/<source>`` unless its library is cached; return the
+    library's path (``build_locked``: one process builds, the compiler's
+    resource report goes to ``<library>.log``)."""
+    return build_locked(
+        _library_path(source),
+        lambda tmp: [nvcc(), *NVCC_FLAGS, "-o", tmp,
+                     os.path.join(CSRC, source)])
 
 
 def load(source: str) -> ctypes.CDLL:

@@ -65,12 +65,24 @@ def _probe_gpus() -> str:
 
 def check_build() -> int:
     """Report what this installation supports (reference
-    `horovodrun --check-build`): torch and its backends, the port's CUDA
-    kernels' build, and the visible GPUs."""
+    `horovodrun --check-build`): the native eager engine (built here if it
+    is not yet), torch and its backends, the port's CUDA kernels' build,
+    and the visible GPUs."""
     import torch
     import torch.distributed as dist
 
     print("horovod_tpu_torch build check")
+    native_err = ""
+    try:
+        from ..cc import lib_path
+
+        native = f"yes ({lib_path()})"  # builds the core if needed
+    except Exception as e:  # noqa: BLE001 - report, don't crash
+        native = "NO"
+        native_err = f"    ({type(e).__name__}: {e})"
+    print(f"  native eager engine (C++): {native}")
+    if native_err:
+        print(native_err)
     print(f"  torch: {torch.__version__}")
     print(f"  CUDA: {'yes (' + torch.version.cuda + ')' if torch.version.cuda else 'NO'}"
           f" (available: {'yes' if torch.cuda.is_available() else 'NO'})")

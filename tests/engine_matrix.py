@@ -20,12 +20,13 @@ WORKER = open(os.path.join(REPO, "tests",
 
 
 def matrix_world(comp: str, plane: str, pkg="horovod_tpu_torch",
-                 per_rank_pkg=None, extra=None, per_rank_env=None
-                 ) -> list[dict]:
+                 per_rank_pkg=None, extra=None, per_rank_env=None,
+                 engine="python") -> list[dict]:
     """Every rank's output of one world: ``plane`` is ring, star or hier
     (2 fake hosts of 2 ranks); ``per_rank_pkg`` maps rank -> package for a
-    mixed world; ``per_rank_env`` adds env per rank."""
-    env = {"HOROVOD_ENGINE": "python", "T_PKG": pkg, "T_COMP": comp,
+    mixed world; ``per_rank_env`` adds env per rank; ``engine`` is every
+    rank's ``HOROVOD_ENGINE``."""
+    env = {"HOROVOD_ENGINE": engine, "T_PKG": pkg, "T_COMP": comp,
            "T_ELEMS": str(ELEMS), "T_STEPS": str(STEPS),
            "HOROVOD_COMPRESSION": comp, "JAX_PLATFORMS": "cpu",
            "HOROVOD_RING_DATA_PLANE": "0" if plane == "star" else "1"}

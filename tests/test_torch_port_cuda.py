@@ -1230,7 +1230,8 @@ def engine_world(tmp_path_factory):
     import torch_port_engine_world_worker as W
 
     tmp = str(tmp_path_factory.mktemp("engine"))
-    env = dict(os.environ, MNIST_EPOCHS="2", MNIST_STEPS="8", PYTHONPATH=REPO)
+    env = dict(os.environ, MNIST_EPOCHS="2", MNIST_STEPS="8", PYTHONPATH=REPO,
+               HOROVOD_ENGINE="python")
     for var in ("HOROVOD_DEVICE_ORDINAL", "CUDA_VISIBLE_DEVICES"):
         env.pop(var, None)
     subprocess.run(

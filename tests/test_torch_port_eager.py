@@ -5,21 +5,22 @@
   ``basics.engine().run`` with the JAX package's name, ``root_rank`` and
   averaging arguments, and return numpy; a ``torch.Tensor`` keeps the
   ``torch.distributed`` path and never reaches the engine;
-- ``basics.engine()`` attaches once per world and ``shutdown`` ends it;
-  ``HOROVOD_ENGINE=native`` raises ``NotImplementedError`` there too; a
-  sub-world of ``init(comm=[0, 2])`` gets an engine over its members only;
-- ``TrainingController(engine=...)`` commits a wire change through
-  ``set_knobs``, and every rank of a launched world adopts it (the knob
+- ``basics.engine()`` attaches once per world and ``shutdown`` ends it
+  (the Python engine, ``HOROVOD_ENGINE=python``); under
+  ``HOROVOD_ENGINE=native!`` it attaches the native engine, and
+  ``reset_engine`` builds a new one; a sub-world of ``init(comm=[0, 2])`` gets an engine over its members only;
+- ``TrainingController(engine=...)`` commits a wire change through the
+  Python engine's ``set_knobs``, and every rank of a launched world adopts it (the knob
   epoch and table), the next allreduce bitwise the bf16 oracle of the JAX
   package;
 - an elastic reset with the same members (``run_elastic``, one rank
-  raising ``HorovodInternalError``) rebuilds the engine: the next
+  raising ``HorovodInternalError``) rebuilds the Python engine: the next
   generation runs on a new engine whose cache starts cold, and the job
   ends with the total of a run with no fault;
 - ``utils.timeline.trace`` writes the engine's host pane
   (``host_timeline.json``) beside the device pane;
 - ``examples/torch_mnist_eager.py`` under the launcher at ``-np 2`` on the
-  CPU: every rank's final parameters bitwise equal, step 1's averaged
+  CPU, on the Python engine: every rank's final parameters bitwise equal, step 1's averaged
   gradient leaves bitwise ``_ring_order_reduce`` of the two ranks' local
   leaves, a falling loss.
 Tolerance: none."""
@@ -45,9 +46,9 @@ WORKER_PATH = os.pathsep.join([os.path.join(REPO, "tests"), REPO])
 @pytest.fixture()
 def world_of_one(monkeypatch):
     for k in ("HOROVOD_RANK", "HOROVOD_SIZE", "RANK", "WORLD_SIZE",
-              "MASTER_ADDR", "MASTER_PORT", "HOROVOD_COORD_ADDR",
-              "HOROVOD_ENGINE"):
+              "MASTER_ADDR", "MASTER_PORT", "HOROVOD_COORD_ADDR"):
         monkeypatch.delenv(k, raising=False)
+    monkeypatch.setenv("HOROVOD_ENGINE", "python")
     monkeypatch.setenv("HOROVOD_STALL_CHECK_DISABLE", "1")
     hvd.init(device="cpu")
     yield
@@ -98,10 +99,18 @@ def test_engine_attaches_once_and_shutdown_ends_it(world_of_one):
     assert eng._shutdown.is_set() and not eng._thread.is_alive()
 
 
-def test_native_engine_refused_through_basics(world_of_one, monkeypatch):
+def test_native_engine_attaches_through_basics(world_of_one, monkeypatch):
+    from horovod_tpu_torch.cc.native_engine import NativeEngine
+
     monkeypatch.setenv("HOROVOD_ENGINE", "native!")
-    with pytest.raises(NotImplementedError, match="queue A item 4"):
-        basics.engine()
+    eng = basics.engine()
+    assert isinstance(eng, NativeEngine) and basics.engine() is eng
+    out = hvd.allreduce(np.arange(3.0), name="x")
+    assert isinstance(out, np.ndarray) and out.tolist() == [0.0, 1.0, 2.0]
+    basics.reset_engine()
+    again = basics.engine()
+    assert isinstance(again, NativeEngine) and again is not eng
+    assert hvd.allgather(np.ones((2, 2)), name="y").shape == (2, 2)
 
 
 SUBWORLD_SCRIPT = r"""
@@ -163,7 +172,7 @@ def test_training_controller_sets_the_wire_world_wide():
     from horovod_tpu.common.engine import _ring_order_reduce
 
     outs = [r["out"] for r in launch_world(3, KNOB_SCRIPT, extra_env={
-        "HOROVOD_STALL_CHECK_DISABLE": "1"})]
+        "HOROVOD_ENGINE": "python", "HOROVOD_STALL_CHECK_DISABLE": "1"})]
     assert [(o["before"], o["after"], o["epoch"]) for o in outs] == \
         [("none", "bf16", 1)] * 3
     wd = np.dtype(ml_dtypes.bfloat16)
@@ -181,7 +190,7 @@ def test_elastic_reset_rebuilds_the_engine(tmp_path):
     from horovod_tpu_torch.runner import run_elastic
 
     env = {"PYTHONPATH": WORKER_PATH, "HOROVOD_STALL_CHECK_TIME": "1",
-           "HOROVOD_STALL_SHUTDOWN_TIME": "5"}
+           "HOROVOD_STALL_SHUTDOWN_TIME": "5", "HOROVOD_ENGINE": "python"}
     steps = 5
     results = run_elastic(worker.engine_train, args=(steps,),
                           kwargs={"raise_at": (1, 3)}, num_proc=2,
@@ -214,7 +223,8 @@ def test_eager_mnist_example_on_the_cpu(tmp_path):
     from horovod_tpu_torch.common.engine import _ring_order_reduce
 
     env = dict(os.environ, MNIST_EPOCHS="2", MNIST_STEPS="4",
-               PYTHONPATH=REPO, HOROVOD_STALL_CHECK_DISABLE="1")
+               PYTHONPATH=REPO, HOROVOD_STALL_CHECK_DISABLE="1",
+               HOROVOD_ENGINE="python")
     subprocess.run(
         [sys.executable, "-m", "horovod_tpu_torch.runner", "-np", "2", "--",
          sys.executable, os.path.join(REPO, "examples", "torch_mnist_eager.py"),

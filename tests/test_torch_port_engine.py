@@ -12,8 +12,9 @@ same numpy inputs:
   in one package and in the two mixed worlds (the JAX ``_Coordinator``
   serving the port's ``_Client``s, and the other way round), and every
   world's results equal the all-JAX world's bitwise;
-- ``create``: ``HOROVOD_ENGINE=native``/``native!`` raise
-  ``NotImplementedError`` naming the roadmap item, never fall back;
+- ``create``: the native engine (``cc/native_engine.py``) by default and
+  under ``HOROVOD_ENGINE=native``/``native!`` (any case); the Python
+  engine under ``HOROVOD_ENGINE=python`` or ``HOROVOD_NATIVE_DATA_PLANE=0``;
 - bfloat16 without ``ml_dtypes``: ``compression.cast`` rounds a grid of
   edge values (ties, subnormals, the overflow to inf, ±inf, NaN of both
   signs) bitwise as ``ml_dtypes`` does, from float32 and float64; and a
@@ -258,15 +259,27 @@ def test_coordinator_rejects_unauthenticated_frames():
         coord.stop()
 
 
-@pytest.mark.parametrize("impl", ["native", "native!", "NATIVE"])
-def test_create_refuses_the_native_engine(impl, monkeypatch):
-    monkeypatch.setenv("HOROVOD_ENGINE", impl)
-    with pytest.raises(NotImplementedError, match="queue A item 4"):
-        P.create(PTopology(0, 1, 0, 1, 0, 1), PConfig(cycle_time_ms=1.0))
+@pytest.mark.parametrize("env", [{"HOROVOD_ENGINE": "native"},
+                                 {"HOROVOD_ENGINE": "native!"},
+                                 {"HOROVOD_ENGINE": "NATIVE"}, {}])
+def test_create_builds_the_native_engine(env, monkeypatch):
+    from horovod_tpu_torch.cc.native_engine import NativeEngine
+
+    monkeypatch.delenv("HOROVOD_ENGINE", raising=False)
+    monkeypatch.delenv("HOROVOD_NATIVE_DATA_PLANE", raising=False)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    eng = P.create(PTopology(0, 1, 0, 1, 0, 1), PConfig(cycle_time_ms=1.0))
+    try:
+        assert isinstance(eng, NativeEngine)
+        assert eng.run("allreduce", np.arange(3.0), "x").tolist() == \
+            [0.0, 1.0, 2.0]
+    finally:
+        eng.shutdown()
 
 
 @pytest.mark.parametrize("env", [{"HOROVOD_ENGINE": "python"},
-                                 {"HOROVOD_NATIVE_DATA_PLANE": "0"}, {}])
+                                 {"HOROVOD_NATIVE_DATA_PLANE": "0"}])
 def test_create_builds_the_python_engine(env, monkeypatch):
     monkeypatch.delenv("HOROVOD_ENGINE", raising=False)
     for k, v in env.items():

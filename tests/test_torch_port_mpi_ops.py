@@ -5,7 +5,8 @@ in-place allreduce (average and sum; float32, float64, int32, bfloat16),
 the ragged allgather, broadcast and its in-place form, alltoall,
 reducescatter, poll/synchronize, the sparse allreduce, the fp16
 compression, and the autograd Functions' forward and backward — and every
-result's bytes, dtype and shape are equal. A tensor not on the CPU is
+result's bytes, dtype and shape are equal, over the Python engines and over
+the two packages' native engines. A tensor not on the CPU is
 refused with a message naming the NCCL collectives. Tolerance: none."""
 
 from __future__ import annotations
@@ -71,18 +72,26 @@ hvd.shutdown()
 """
 
 
-def _world(pkg):
+def _world(pkg, engine="python"):
     return [r["out"] for r in launch_world(2, SCRIPT, extra_env={
-        "T_PKG": pkg, "HOROVOD_ENGINE": "python", "JAX_PLATFORMS": "cpu",
+        "T_PKG": pkg, "HOROVOD_ENGINE": engine, "JAX_PLATFORMS": "cpu",
         "HOROVOD_STALL_CHECK_DISABLE": "1"})]
 
 
-def test_mpi_ops_equal_the_jax_binding():
-    port, ref = _world("horovod_tpu_torch"), _world("horovod_tpu")
+def _same(port, ref):
     for r in range(2):
         assert sorted(port[r]) == sorted(ref[r])
         for k in ref[r]:
             assert port[r][k] == ref[r][k], (r, k)
+
+
+def test_mpi_ops_equal_the_jax_binding():
+    _same(_world("horovod_tpu_torch"), _world("horovod_tpu"))
+
+
+def test_mpi_ops_over_the_native_engine_equal_the_jax_binding():
+    _same(_world("horovod_tpu_torch", "native!"),
+          _world("horovod_tpu", "native!"))
 
 
 def test_tensor_off_the_cpu_is_refused():

@@ -8,7 +8,8 @@ allreduce of a numpy array through ``hvd.allreduce`` (the engine),
 committed every step; ``raise_at=(rank, step)`` makes that rank raise
 ``HorovodInternalError`` once before that step (a reset with the same
 members). It returns, per generation entered, the id of the engine the
-world used and the mirror's hits at its first step, and the final total.
+world used (its id and class) and the mirror's hits at its first step, and
+the final total.
 """
 
 from __future__ import annotations
@@ -22,13 +23,15 @@ def engine_train(steps: int, raise_at=None) -> dict:
 
     hvd.init("cpu")
     state = hvd.elastic.ElasticState(step=0, total=0.0)
-    seen = []
+    seen, engines = [], []
     injected = []
 
     @hvd.elastic.run
     def train(state):
         eng = basics.engine()
-        entry = {"engine": id(eng), "hits_before": None}
+        engines.append(eng)          # alive, so that no id is reused
+        entry = {"engine": id(eng), "hits_before": None,
+                 "class": type(eng).__name__}
         seen.append(entry)
         while state.step < steps:
             if raise_at is not None and not injected \

@@ -4,10 +4,14 @@ seeded float32 payloads allreduced under names ``g.0``/``g.1`` (the third
 step reuses ``g.0``, so it negotiates through the response cache), the
 digest of every result printed as one JSON line.
 
-``T_PKG`` picks the package (``horovod_tpu_torch`` or ``horovod_tpu``, the
-latter forced to its Python engine), so that one script drives the port,
-the JAX package and mixed worlds; ``T_COMP``, ``T_HIER``, ``T_LOCAL``,
-``T_ELEMS`` and ``T_STEPS`` set the wire, the plane and the sizes.
+``T_PKG`` picks the package (``horovod_tpu_torch`` or ``horovod_tpu``),
+and ``HOROVOD_ENGINE`` the engine of either, so that one script drives the
+port, the JAX package and mixed worlds; ``T_COMP``, ``T_HIER``, ``T_LOCAL``
+(ranks per fake host), ``T_ELEMS`` and ``T_STEPS`` set the wire, the plane
+and the sizes. ``T_GATHER=1`` adds a ragged allgather (rank r gives r + 1
+rows) under ``HOROVOD_HIERARCHICAL_ALLGATHER``'s setting (``T_HIER_AG``),
+whose digest and cross-host bytes are reported. A native engine also
+reports its shm links and cross-host ring bytes.
 """
 
 import hashlib
@@ -33,7 +37,8 @@ topo = (Topology(rank, world, rank % lsz, lsz, rank // lsz, world // lsz)
 eng = create(topo, Config(
     cycle_time_ms=1.0, stall_check_disable=True,
     compression=os.environ.get("T_COMP", "none"),
-    hierarchical_allreduce=os.environ.get("T_HIER", "0") == "1"))
+    hierarchical_allreduce=os.environ.get("T_HIER", "0") == "1",
+    hierarchical_allgather=os.environ.get("T_HIER_AG", "0") == "1"))
 try:
     elems = int(os.environ["T_ELEMS"])
     steps = int(os.environ["T_STEPS"])
@@ -46,9 +51,25 @@ try:
         digest.update(np.ascontiguousarray(out).tobytes())
     stats = eng.cache_stats()
     coord = getattr(eng, "_coord", None)
-    print(json.dumps({"rank": rank, "hash": digest.hexdigest(),
-                      "plane": stats.get("plane", "?"),
-                      "hits": (stats.get("mirror") or {}).get("hits", 0),
-                      "accepted": getattr(coord, "accepted", None)}))
+    native = eng.stats() if type(eng).__name__ == "NativeEngine" else {}
+    report = {"rank": rank, "hash": digest.hexdigest(),
+              "plane": stats.get("plane", "?"),
+              "hits": (stats.get("mirror") or {}).get("hits", 0),
+              "accepted": getattr(coord, "accepted", None),
+              "engine": type(eng).__name__,
+              "shm_links": native.get("shm_links"),
+              "cross_bytes": native.get("ring_cross_bytes_sent")}
+    if os.environ.get("T_GATHER") == "1":
+        rows = np.random.default_rng([29, rank]).standard_normal(
+            (rank + 1, 1031)).astype(np.float32)
+        out = eng.run("allgather", rows, "gather")
+        after = eng.stats() if native else {}
+        report["gather"] = {
+            "hash": hashlib.sha256(np.ascontiguousarray(out).tobytes())
+            .hexdigest(), "shape": list(out.shape),
+            "hier": after.get("hier_allgather"),
+            "cross_bytes": after.get("ring_cross_bytes_sent", 0)
+            - native.get("ring_cross_bytes_sent", 0)}
+    print(json.dumps(report))
 finally:
     eng.shutdown()

@@ -21,12 +21,19 @@ to ``OUT_DIR/rank<r>.json``, by plane and wire, with the engine's plane,
 the cache hits, the control bytes per exchange of each step, the
 coordinator's accepted connections (rank 0) and, on the ring plane with
 ``T_TIMED`` > 0, the seconds of ``T_TIMED`` synchronous allreduces of the
-big tensor on the engine; with ``T_DIST=1``, the seconds of
+big tensor on the engine (under the wires of ``T_TIMED_COMPS``, default
+every wire); with ``T_DIST=1``, the seconds of
 ``torch.distributed``'s allreduce of the same tensors on the world's
 backend (gloo on the CPU, NCCL on the card: ``T_DEVICE``, default
 ``cpu``, is ``init``'s device; the engine serves host arrays either way);
 and the attention kernels' launches in the rank (``launches``; the engine
-runs none). Payloads are made by :func:`payload` from a seed, so that
+runs none). The engine is ``HOROVOD_ENGINE``'s, ``python`` unless the
+caller's env names another; a native engine's reports add its class, its
+shm links and its cross-host ring bytes by plane and wire, and with
+``T_GATHER`` (comma-separated from ``flat`` and ``hier``) a ragged
+allgather (rank r gives 3 + r rows) on a fresh engine with
+``hierarchical_allgather`` off or on: its digest, whether the engine ran it
+in two stages, and its cross-host bytes. Payloads are made by :func:`payload` from a seed, so that
 :func:`oracle_digests` rebuilds every rank's and reduces them in the
 canonical order (``common.engine._ring_order_reduce``), with the engine's
 enqueue-time quantization, top-k selection and error feedback.
@@ -156,7 +163,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _env(env: dict) -> dict:
-    return {"PYTHONPATH": REPO, "T_COMPS": ",".join(COMPS),
+    return {"PYTHONPATH": REPO, "HOROVOD_ENGINE": "python",
+            "T_COMPS": ",".join(COMPS),
             "T_ELEMS": str(ELEMS), "T_SMALL": str(SMALL), "T_STEPS": str(STEPS),
             **env}
 
@@ -233,18 +241,19 @@ def main(out_dir: str) -> int:
     comps = os.environ.get("T_COMPS", "none").split(",")
     steps = int(os.environ.get("T_STEPS", "2"))
     timed = int(os.environ.get("T_TIMED", "0"))
+    timed_comps = os.environ.get("T_TIMED_COMPS", "").split(",")
     shape = sizes(int(os.environ["T_ELEMS"]), int(os.environ.get("T_SMALL", "32")))
     order = list(shape)
     np.random.default_rng(1000 + rank).shuffle(order)   # this rank's order
     reg = registry()
     report = {"rank": rank, "order": order, "digests": {}, "planes": {},
               "hits": {}, "ctrl_bytes_per_exchange": {}, "accepted": {},
-              "engine_s": {}}
+              "engine_s": {}, "shm_links": {}, "cross_bytes": {}}
     made = [{n: payload(step, n, rank, shape[n]) for n in order}
             for step in range(steps)]
     for plane in planes:
         for key in ("digests", "planes", "hits", "ctrl_bytes_per_exchange",
-                    "accepted", "engine_s"):
+                    "accepted", "engine_s", "shm_links", "cross_bytes"):
             report[key][plane] = {}
         cfg = basics.config()
         cfg.ring_data_plane = plane != "star"
@@ -277,7 +286,14 @@ def main(out_dir: str) -> int:
             report["ctrl_bytes_per_exchange"][plane][comp] = ctrl
             coord = getattr(eng, "_coord", None)
             report["accepted"][plane][comp] = getattr(coord, "accepted", None)
-            if timed and plane == "ring":
+            report["engine"] = type(eng).__name__
+            if report["engine"] == "NativeEngine":
+                st = eng.stats()
+                report["shm_links"][plane][comp] = st["shm_links"]
+                report["cross_bytes"][plane][comp] = \
+                    st["ring_cross_bytes_sent"]
+            if timed and plane == "ring" and (comp in timed_comps
+                                              or timed_comps == [""]):
                 big = made[0]["big"]
                 secs = []
                 for _ in range(timed):
@@ -285,6 +301,25 @@ def main(out_dir: str) -> int:
                     eng.run("allreduce", big, "big.timed")
                     secs.append(time.perf_counter() - t0)
                 report["engine_s"][plane][comp] = secs
+    gathers = [g for g in os.environ.get("T_GATHER", "").split(",") if g]
+    if gathers:
+        report["gather"] = {}
+        cfg = basics.config()
+        cfg.compression, cfg.hierarchical_allreduce = "none", False
+        rows = np.random.default_rng([29, rank]).standard_normal(
+            (3 + rank, 4099)).astype(np.float32)
+        for mode in gathers:
+            basics.reset_engine()
+            cfg.hierarchical_allgather = mode == "hier"
+            eng = basics.engine()
+            st0 = eng.stats()
+            out = eng.run("allgather", rows, f"gather.{mode}")
+            st1 = eng.stats()
+            report["gather"][mode] = {
+                "digest": digest(out), "rows": int(out.shape[0]),
+                "two_stage": st1["hier_allgather"],
+                "cross_bytes": st1["ring_cross_bytes_sent"]
+                - st0["ring_cross_bytes_sent"]}
     if os.environ.get("T_DIST") == "1":
         import torch.distributed as dist
 

@@ -210,7 +210,7 @@ prints no result):
     chip_smoke.py --launched-worker ...`` (``run_command``, the CLI's
     path): the worker's ``init()`` from the launcher's env and 3 steps of
     the same model, its losses bit-equal to the first 3, its B1-B3
-    launches, the seconds from the launch to its exit; (b)
+    launches, the seconds from the launch to its exit, run beside (b); (b)
     ``run_elastic(num_proc=1)`` of ``elastic_worker``: the model, its
     ``DistributedOptimizer`` and ``step`` in an
     ``ElasticState(checkpoint_dir=...)`` with a checkpoint every 3rd
@@ -326,19 +326,46 @@ prints no result):
     rank reporting ``NativeEngine``; (b) 27b's world on the ring
     (``HOROVOD_FUSION_THRESHOLD=0`` in b and c: a fused bucket folds in
     the bucket's chunk order, not each tensor's), with the
-    same-host shm links on (2 per rank) and off (``HOROVOD_SHM=0``): every
-    result's SHA-256 27b's oracle's, 3 synchronous 64 MiB allreduces per
-    wire, the cache hits, printed beside 27b's Python ring and gloo; (c)
+    same-host shm links on (2 per rank; the big tensor under none only,
+    the small ones under every wire) and off (``HOROVOD_SHM=0``, none and
+    bf16): every result's SHA-256 27b's oracle's, 3 synchronous 64 MiB
+    allreduces under none and bf16, the cache hits, printed beside 27b's Python ring and gloo; (c)
     the same world across fake hosts a:2 and b:2 on the flat ring and the
-    two-level plane (the grid oracle), and a ragged allgather flat and
+    two-level plane (the grid oracle; the big tensor under none only on
+    both, the small ones under every wire), and a ragged allgather flat and
     two-stage (``hierarchical_allgather``), bitwise equal, each two-level
     run's cross-host ring bytes (``hvd_ring_cross_bytes_sent``) below the
     flat run's; (d) ``examples/torch_engine_benchmark.py`` at ``-np 4``,
     float32 and bf16, 100 MB over 160 tensors, 3 steps: GB/s; each rank
     counts its attention-kernel launches, and no rank launches any;
-29. the ``{"kernels": [...]}`` line (all six kernels, each with its
-    launches on every path above; phases 10, 14, 25, 27 and 28 run none
-    of them), then ``{"ok": true, ...}`` last.
+29. the real-data input path at full width (``train_cnn`` fed from a
+    ``DeviceCache``; ResNet-50, 224 x 224 x 3, 128 images, bf16
+    channels-last): a 4,096-image uint8 dataset written by
+    ``examples/torch_realdata_benchmark.py``'s ``ensure_dataset`` and its
+    shard on the card (616,562,688 B); the input layer alone (the cache's
+    draw on the card, CUDA events; the stream's host gather and its upload
+    with the cast, host clock); (a) ``train_cnn.make_cnn_scan_loop``, K = 4:
+    warm-up, capture, 2 dispatches against 8 eager cache steps from the
+    same weights on the same draws, every loss, parameter, momentum buffer
+    and BatchNorm statistic within 1e-6 relative (bit-equality expected and
+    reported), no attention kernel launched; (b) the example's ``--json``
+    in this process, all four modes (synthetic, stream, device-cache,
+    device-cache-scan): img/s and the gaps, every loss finite (the example
+    fails on one that is not), the JSON keys the JAX example's;
+30. ``examples/torch_scaling_benchmark.py`` in a process of its own, every
+    section: (a) native-engine worlds of 2/4/8 on this host (16 dropped
+    above the host's 8 CPUs, and named), every rank's buffer of ones
+    reduced to exactly the world; the two-level ring at 8 (4 + 4), its
+    worst rank's cross-host bytes strictly below flat's; (b) the
+    ``DistributedOptimizer`` step of a 2-layer TransformerLM over gloo in
+    worlds of 1/2/4 processes and over NCCL in a world of 1 (2 and 4
+    reported not run on one card), 1 against 2 processes through
+    ``run_command``, ``num_buckets`` 1 against 2/4/8 on gloo world 4; (c)
+    the H100 projection fed phase 10's measured step; every worker counts
+    its own attention-kernel launches: none;
+31. the ``{"kernels": [...]}`` line (all six kernels, each with its
+    launches on every path above; phases 10, 14, 25, 27, 28, 29 and 30 run
+    none of them), then ``{"ok": true, ...}`` last.
 
 Both CUDA sources build at once, one nvcc each, at the start, beside the
 native core's g++.
@@ -3202,10 +3229,10 @@ def launcher_env() -> dict:
     return env
 
 
-def launched_run(config, tmp, want_losses, card, paths, check_build) -> None:
+def launched_run(config, tmp, want_losses, card, paths, check_build,
+                 env) -> None:
     """23a: ``--check-build``'s output (``check_build``, a running
-    process), then one worker through the CLI."""
-    env = launcher_env()
+    process), then one worker through the CLI, with ``env``."""
     stdout, stderr = check_build.communicate(timeout=300)
     if check_build.returncode != 0:
         raise AssertionError(f"--check-build failed:\n{stderr[-3000:]}")
@@ -3259,7 +3286,10 @@ def elastic_run(torch, config, tmp, want_losses, want_params, card,
                  "HOROVOD_FAULT_INJECT_INDEX": "0",
                  "HOROVOD_ELASTIC_BLACKLIST_THRESHOLD": "2",
                  "HOROVOD_CKPT_ASYNC": "0",
-                 "HOROVOD_ELASTIC_EVENT_LOG": events})
+                 "HOROVOD_ELASTIC_EVENT_LOG": events,
+                 # The jiterator's kernel cache lives under HOME: without
+                 # it each worker compiles erfinv for the init again.
+                 **{k: saved[k] for k in ("HOME",) if k in saved}})
     finally:
         os.environ.clear()
         os.environ.update(saved)
@@ -3338,9 +3368,14 @@ def launcher_phase(torch, fa, rf, basics, train_mod, card, paths,
         basics.shutdown()
         gc.collect()
         torch.cuda.empty_cache()
-        with tempfile.TemporaryDirectory() as tmp:
-            launched_run(config, tmp, losses, card, paths, check_build)
+        # 23a's worker runs beside 23b's elastic job: two processes on the
+        # card, each checked bit for bit; 23a's env is taken here, before
+        # elastic_run swaps this process's environment.
+        with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(1) as pool:
+            launched = pool.submit(launched_run, config, tmp, losses, card,
+                                   paths, check_build, launcher_env())
             elastic_run(torch, config, tmp, losses, want_params, card, paths)
+            launched.result()
     finally:
         if check_build.poll() is None:
             check_build.kill()
@@ -5011,6 +5046,13 @@ BENCH_STEPS = 3
 # the fp16 conversion is slower than the link (PERF.md §6), so neither is
 # timed and neither runs without shm.
 NATIVE_TIMED_COMPS = ("none", "bf16")
+# The big tensor is held to the oracle under none only on the native ring
+# with shm (its top-k and fp16 wires took 2 x 6.9-8.5 s and 2 x 0.7 s of
+# the phase on the H100 machine's 8-core host, PERF.md §6) and on both
+# planes across the fake hosts; the small tensors run every wire
+# everywhere, and the CPU tests hold the native top-k on tensors above its
+# floor (tests/test_torch_port_native_world.py).
+SHM_LIGHT = {"1": "ring", "0": ""}
 
 
 def build_native() -> tuple:
@@ -5095,7 +5137,7 @@ def native_phase(card, paths, want, python_world, native, device="cuda") -> None
             spec = ",".join(f"127.0.0.1@{p}:{n}"
                             for p, n in zip(ports, ENGINE_SLOTS))
             hosts = W.launch(os.path.join(tmp, "hosts"), dict(
-                native_env, T_PLANES="ring,hier", T_LIGHT="ring",
+                native_env, T_PLANES="ring,hier", T_LIGHT="ring,hier",
                 T_GATHER="flat,hier"), world, spec, secret)
         mnist_counts = mnist.result()
         log(f"  28a beside (c)'s world took {time.perf_counter() - t0:.1f} s")
@@ -5104,6 +5146,7 @@ def native_phase(card, paths, want, python_world, native, device="cuda") -> None
             t0 = time.perf_counter()
             shm[on] = W.launch(os.path.join(tmp, f"shm{on}"), dict(
                 native_env, HOROVOD_SHM=on, T_PLANES="ring",
+                T_LIGHT=SHM_LIGHT[on],
                 T_COMPS=",".join(comps), T_TIMED=str(ENGINE_TIMED),
                 T_TIMED_COMPS=",".join(NATIVE_TIMED_COMPS)), world)
             log(f"  (b)'s world, HOROVOD_SHM={on}, took "
@@ -5112,7 +5155,8 @@ def native_phase(card, paths, want, python_world, native, device="cuda") -> None
         bench = engine_benchmark()
         log(f"  (d) took {time.perf_counter() - t0:.1f} s")
     for on, reps in shm.items():
-        W.hold(reps, "ring", {c: want[None][c] for c in reps[0]["planes"]["ring"]})
+        W.hold(reps, "ring", {c: want[None][c] for c in reps[0]["planes"]["ring"]},
+               light=bool(SHM_LIGHT[on]))
         hold_orders(f"28 b, HOROVOD_SHM={on}", reps)
         links = [rep["shm_links"]["ring"][c] for rep in reps
                  for c in rep["shm_links"]["ring"]]
@@ -5120,7 +5164,7 @@ def native_phase(card, paths, want, python_world, native, device="cuda") -> None
             raise AssertionError(f"28 b: HOROVOD_SHM={on} gave shm links "
                                  f"{links}")
     W.hold(hosts, "ring", want[None], light=True)
-    W.hold(hosts, "hier", want[(2, 2)])
+    W.hold(hosts, "hier", want[(2, 2)], light=True)
     hold_orders("28 c", hosts)
     cross = {p: sum(rep["cross_bytes"][p]["none"] for rep in hosts)
              for p in ("ring", "hier")}
@@ -5134,12 +5178,12 @@ def native_phase(card, paths, want, python_world, native, device="cuda") -> None
               for m in ("flat", "hier")}
     hold_cross("28 c allgather", gcross["flat"], gcross["hier"])
     for on, reps in shm.items():
-        report_world(W, f"(b) one host, ring, HOROVOD_SHM={on}", reps, "",
-                     card, cpu, phase="28")
+        report_world(W, f"(b) one host, ring, HOROVOD_SHM={on}", reps,
+                     SHM_LIGHT[on], card, cpu, phase="28")
     report_world(W, "(b) of phase 27, the Python engine, ring and star, beside "
                  "it", python_world, "star", card, cpu, phase="28")
     report_world(W, "(c) fake hosts a:2,b:2, ring and two-level", hosts,
-                 "ring", card, cpu, phase="28")
+                 "ring, hier", card, cpu, phase="28")
     rows = gathers[0]["flat"]["rows"]
     log(f"  (28c) allreduce cross-host bytes under none, all ranks: two-level "
         f"{cross['hier']} against flat {cross['ring']}; the ragged allgather "
@@ -5160,6 +5204,263 @@ def native_phase(card, paths, want, python_world, native, device="cuda") -> None
         hold_counts(label, counts, {})
         paths[label] = counts
     log(f"  phase 28 took {time.perf_counter() - t_phase:.1f} s ({card}; host "
+        f"{cpu})")
+
+
+# -- phase 29: the real-data input path and the graphed ResNet-50 step ------------
+
+# 29a: two dispatches of REAL_K cache-fed steps from one CUDA graph against
+# 2 * REAL_K eager steps of the same step on the same cache draws, from the
+# same weights (phase 13's rule: every loss, parameter, momentum buffer and
+# BatchNorm statistic within 1e-6 relative, bit-equality expected).
+REAL_IMAGES, REAL_K, REAL_DISPATCHES = 4096, 4, 2
+
+
+def example_module(name: str):
+    """``examples/<name>.py`` imported from this checkout."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "examples", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"_chip_smoke_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def cnn_state(s) -> dict:
+    """Host copies of the model's parameters and buffers and SGD's
+    momentum buffers."""
+    out = {k: v.detach().cpu() for k, v in s.model.state_dict().items()}
+    for i, p in enumerate(s.opt.optimizer.param_groups[0]["params"]):
+        st = s.opt.optimizer.state.get(p, {})
+        out[f"momentum.{i}"] = st["momentum_buffer"].detach().cpu()
+    return out
+
+
+def graphed_cnn_against_eager(torch, fa, rf, basics, tc, cache, dev, paths) -> None:
+    """29a: ``make_cnn_scan_loop`` at full width against eager cache steps."""
+    from horovod_tpu_torch.loop import WARMUP_STEPS
+
+    config = tc.CNNConfig()
+    s = tc.setup_cnn(config, "cuda")
+    torch.cuda.reset_peak_memory_stats(dev)
+    loop = tc.make_cnn_scan_loop(s, cache, REAL_K)
+    loop.warm_up()
+    warm_s = loop.capture_s
+    read_counts(fa, rf)
+    loop.capture()
+    graph_losses = []
+    for _ in range(REAL_DISPATCHES):
+        loop()
+        graph_losses += loop.losses.tolist()
+    counts = read_counts(fa, rf)
+    peak = torch.cuda.max_memory_allocated(dev)
+    graphed = cnn_state(s)
+    log(f"  warm-up ({WARMUP_STEPS} steps) {warm_s:.3f} s, capture "
+        f"{loop.capture_s - warm_s:.3f} s, peak memory {peak / 1e9:.2f} GB")
+    del loop, s
+
+    e = tc.setup_cnn(config, "cuda")
+    step = tc.cnn_cache_step(e)
+    ctr, eager_losses = cache.counter(), []
+    for _ in range(REAL_K * REAL_DISPATCHES):
+        x, y, ctr = cache.sample(ctr)
+        eager_losses.append(step(x, y).item())
+    counts = {k: counts[k] + v for k, v in read_counts(fa, rf).items()}
+    eager = cnn_state(e)
+    del e, step
+    log(f"  losses graphed {graph_losses}")
+    log(f"  losses eager   {eager_losses}")
+    worst_loss = max(abs(g - w) / abs(w) for g, w in zip(graph_losses, eager_losses))
+    worst, equal = ("", 0.0), graph_losses == eager_losses
+    for name, want in eager.items():
+        got = graphed[name]
+        equal = equal and torch.equal(got, want)
+        err = ((got.double() - want.double()).abs().max().item()
+               / max(want.double().abs().max().item(), 1e-30))
+        worst = max(worst, (name, err), key=lambda x: x[1])
+    kinds = sorted({k.rsplit(".", 1)[-1] if not k.startswith("momentum")
+                    else "momentum_buffer" for k in eager})
+    log(f"  {len(eager)} tensors compared ({', '.join(kinds)}): "
+        f"{'bit-equal' if equal else 'not bit-equal'}; largest difference: "
+        f"loss {worst_loss:.3e} relative, {worst[0]} {worst[1]:.3e} of its "
+        f"max (limit {GRAPH_LIMIT:g})")
+    if not (all(math.isfinite(x) for x in graph_losses)
+            and worst_loss <= GRAPH_LIMIT and worst[1] <= GRAPH_LIMIT):
+        raise AssertionError(f"29a: graphed ResNet-50 steps differ from eager: "
+                             f"loss {worst_loss}, {worst}")
+    hold_counts("29a: the graphed loop's capture and replays, and its eager "
+                "steps", counts, {})
+    paths["29a: graphed ResNet-50 loop and eager cache steps"] = counts
+    basics.shutdown()
+    torch.cuda.empty_cache()
+
+
+def input_layer_times(torch, ds, sampler, cache, dev, card) -> None:
+    """The input layer alone at full width: the cache's draw (a hash, an
+    argsort of the shard's rows, two gathers and the cast) on the card,
+    CUDA events; the stream's host gather (memmap rows into RAM) and its
+    upload with the cast on the card, host clock around a synchronize."""
+    ctr = cache.counter()
+    draw_ms = time_ms(torch, lambda: cache.sample(ctr), reps=20, warmup=3,
+                      inner=10)
+    batch = cache.batch
+    idx = next(sampler.batches(batch))
+    gather, upload = [], []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        xb, yb = ds[idx]
+        t1 = time.perf_counter()
+        x = torch.from_numpy(xb).to(dev).float() / 127.5 - 1.0
+        y = torch.from_numpy(yb).to(dev)
+        torch.cuda.synchronize(dev)
+        t2 = time.perf_counter()
+        gather.append((t1 - t0) * 1e3)
+        upload.append((t2 - t1) * 1e3)
+    del x, y
+    nbytes = xb.nbytes
+    log(f"  input layer, batch {batch} of 224x224x3 uint8 ({nbytes} B): the "
+        f"cache's draw {draw_ms:.4f} ms on the card (CUDA events, median of 20 "
+        f"runs of 10); the stream's host gather {statistics.median(gather):.3f} "
+        f"ms and upload + cast {statistics.median(upload):.3f} ms "
+        f"({nbytes / statistics.median(upload) / 1e6:.3f} GB/s, pageable; host "
+        f"clock, median of 10) ({card})")
+
+
+def realdata_phase(torch, fa, rf, basics, tc, card, dev, paths) -> None:
+    """29: (a) the graphed ResNet-50 loop against eager cache steps, the
+    input layer's times; (b) ``examples/torch_realdata_benchmark.py
+    --json``, all four modes, in this process (its launches counted
+    here)."""
+    import io
+    import tempfile
+
+    from horovod_tpu_torch import data
+
+    t_phase = time.perf_counter()
+    ex = example_module("torch_realdata_benchmark")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_realdata_") as tmp:
+        data_dir = os.path.join(tmp, "data")
+        t0 = time.perf_counter()
+        ex.ensure_dataset(data_dir, REAL_IMAGES, 224)
+        basics.init("cuda")
+        ds = data.MemmapArrayDataset(data_dir)
+        sampler = data.DistributedSampler(len(ds))
+        imgs, labs = ds[sampler.indices()]
+        cache = data.DeviceCache(imgs, labs, batch_size=tc.CNNConfig().batch,
+                                 seed=sampler.seed, device=dev)
+        del imgs, labs
+        log(f"  dataset {ds.images.shape} uint8 ({ds.images.nbytes} B) written "
+            f"and its shard on the card ({cache.data.nbytes} B) in "
+            f"{time.perf_counter() - t0:.1f} s")
+        input_layer_times(torch, ds, sampler, cache, dev, card)
+        log(f"  (29a) the graphed ResNet-50 loop, K = {REAL_K}: "
+            f"{REAL_DISPATCHES} dispatches against "
+            f"{REAL_K * REAL_DISPATCHES} eager cache steps")
+        graphed_cnn_against_eager(torch, fa, rf, basics, tc, cache, dev, paths)
+        del cache, ds
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        log("  (29b) examples/torch_realdata_benchmark.py --json, all four "
+            "modes at full width")
+        out = io.StringIO()
+        read_counts(fa, rf)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = ex.main(["--json", "--data-dir", data_dir,
+                          "--n-images", str(REAL_IMAGES)])
+        counts = read_counts(fa, rf)
+        if rc != 0:
+            raise AssertionError(f"29b: the example returned {rc}")
+        line = json.loads(out.getvalue().strip().splitlines()[-1])
+    want = {"batch", "n_images"} | {f"{m}_img_s" for m in ex.MODES} | {
+        f"{m}_gap_pct" for m in ex.MODES if m != "synthetic"}
+    if set(line) != want or line["batch"] != tc.CNNConfig().batch:
+        raise AssertionError(f"29b: the JSON line {line}")
+    log(f"  {json.dumps(line)}")
+    for m in ex.MODES:
+        gap = line.get(f"{m}_gap_pct")
+        log(f"  {m:17s} {line[f'{m}_img_s']:>9.1f} img/s"
+            f"{'' if gap is None else f', gap {gap}% against synthetic'} "
+            f"({card})")
+    log(f"  29b took {time.perf_counter() - t0:.1f} s (every loss finite: "
+        f"the example sums them on the card and fails on one that is not)")
+    hold_counts("29b: the real-data example, four modes", counts, {})
+    paths["29b: the real-data example, four modes"] = counts
+    basics.shutdown()
+    torch.cuda.empty_cache()
+    log(f"  phase 29 took {time.perf_counter() - t_phase:.1f} s ({card})")
+
+
+# -- phase 30: the scaling benchmark ---------------------------------------------
+
+SCALE_STEPS, SCALE_REPS = 4, 3     # (b)'s windows: fewer steps than its default
+
+
+def scaling_phase(torch, card, cnn_step_ms, paths) -> None:
+    """30: ``examples/torch_scaling_benchmark.py`` with every section, in
+    a process of its own (its workers are processes; each counts its own
+    launches); (c) fed phase 10's measured ResNet-50 step."""
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    cpu = cpu_model()
+    proc = subprocess.run(
+        [sys.executable, os.path.join(root, "examples", "torch_scaling_benchmark.py"),
+         "--eager", "--hier", "--compiled", "--compiled-mp", "--buckets-ab",
+         "--project", "--step-ms", repr(cnn_step_ms), "--steps", str(SCALE_STEPS),
+         "--reps", str(SCALE_REPS)],
+        env=launcher_env(), cwd=root, capture_output=True, text=True, timeout=900)
+    for ln in proc.stderr.splitlines():
+        if not ln.startswith("[W"):
+            log(f"  {ln.strip()}")
+    if proc.returncode != 0:
+        raise AssertionError(f"30: the scaling benchmark exited "
+                             f"{proc.returncode}:\n{proc.stderr[-3000:]}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    eager, hier = out["eager"], out["eager_hierarchical"]
+    comp, mp, ab = (out["compiled"], out["compiled_multiprocess"],
+                    out["compiled_buckets_ab"])
+    ran = [r["world"] for r in eager["worlds"]]
+    if ran != [w for w in (2, 4, 8, 16) if w <= eager["host_cpus"]] or \
+            {d["world"] for d in eager["dropped_worlds"]} != \
+            {w for w in (2, 4, 8, 16) if w > eager["host_cpus"]}:
+        raise AssertionError(f"30a: worlds {ran}, dropped "
+                             f"{eager['dropped_worlds']} on "
+                             f"{eager['host_cpus']} CPUs")
+    hold_cross("30a two-level ring (worst rank)",
+               hier["flat_worst_rank_cross_bytes"],
+               hier["hier_worst_rank_cross_bytes"])
+    if [r["world"] for r in comp["worlds"]] != [1, 2, 4] or \
+            [r["world"] for r in comp["nccl"]["worlds"]] != [
+                w for w in (1, 2, 4) if w <= torch.cuda.device_count()]:
+        raise AssertionError(f"30b: compiled worlds {comp}")
+    log(f"  (30a) eager worlds {ran} (every rank's buffer of ones reduced to "
+        f"exactly the world), dropped {eager['dropped_worlds']}; per-rank "
+        f"import of the native engine up to "
+        f"{max(r['import_s'] for r in eager['worlds']):.3f} s (it imports "
+        f"torch); two-level {hier['world']} ranks as {hier['hosts']} x "
+        f"{hier['ranks_per_host']}: worst rank's cross-host bytes "
+        f"{hier['hier_worst_rank_cross_bytes']} against "
+        f"{hier['flat_worst_rank_cross_bytes']} flat; host {cpu}; {card}")
+    for r in comp["nccl"]["worlds"]:
+        log(f"  (30b) NCCL world {r['world']} on {r['device']}: "
+            f"{r['step_ms']:.3f} ms a step ({card})")
+    log(f"  (30b) process boundary {mp['process_boundary_overhead']:+.3f}; "
+        f"buckets {[(r['num_buckets'], r['step_ms']) for r in ab['rows']]} "
+        f"ms on gloo world {ab['world']}")
+    log(f"  (30c) projection from phase 10's {cnn_step_ms:.3f} ms step: "
+        f"{json.dumps(out['projection']['rows'])}")
+    counts = {k: 0 for k in [*KERNELS, *RING_KERNELS]}
+    sections = [eager, hier, *comp["worlds"], *comp["nccl"]["worlds"],
+                *mp["rows"], ab]
+    for sec in sections:
+        for k, v in sec["launches"].items():
+            counts[k] += v
+    hold_counts("30: the scaling benchmark's workers", counts, {})
+    paths["30: the scaling benchmark's workers"] = counts
+    log(f"  phase 30 took {time.perf_counter() - t_phase:.1f} s ({card}; host "
         f"{cpu})")
 
 
@@ -5406,6 +5707,22 @@ def main() -> int:
     native_phase(card, paths, oracle, python_world, native)
     del oracle, python_world
 
+    log(f"[29] the real-data input path at full width: a {REAL_IMAGES}-image "
+        f"uint8 shard on the card, the graphed ResNet-50 loop (K = {REAL_K}) "
+        f"against eager cache steps, the input layer's times, "
+        f"examples/torch_realdata_benchmark.py in its four modes")
+    gc.collect()
+    torch.cuda.empty_cache()
+    realdata_phase(torch, fa, rf, basics, tc, card, dev, paths)
+
+    cnn_step_ms = statistics.median(cnn_result.step_s[1:]) * 1e3
+    log(f"[30] examples/torch_scaling_benchmark.py: the native engine's "
+        f"worlds and the two-level ring, the DistributedOptimizer step over "
+        f"gloo and NCCL, 1 against 2 processes, the bucket A/B, the "
+        f"projection from phase 10's step ({cnn_step_ms:.3f} ms)")
+    scaling_phase(torch, card, cnn_step_ms, paths)
+
+    log("[31] the kernels line")
     kernels = []
     for source, names in SOURCES.items():
         for kname in names:

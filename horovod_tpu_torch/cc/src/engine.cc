@@ -5,6 +5,8 @@
 #include <cstdlib>
 #include <system_error>
 
+#include <unistd.h>
+
 #include "net.h"
 
 namespace hvd {
@@ -203,6 +205,14 @@ long long Engine::trace_drain(char* buf, long long cap) {
 
 Engine::Engine(const Topology& topo, const EngineConfig& cfg)
     : topo_(topo), cfg_(cfg) {
+  // The listener hvd_coord_listen bound belongs to this engine from here
+  // until its Coordinator adopts it: a throw before that closes it.
+  struct ListenerGuard {
+    int fd;
+    ~ListenerGuard() {
+      if (fd >= 0) ::close(fd);
+    }
+  } listener{cfg_.coord_listen_fd};
   cycle_time_ms_ = cfg_.cycle_time_ms;
   fusion_threshold_ = (int64_t)cfg_.fusion_threshold;
   wire_dtype_ = wire_dtype_from_env();
@@ -263,6 +273,7 @@ Engine::Engine(const Topology& topo, const EngineConfig& cfg)
     if (topo_.rank == 0) {
       coord_ = std::make_unique<Coordinator>(topo_.size, cfg_.coord_host,
                                              cfg_.coord_port, &timeline_, cfg_);
+      listener.fd = -1;
       me.host = cfg_.coord_host;
       peers = coord_->hello(0, me);
     } else {

@@ -11,12 +11,13 @@ steps and one read of the mean loss per dispatch by the caller.
 Before capture, a few warm-up steps run on a side stream: they load the
 kernel libraries, create the NCCL communicators and the optimizer's state,
 so that nothing is built or allocated for the first time inside the graph.
-Then the parameters, the optimizer state and the counter are put back as
-they were before the warm-up (state the warm-up created is zeroed, which is
-where Adam's and momentum SGD's first step start from), so a dispatch
-runs exactly the K steps that K eager calls would. On the CPU, which the
-caller must ask for, a dispatch is the same K steps run eagerly. On the
-card there is no eager path: a capture that fails raises.
+Then the parameters, the optimizer state, the counter and, where the
+caller passes the module, its buffers (BatchNorm's running statistics) are
+put back as they were before the warm-up (state the warm-up created is
+zeroed, which is where Adam's and momentum SGD's first step start from),
+so a dispatch runs exactly the K steps that K eager calls would. On the
+CPU, which the caller must ask for, a dispatch is the same K steps run
+eagerly. On the card there is no eager path: a capture that fails raises.
 """
 
 from __future__ import annotations
@@ -53,13 +54,14 @@ def warmup_stream(device: torch.device) -> torch.cuda.Stream:
 
 
 class TrainingState:
-    """The parameters and optimizer state of ``optimizer`` and a step
-    counter, as they are now; ``restore()`` puts them back in place (the
-    same tensors, which a captured graph keeps pointing at). Optimizer
-    state created after the snapshot is zeroed: where Adam's and momentum
-    SGD's first step start from."""
+    """The parameters and optimizer state of ``optimizer``, a step counter
+    and the buffers of ``module`` (BatchNorm's running statistics, which a
+    training step updates in place), as they are now; ``restore()`` puts
+    them back in place (the same tensors, which a captured graph keeps
+    pointing at). Optimizer state created after the snapshot is zeroed:
+    where Adam's and momentum SGD's first step start from."""
 
-    def __init__(self, optimizer, counter: torch.Tensor) -> None:
+    def __init__(self, optimizer, counter: torch.Tensor, module=None) -> None:
         self.optimizer = optimizer
         self.params = [p for g in optimizer.param_groups for p in g["params"]]
         self.saved = [p.detach().clone() for p in self.params]
@@ -67,6 +69,8 @@ class TrainingState:
                       for p, st in optimizer.state.items()}
         self.counter = counter
         self.saved_counter = counter.clone()
+        self.buffers = list(module.buffers()) if module is not None else []
+        self.saved_buffers = [b.detach().clone() for b in self.buffers]
 
     @torch.no_grad()
     def restore(self) -> None:
@@ -82,6 +86,8 @@ class TrainingState:
                 else:
                     v.zero_()
         self.counter.copy_(self.saved_counter)
+        for b, s in zip(self.buffers, self.saved_buffers):
+            b.copy_(s)
 
 
 class ScanTrainLoop:
@@ -91,7 +97,7 @@ class ScanTrainLoop:
     host time of the warm-up and the capture."""
 
     def __init__(self, train_step, cache: DeviceCache, steps_per_dispatch: int,
-                 optimizer) -> None:
+                 optimizer, module=None) -> None:
         if steps_per_dispatch < 1:
             raise ValueError(f"steps_per_dispatch must be >= 1, got "
                              f"{steps_per_dispatch}")
@@ -104,6 +110,7 @@ class ScanTrainLoop:
         self.cache = cache
         self.k = steps_per_dispatch
         self.optimizer = getattr(optimizer, "optimizer", optimizer)
+        self.module = module
         self.plan = getattr(optimizer, "compiled_plan", None)
         self.counter = cache.counter()
         self.device = self.counter.device
@@ -121,12 +128,13 @@ class ScanTrainLoop:
 
     def warm_up(self) -> None:
         """Run the warm-up steps on a side stream, then restore the
-        parameters, the optimizer state and the counter."""
+        parameters, the optimizer state, the counter and the module's
+        buffers."""
         if self.device.type != "cuda":
             raise RuntimeError("the warm-up prepares a CUDA graph; on the "
                                "CPU the loop runs eagerly")
         t0 = time.perf_counter()
-        before = TrainingState(self.optimizer, self.counter)
+        before = TrainingState(self.optimizer, self.counter, self.module)
         side = warmup_stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(side):
@@ -174,7 +182,8 @@ class ScanTrainLoop:
 
 
 def make_scan_train_loop(train_step, cache: DeviceCache,
-                         steps_per_dispatch: int = 8, *, optimizer) -> ScanTrainLoop:
+                         steps_per_dispatch: int = 8, *, optimizer,
+                         module=None) -> ScanTrainLoop:
     """A loop of ``steps_per_dispatch`` steps per dispatch fed by ``cache``.
 
     ``train_step(x, y) -> loss`` is one whole step: zero_grad, forward,
@@ -182,6 +191,10 @@ def make_scan_train_loop(train_step, cache: DeviceCache,
     ``optimizer`` is the step's optimizer (a ``DistributedOptimizer`` or a
     ``torch.optim`` one), whose parameters and state the warm-up restores;
     on the card build ``torch.optim.Adam`` with ``capturable=True``.
+    ``module``, where the step updates buffers in place (BatchNorm's
+    running statistics: the JAX package folds them into the loop's state),
+    has its buffers restored after the warm-up too.
     """
     basics.require_not_elastic("make_scan_train_loop() (the CUDA-graphed loop)")
-    return ScanTrainLoop(train_step, cache, steps_per_dispatch, optimizer)
+    return ScanTrainLoop(train_step, cache, steps_per_dispatch, optimizer,
+                         module)

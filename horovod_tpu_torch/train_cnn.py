@@ -13,6 +13,12 @@ averaged inside the step, as in Horovod and in the JAX benchmark. It runs
 on the card unless ``device="cpu"``. ``setup_cnn`` and ``run_cnn`` are
 its two halves, for callers that want the model after the steps.
 
+The real-data input path feeds the same step from a ``data.DeviceCache``
+of uint8 images (``cnn_cache_step``), eagerly or K steps per dispatch in
+one CUDA graph (``make_cnn_scan_loop``, the counterpart of the JAX
+package's ResNet-50 step under ``make_scan_train_loop``, which folds the
+BatchNorm statistics into the loop's state).
+
 The batch is random normal images and uniform labels drawn from the seed
 and the rank: constant images would give every BatchNorm zero variance,
 so that its output is its bias and the loss is ln(classes) whatever the
@@ -35,6 +41,7 @@ from . import optimizer as hvd_opt
 from .common import basics
 from .compression import Compression
 from .convert import cnn_param_path, jax_ordered
+from .loop import make_scan_train_loop
 from .models.cnn_layers import Conv2d, Dense, init_cnn
 
 CNN_MODELS = ("ResNet18", "ResNet34", "ResNet50", "ResNet101", "ResNet152",
@@ -123,6 +130,14 @@ def make_cnn_train_step(model: nn.Module, opt: hvd_opt.DistributedOptimizer):
     return step
 
 
+def nchw(images: torch.Tensor, channels_last: bool = True) -> torch.Tensor:
+    """NHWC images (a ``DeviceCache`` batch, the JAX layout) as the NCHW
+    tensor the model takes: the permuted view, which is channels-last in
+    memory, or a contiguous copy."""
+    x = images.permute(0, 3, 1, 2)
+    return x if channels_last else x.contiguous()
+
+
 def forward_macs(model: nn.Module, images: torch.Tensor) -> int:
     """Multiply-adds per image of the model's convolutions and Dense
     layers in one forward on ``images``, from their weight and output
@@ -153,6 +168,27 @@ class CNNSetup:
     step: Callable
     images: torch.Tensor
     labels: torch.Tensor
+    channels_last: bool = True
+
+
+def cnn_cache_step(s: CNNSetup) -> Callable:
+    """``step(x, y) -> loss`` for a ``DeviceCache`` batch: ``x`` NHWC
+    float32 (uint8 normalized on the device to ``x / 127.5 - 1``, the JAX
+    example's cast), permuted to NCHW, then ``s.step``."""
+
+    def step(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        return s.step(nchw(x, s.channels_last), y)
+
+    return step
+
+
+def make_cnn_scan_loop(s: CNNSetup, cache, steps_per_dispatch: int):
+    """``steps_per_dispatch`` cache-fed steps of ``s`` per dispatch, one
+    CUDA graph on the card (``loop.make_scan_train_loop``): the warm-up's
+    changes to the parameters, SGD's momentum, the cache's counter and the
+    model's BatchNorm statistics are undone before the capture."""
+    return make_scan_train_loop(cnn_cache_step(s), cache, steps_per_dispatch,
+                                optimizer=s.opt, module=s.model)
 
 
 def setup_cnn(config: CNNConfig, device=None) -> CNNSetup:
@@ -172,7 +208,8 @@ def setup_cnn(config: CNNConfig, device=None) -> CNNSetup:
     hvd_opt.broadcast_optimizer_state(opt, root_rank=0)
     images, labels = make_images(config, basics.rank(), dev)
     return CNNSetup(model=model, opt=opt, step=make_cnn_train_step(model, opt),
-                    images=images, labels=labels)
+                    images=images, labels=labels,
+                    channels_last=config.channels_last)
 
 
 def run_cnn(s: CNNSetup, steps: int,

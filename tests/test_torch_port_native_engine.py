@@ -24,7 +24,11 @@ against the JAX package's (``horovod_tpu.cc``), on the same numpy inputs:
   ``autotune.gp_fit_predict`` bitwise the JAX package's and within 1e-12
   of ``autotune_gp``'s; the convergence and pin checks of
   ``tests/test_autotune.py``;
-- ``runner --check-build`` names the native engine's library.
+- ``runner --check-build`` names the native engine's library;
+- the coordinator's listener (``hvd_coord_listen``, the port's one code
+  difference from the JAX core): repeated listen -> init -> shutdown
+  cycles, an init that fails after adopting the listener among them,
+  leave the process's count of open descriptors unchanged.
 
 Tolerance: none, except the Python GP's 1e-12.
 """
@@ -256,6 +260,98 @@ def test_two_rank_world_every_op_and_dtype_equals_the_jax_world(engines):
     for o in outs["horovod_tpu_torch"]:
         assert o["mismatch"] is True
     assert outs["horovod_tpu_torch"] == outs["horovod_tpu"]
+
+
+# ------------------------------------- the coordinator's listener and fds
+
+RANK1_SCRIPT = r"""
+import sys
+import numpy as np
+sys.path.insert(0, sys.argv[1])
+from horovod_tpu_torch.cc.native_engine import NativeEngine
+from horovod_tpu_torch.common.config import Config
+from horovod_tpu_torch.common.topology import Topology
+eng = NativeEngine(Topology(1, 2, 1, 2, 0, 1), Config(cycle_time_ms=1.0,
+                                                      stall_check_disable=True))
+out = eng.run("allreduce", np.ones(4, np.float32), "x", average=False)
+eng.shutdown()
+assert (out == 2).all(), out
+"""
+
+
+class _Store:
+    """The slice of a store ``NativeEngine`` uses; ``set`` hands rank 0's
+    published coordinator address to ``on_set``."""
+
+    def __init__(self, on_set=None):
+        self.value, self.on_set = None, on_set
+
+    def set(self, key, value):
+        self.value = value
+        if self.on_set:
+            self.on_set(value)
+
+    def get(self, key):
+        return self.value.encode()
+
+
+def _fds() -> int:
+    return len(os.listdir("/proc/self/fd"))
+
+
+def test_coordinator_listener_cycles_leave_no_descriptor(engines, monkeypatch):
+    """``hvd_coord_listen`` -> ``hvd_init`` -> shutdown, repeated, leaves
+    the process's descriptors as they were: a listener adopted by an init
+    that then fails (rank 0 of two with no job secret), a listener the
+    next listen replaces, one a world of one closes, and one adopted by a
+    world of two that runs an allreduce (rank 1 in a child process)."""
+    import ctypes
+
+    from horovod_tpu_torch.cc import native_engine as NE
+    from horovod_tpu_torch.common.engine import (HorovodInternalError,
+                                                 StoreRendezvous)
+
+    _, P = engines
+    lib = NE._load()
+    cfg = PConfig(cycle_time_ms=1.0, stall_check_disable=True)
+    pair = PTopology(0, 2, 0, 2, 0, 1)
+    secret = "ab" * 16
+    children = []
+
+    def failed_init():
+        monkeypatch.delenv("HOROVOD_SECRET", raising=False)
+        with pytest.raises(HorovodInternalError, match="HOROVOD_SECRET"):
+            P(pair, cfg, rendezvous=StoreRendezvous(_Store(), "k", "127.0.0.1"))
+
+    def replaced_then_closed():
+        err = ctypes.create_string_buffer(256)
+        for _ in range(2):
+            assert lib.hvd_coord_listen(b"127.0.0.1", 4, err, 256) > 0
+        P(PTopology(0, 1, 0, 1, 0, 1), cfg).shutdown()
+
+    def world_of_two():
+        monkeypatch.setenv("HOROVOD_SECRET", secret)
+
+        def start_rank1(addr):
+            children.append(subprocess.Popen(
+                [sys.executable, "-c", RANK1_SCRIPT, REPO],
+                env=dict(os.environ, HOROVOD_COORD_ADDR=addr)))
+
+        eng = P(pair, cfg, rendezvous=StoreRendezvous(
+            _Store(start_rank1), "k", "127.0.0.1"))
+        out = eng.run("allreduce", np.ones(4, np.float32), "x", average=False)
+        eng.shutdown()
+        assert (out == 2).all()
+        assert children.pop().wait(timeout=60) == 0
+
+    cycles = (failed_init, replaced_then_closed, world_of_two)
+    for cycle in cycles:       # first use: whatever a first call keeps open
+        cycle()
+    before = _fds()
+    for _ in range(3):
+        for cycle in cycles:
+            cycle()
+    assert _fds() == before
 
 
 # ------------------------------------------------------------------ build

@@ -19,7 +19,9 @@ PKG = os.path.join(REPO, "horovod_tpu_torch")
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "horovod_tpu")
 EXAMPLES = [os.path.join(REPO, "examples", f"torch_{name}.py") for name in (
     "imagenet_resnet50", "mnist", "mnist_advanced", "synthetic_benchmark",
-    "word2vec", "transformer_long_context")]
+    "word2vec", "transformer_long_context", "realdata_benchmark",
+    "scaling_benchmark")]
+TOOLS = [os.path.join(REPO, "tools", "torch_sanitize_smoke.py")]
 
 
 def _sources():
@@ -29,6 +31,7 @@ def _sources():
                 yield os.path.join(root, f)
     yield os.path.join(REPO, "chip_smoke.py")
     yield from EXAMPLES
+    yield from TOOLS
 
 
 def test_import_pulls_in_no_jax():

@@ -10,6 +10,7 @@ reassigns, in each package. Tolerance: none."""
 from __future__ import annotations
 
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -88,52 +89,74 @@ def test_capacity_from_env(monkeypatch):
 
 
 KEY = b"cache-secret"
+TICK_TIMEOUT_S = 60.0
 
 
 def _world(mod, shapes):
     """Two ranks tick the same name with ``shapes`` in turn; per tick the
-    mirror's bit and whether the tick was cached."""
+    mirror's bit and whether the tick was cached.
+
+    The ticks are ordered: both ranks have applied tick i's cache message
+    before either looks up its bit for tick i + 1 (a barrier), so a rank
+    that runs ahead cannot read its mirror while the other still waits for
+    the same announcement. A worker that raises or does not finish fails
+    the world."""
     coord = mod._Coordinator(2, "127.0.0.1", 0, key=KEY, cache_capacity=8)
     port = coord.server.getsockname()[1]
     coord.start()
     seen: dict = {}
+    errors: dict = {}
+    tick = threading.Barrier(2, timeout=TICK_TIMEOUT_S)
 
     def worker(rank):
-        client = mod._Client("127.0.0.1", port, rank, key=KEY)
-        mirror = P.CacheMirror() if mod is PE else J.CacheMirror()
-        out = []
         try:
-            for shape in shapes:
-                req = {"name": "g", "op": "allreduce", "shape": shape,
-                       "dtype": "float32", "root": 0, "average": True}
-                key = mod.request_key(req)
-                bit = mirror.lookup(key)
-                arr = np.ones(shape, np.float32) * (rank + 1)
-                res: dict = {}
-                for _ in range(50):
-                    if bit is not None:
-                        res.update(client.exchange([], {"g": arr} if not res
-                                                   else {}, bits=1 << bit))
-                    else:
-                        res.update(client.exchange([req], {"g": arr}
-                                                   if not res else {}))
-                    mirror.apply(*client.last_cache)
-                    if "g" in res:
-                        break
-                out.append((bit, res["g"][0], res["g"][1].tobytes()))
-        finally:
-            client.close()
-        seen[rank] = out
+            client = mod._Client("127.0.0.1", port, rank, key=KEY)
+            mirror = P.CacheMirror() if mod is PE else J.CacheMirror()
+            out = []
+            try:
+                for shape in shapes:
+                    tick.wait()
+                    req = {"name": "g", "op": "allreduce", "shape": shape,
+                           "dtype": "float32", "root": 0, "average": True}
+                    key = mod.request_key(req)
+                    bit = mirror.lookup(key)
+                    arr = np.ones(shape, np.float32) * (rank + 1)
+                    res: dict = {}
+                    deadline = time.monotonic() + TICK_TIMEOUT_S
+                    while "g" not in res:
+                        if time.monotonic() > deadline:
+                            raise TimeoutError(
+                                f"rank {rank}: tick {len(out)} not "
+                                f"completed in {TICK_TIMEOUT_S} s")
+                        if bit is not None:
+                            res.update(client.exchange(
+                                [], {"g": arr} if not res else {},
+                                bits=1 << bit))
+                        else:
+                            res.update(client.exchange(
+                                [req], {"g": arr} if not res else {}))
+                        mirror.apply(*client.last_cache)
+                    out.append((bit, res["g"][0], res["g"][1].tobytes()))
+            finally:
+                client.close()
+            seen[rank] = out
+        except BaseException as e:  # reported by the caller, never lost
+            errors[rank] = repr(e)
+            tick.abort()
 
     threads = [threading.Thread(target=worker, args=(r,)) for r in range(2)]
     for t in threads:
         t.start()
     for t in threads:
-        t.join(timeout=30)
+        t.join(timeout=len(shapes) * TICK_TIMEOUT_S + 30)
     coord.stop()
+    alive = [r for r, t in enumerate(threads) if t.is_alive()]
+    assert not alive and not errors, \
+        f"{mod.__name__}: ranks {alive} did not finish; errors {errors}"
     return seen
 
 
 def test_shape_change_reassigns_alike():
     shapes = [(4,), (4,), (8,), (8,), (4,)]
-    assert _world(PE, shapes) == _world(JE, shapes)
+    port, ref = _world(PE, shapes), _world(JE, shapes)
+    assert port == ref, {"port": port, "jax": ref}

@@ -181,7 +181,7 @@ prints no result):
     run, 3 steps, bit-equal to the flat run of (a);
 22. tuning and measurement of the training path at full width (world of
     one over NCCL): (a) ``autotune.tune`` through ``train.TuneStepFactory``
-    over fusion thresholds 4, 64 and 256 MiB x 1 and 4 buckets x wires
+    over fusion thresholds 4 and 64 MiB x 1 and 4 buckets x wires
     "none" and "bf16", one GP/EI round, each candidate's step captured in
     a CUDA graph (K = 4): the knob curve, the best config, each
     candidate's bucket count (held to the fusion plan), peak memory (held
@@ -286,10 +286,11 @@ prints no result):
     gap; (d) ``run_command`` of 4 workers across hosts a and b (2 slots
     each) sharing cuda:0, each a world of one (``init(comm=[rank])``)
     running 23a's worker for 3 steps, with ``HOROVOD_CTRL_TREE`` unset
-    (the tree on) and then 0: every worker's losses phase 4's first 3;
-    with the tree, one request and one wait connection per host at the
-    driver and each host's registrations in one ``host_register``; the
-    driver's control bytes, tree against flat;
+    (the tree on): every worker's losses phase 4's first 3, each dialing
+    its host's leader; one request and one wait connection per host at
+    the driver and each host's registrations in one ``host_register``;
+    the driver's control bytes (the flat plane runs in every one-host
+    launch: 23a, 27a, 28a, 30);
 27. the eager engine (``common/engine.py``: negotiated host collectives;
     every world pins ``HOROVOD_ENGINE=python``), with the CPU model printed beside the card's line, since its times are
     host times: (a) ``examples/torch_mnist_eager.py`` under the launcher's
@@ -1258,9 +1259,10 @@ def report_cnn_training(torch, tc, dev, config, result) -> None:
 LONG_SEQ, LONG_CHUNK, LONG_STEPS = 32768, 4096, 3
 # Phase 13. Two dispatches of GRAPH_K steps from one CUDA graph against
 # 2 * GRAPH_K eager steps of the same step on the same cache draws, from the
-# same weights, with the same capturable Adam: the same kernels in the same
-# order, so bit-equality is expected; every loss and parameter is held to
-# 1e-6 relative.
+# same weights (put back in place after the graphed run), with the same
+# capturable Adam: the same kernels in the same order, so bit-equality is
+# expected; every loss and parameter is held to 1e-6 relative
+# (``graph_pair``, which phases 16, 19 and 20 share).
 GRAPH_K, GRAPH_DISPATCHES, GRAPH_LIMIT = 4, 2, 1e-6
 
 
@@ -1338,77 +1340,44 @@ def bf16_head(torch, fa, rf, basics, train_mod, dev, paths) -> None:
     paths[f"12: {STEPS} steps, bf16 head"] = counts
 
 
-def graphed_against_eager(torch, fa, rf, basics, train_mod, loop_mod, bench,
-                          config, dev, paths, phase="13") -> list:
-    """Returns the captured step's ``last_launches`` (the exchange's
-    buckets, in launch order, with whether a hook started each) and the
-    optimizer's ``launch_order``."""
-    s = train_mod.setup(config, "cuda")
-    cache = train_mod.make_cache(config, s.sp, dev)
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats(dev)
-    loop = loop_mod.make_scan_train_loop(s.step, cache, GRAPH_K, optimizer=s.opt)
-    loop.warm_up()
-    warm_s = loop.capture_s
-    read_counts(fa, rf)
-    loop.capture()
-    graph_losses = []
-    for _ in range(GRAPH_DISPATCHES):
-        loop()
-        graph_losses += loop.losses.tolist()
-    counts = read_counts(fa, rf)
-    peak = torch.cuda.max_memory_allocated(dev)
-    graph_params = {n: p.detach().clone() for n, p in s.model.named_parameters()}
-    log(f"  warm-up ({loop_mod.WARMUP_STEPS} steps) {warm_s:.3f} s, capture "
-        f"{loop.capture_s - warm_s:.3f} s, peak memory {peak / 1e9:.2f} GB")
-    hold_counts("at capture (one step; replays run no Python)", counts,
-                {k: config.layers for k in (RING_KERNELS if config.sp else KERNELS)})
-    paths[f"{phase}: capture of one step, {config_label(config)}"] = counts
-    captured = (s.opt.last_launches, s.opt.launch_order)
+def graphed_against_eager(torch, fa, rf, basics, train_mod, loop_mod, config,
+                          dev, card, paths, phase="13", keep=None) -> list:
+    """``graph_pair`` of ``setup(config)``: its graphed dispatches against
+    as many eager steps, and the tokens/s of each. Returns the captured
+    step's ``last_launches`` (the exchange's buckets, in launch order, with
+    whether a hook started each) and the optimizer's ``launch_order``.
+    ``keep``, a dict, receives the graphed run's ``losses`` and ``params``
+    (on the host): phase 16 holds the graphed ZeRO step to them."""
+    box = {}
 
-    e = train_mod.setup(config, "cuda")
-    ctr, eager_losses = cache.counter(), []
-    for _ in range(GRAPH_K * GRAPH_DISPATCHES):
-        x, y, ctr = cache.sample(ctr)
-        eager_losses.append(e.step(x, y).item())
-    read_counts(fa, rf)
-    log(f"  losses graphed {graph_losses}")
-    log(f"  losses eager   {eager_losses}")
-    worst_loss = max(abs(g - w) / abs(w) for g, w in zip(graph_losses, eager_losses))
-    worst = ("", 0.0)
-    for name, p in e.model.named_parameters():
-        err = (graph_params[name] - p).abs().max().item() / \
-            max(p.abs().max().item(), 1e-30)
-        worst = max(worst, (name, err), key=lambda x: x[1])
-    log(f"  largest difference: loss {worst_loss:.3e} relative, parameter "
-        f"{worst[0]} {worst[1]:.3e} of its max (limit {GRAPH_LIMIT:g})")
-    if not (all(math.isfinite(x) for x in graph_losses)
-            and worst_loss <= GRAPH_LIMIT and worst[1] <= GRAPH_LIMIT):
-        raise AssertionError(f"graphed steps differ from eager: loss "
-                             f"{worst_loss}, {worst}")
+    def build():
+        s = train_mod.setup(config, "cuda")
+        box["tokens"], snapped = s.tokens_per_step, []
 
-    def sync():
-        torch.cuda.synchronize(dev)
+        def snapshot():
+            # First after the replays, which run no Python: the capture's
+            # launches are still the optimizer's last.
+            if not snapped:
+                snapped.append((s.opt.last_launches, s.opt.launch_order))
+            return {n: p.detach().cpu() for n, p in s.model.named_parameters()}
 
-    box = [ctr]
+        box["captured"] = snapped
+        return (s.step, train_mod.make_cache(config, s.sp, dev), s.opt, snapshot,
+                {"all_reduce": s.opt.plan.num_buckets})
 
-    def eager_step():
-        x, y, box[0] = cache.sample(box[0])
-        e.step(x, y)
-
-    eager_rate = bench.measure_steps_per_s(eager_step, warmup=2,
-                                           iters=2 * GRAPH_K, reps=3, sync=sync)
-    graph_rate = GRAPH_K * bench.measure_steps_per_s(loop, warmup=1, iters=2,
-                                                     reps=3, sync=sync)
-    log(f"  tokens/s (median of 3 windows of {2 * GRAPH_K} steps): eager "
-        f"{eager_rate * s.tokens_per_step:.1f} ({1e3 / eager_rate:.2f} ms a "
-        f"step), graphed {graph_rate * s.tokens_per_step:.1f} "
-        f"({1e3 / graph_rate:.2f} ms a step)")
-    read_counts(fa, rf)
-    del loop, s, e
-    basics.shutdown()
-    torch.cuda.empty_cache()
-    return captured
+    g, e = graph_pair(torch, fa, rf, basics, loop_mod, config_label(config),
+                      build, dev, card, paths, phase,
+                      {k: config.layers for k in (RING_KERNELS if config.sp
+                                                  else KERNELS)})
+    if keep is not None:
+        keep.update(losses=g["losses"], params=g["params"])
+    tokens = box["tokens"]
+    graph_ms, eager_ms = statistics.median(g["ms"]), statistics.median(e["ms"][1:])
+    log(f"  tokens/s: eager {1e3 * tokens / eager_ms:.1f} ({eager_ms:.2f} ms a "
+        f"step, median of steps 1-{len(e['ms']) - 1}, each synced), graphed "
+        f"{1e3 * tokens / graph_ms:.1f} ({graph_ms:.2f} ms a step, median of "
+        f"{GRAPH_DISPATCHES} dispatches over {GRAPH_K})")
+    return box["captured"][0]
 
 
 # Phase 14. A world of one: each group of the ladder has one rank, so the
@@ -1745,6 +1714,169 @@ def sharded_phase(torch, fa, rf, basics, train_mod, card, dev, paths) -> None:
     log("  planned per-rank bytes of the parameters (state_bytes_per_rank(); "
         "Adam's state is twice that), not measured: " + ", ".join(
             f"shard {n} {v} B" for n, v in zero["planned"].items()))
+
+
+# Phase 16, graphed, and phase 19, graphed. One CUDA graph of each sharded
+# or pipelined step, replayed GRAPH_DISPATCHES x GRAPH_K times, against
+# GRAPH_DISPATCHES x GRAPH_K eager steps of the same setup (the same
+# capturable Adam) on the same cache draws: held to phase 13's rule (every
+# loss and parameter within GRAPH_LIMIT relative, bit-equal expected and
+# printed). The collectives of ``torch.distributed`` are counted while the
+# step is captured and while it is replayed (a replay runs no Python, so
+# none), as are B1-B3's launches.
+SHARD_COLLECTIVES = ("all_reduce", "all_gather_into_tensor",
+                     "reduce_scatter_tensor", "batch_isend_irecv")
+
+
+def graph_errors(graph_losses, graph_state, eager_losses, eager_state) -> tuple:
+    """Phase 13's readings of a graphed run against its eager run: the
+    largest relative loss error, ``(name, error)`` of the state tensor
+    farthest off (``max|graphed - eager| / max|eager|``), and whether both
+    are bit-equal."""
+    loss_err = max(abs(g - w) / abs(w) for g, w in zip(graph_losses, eager_losses))
+    worst = ("", 0.0)
+    for name, w in eager_state.items():
+        err = (graph_state[name].double() - w.double()).abs().max().item() / \
+            max(w.double().abs().max().item(), 1e-30)
+        worst = max(worst, (name, err), key=lambda x: x[1])
+    equal = graph_losses == eager_losses and all(
+        torch_equal(graph_state[n], w) for n, w in eager_state.items())
+    return loss_err, worst, equal
+
+
+def hold_graph_pair(label, graph, eager, bit_equal_required=False) -> None:
+    """Phase 13's rule on two runs' losses and parameters (on the host)."""
+    loss_err, (name, err), equal = graph_errors(graph["losses"], graph["params"],
+                                                eager["losses"], eager["params"])
+    log(f"  {label}: losses {graph['losses']} vs {eager['losses']}; largest "
+        f"difference: loss {loss_err:.3e} relative, parameter {name} {err:.3e} "
+        f"of its max (limit {GRAPH_LIMIT:g}); bit-equal: {equal}")
+    if not (all(math.isfinite(x) for x in graph["losses"])
+            and loss_err <= GRAPH_LIMIT and err <= GRAPH_LIMIT):
+        raise AssertionError(f"{label}: loss {loss_err}, {name} {err}")
+    if bit_equal_required and not equal:
+        raise AssertionError(f"{label}: not bit-equal")
+
+
+def graph_pair(torch, fa, rf, basics, loop_mod, label, build, dev, card, paths,
+               key, launches) -> tuple:
+    """The graphed run and the eager run of one ``build()``, which returns
+    ``(step, cache, optimizer, snapshot, collectives)`` (``snapshot()``: the
+    parameters on the host, called after each run; ``collectives``: those
+    one step issues, by name): the graphed dispatches first, then the
+    parameters and the optimizer's state put back as they were built
+    (``loop.TrainingState``, as the loop's warm-up does) and the same steps
+    eagerly. Returns both runs (losses, parameters, step ms, peak memory);
+    holds the capture's collectives to ``collectives`` and the kernels'
+    launches at the capture to ``launches`` (by kernel; 0 if absent), none
+    on replay."""
+    import torch.distributed as dist
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    step, cache, opt, snapshot, want = build()
+    built = loop_mod.TrainingState(getattr(opt, "optimizer", opt), cache.counter())
+    held = sum(t.numel() * t.element_size() for t in built.saved) / 1e9
+    loop = loop_mod.make_scan_train_loop(step, cache, GRAPH_K, optimizer=opt)
+    loop.warm_up()
+    read_counts(fa, rf)
+    with CountCollectives(dist, SHARD_COLLECTIVES) as at_capture:
+        loop.capture()
+    captured = read_counts(fa, rf)
+    losses, ms = [], []
+    with CountCollectives(dist, SHARD_COLLECTIVES) as at_replay:
+        for _ in range(GRAPH_DISPATCHES):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            loop()
+            losses += loop.losses.tolist()
+            ms.append(1e3 * (time.perf_counter() - t0) / GRAPH_K)
+    replayed = read_counts(fa, rf)
+    runs = {"graphed": {"losses": losses, "ms": ms, "params": snapshot(),
+                        "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}}
+    del loop
+    built.restore()
+    opt.zero_grad()         # the captured step's gradients, in the graph's pool
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ctr, losses, ms = cache.counter(), [], []
+    for _ in range(GRAPH_K * GRAPH_DISPATCHES):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        x, y, ctr = cache.sample(ctr)
+        losses.append(step(x, y).item())
+        ms.append(1e3 * (time.perf_counter() - t0))
+    read_counts(fa, rf)
+    runs["eager"] = {"losses": losses, "ms": ms, "params": snapshot(),
+                     "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+    del step, cache, opt, snapshot, built
+    basics.shutdown()
+    hold_counts(f"{label}, at capture (one step)", captured, launches)
+    hold_counts(f"{label}, {GRAPH_DISPATCHES} dispatches of replays", replayed, {})
+    paths[f"{key}: capture of one step, {label}"] = captured
+    log(f"  {label}: collectives at the capture {at_capture.counts} (want "
+        f"{want}), during the replays {at_replay.counts}")
+    if at_capture.counts != want or at_replay.counts:
+        raise AssertionError(f"{label}: collectives at capture {at_capture.counts}, "
+                             f"on replay {at_replay.counts}")
+    g, e = runs["graphed"], runs["eager"]
+    log(f"  {label}: step ms graphed {[round(t, 2) for t in g['ms']]} (a "
+        f"dispatch / {GRAPH_K}), eager median {statistics.median(e['ms'][1:]):.2f} "
+        f"(steps 1-{len(e['ms']) - 1}); peak memory graphed {g['peak_gb']:.3f} GB, "
+        f"eager {e['peak_gb']:.3f} GB (each with the {held:.3f} GB copy of the "
+        f"optimizer's parameters the eager run starts from), on {card}")
+    hold_graph_pair(f"{label} graphed vs eager", g, e)
+    return g, e
+
+
+def graphed_sharded(torch, fa, rf, basics, train_mod, loop_mod, card, dev,
+                    paths, flat_graph) -> None:
+    """ZeRO at HOROVOD_MESH=1x1 and FSDP on ``training_groups(1, 1)``, each
+    graphed against eager; the graphed ZeRO step against phase 13's graphed
+    flat step, bit for bit (at shard 1 the exchange is the DP call, and both
+    Adams are capturable, foreach on rows and parameters alike)."""
+    from horovod_tpu_torch.parallel import fsdp as fsdp_mod
+    from horovod_tpu_torch.parallel import sharded as sh
+
+    config = train_mod.TrainConfig(steps_per_dispatch=GRAPH_K)
+
+    def zero():
+        os.environ["HOROVOD_MESH"] = "1x1"
+        try:
+            s = train_mod.setup(dataclasses.replace(config, sharded=True), "cuda")
+        finally:
+            os.environ.pop("HOROVOD_MESH", None)
+        opt = s.opt
+
+        def snapshot():
+            sh.gather_params(opt.rows, opt.shard_plan, opt.layout, opt.params)
+            return {n: p.detach().cpu() for n, p in s.model.named_parameters()}
+
+        # At shard 1 each bucket is the DP call: one all-reduce, no gather.
+        return (s.step, train_mod.make_cache(config, None, dev), opt, snapshot,
+                {"all_reduce": opt.plan.num_buckets})
+
+    def fsdp():
+        s = train_mod.setup_fsdp(config, device="cuda")
+
+        def snapshot():
+            return {n: t.cpu() for n, t in
+                    fsdp_mod.fsdp_unshard_params([s.rows], s.shapes).items()}
+
+        return (s.step, train_mod.make_cache(config, None, dev), s.optimizer, snapshot,
+                {"all_gather_into_tensor": len(s.rows),
+                 "reduce_scatter_tensor": len(s.rows)})
+
+    per_step = {k: config.layers for k in KERNELS}
+    g, _ = graph_pair(torch, fa, rf, basics, loop_mod, "ZeRO 1x1", zero, dev,
+                      card, paths, "16", per_step)
+    hold_graph_pair("ZeRO 1x1 graphed vs phase 13's graphed flat step", g,
+                    flat_graph, bit_equal_required=True)
+    del g
+    graph_pair(torch, fa, rf, basics, loop_mod, "FSDP", fsdp, dev, card, paths,
+               "16", per_step)
 
 
 # Phase 17. Tensor parallelism. (a) A model group of one in a world of one
@@ -2307,6 +2439,33 @@ def pipeline_parallel(torch, fa, rf, basics, train_mod, card, dev, paths) -> Non
         f"rank, forward and backward (planned, not measured)")
 
 
+def graphed_pipeline(torch, fa, rf, basics, train_mod, loop_mod, card, dev,
+                     paths) -> None:
+    """19a/19b graphed: the pipelined step of a pp group of one, n_micro 1
+    on a batch of 1 and PP_MICRO on a batch of PP_MICRO, graphed against
+    eager. Each microbatch launches B1-B3 once per layer and tick."""
+    for n_micro, batch in ((1, 1), (PP_MICRO, PP_MICRO)):
+        config = train_mod.TrainConfig(batch=batch, steps_per_dispatch=GRAPH_K)
+
+        def build():
+            s = train_mod.setup_pipeline(config, 1, n_micro, "cuda")
+
+            def snapshot():
+                return {n: p.detach().cpu() for n, p in s.stage.named_parameters()}
+
+            # A bucket's all-reduce over the dp group, the three outer
+            # leaves' sums and the loss's last-stage value over the pp
+            # group: all-reduces in groups of one, and no P2P call.
+            return (s.step, train_mod.make_cache(config, None, dev, s.layout.dp_rank),
+                    s.opt, snapshot,
+                    {"all_reduce": s.opt.plan.num_buckets + 3 + 1})
+
+        sub = "19a" if n_micro == 1 else "19b"
+        graph_pair(torch, fa, rf, basics, loop_mod,
+                   f"({sub}) pp group of one, n_micro {n_micro}", build, dev,
+                   card, paths, sub, {k: n_micro * config.layers for k in KERNELS})
+
+
 # Phase 20. The gradient exchange from the gradient hooks
 # (HOROVOD_LATENCY_HIDING=1) at HOROVOD_NUM_BUCKETS=OVERLAP_BUCKETS in a
 # world of one over NCCL: the same fused buffers, the same all-reduces and
@@ -2367,7 +2526,7 @@ def overlap_run(torch, fa, rf, basics, train_mod, config, hooked, dev) -> dict:
     return run
 
 
-def overlap_phase(torch, fa, rf, basics, train_mod, loop_mod, bench, card, dev,
+def overlap_phase(torch, fa, rf, basics, train_mod, loop_mod, card, dev,
                   paths) -> None:
     config = train_mod.TrainConfig()
     runs = {hooked: overlap_run(torch, fa, rf, basics, train_mod, config, hooked, dev)
@@ -2426,7 +2585,7 @@ def overlap_phase(torch, fa, rf, basics, train_mod, loop_mod, bench, card, dev,
     os.environ["HOROVOD_LATENCY_HIDING"] = "1"
     try:
         captured = graphed_against_eager(torch, fa, rf, basics, train_mod, loop_mod,
-                                         bench, graph_config, dev, paths, phase="20")
+                                         graph_config, dev, card, paths, phase="20")
     finally:
         os.environ.pop("HOROVOD_NUM_BUCKETS")
         os.environ.pop("HOROVOD_LATENCY_HIDING")
@@ -2811,7 +2970,7 @@ def checkpoint_phase(torch, fa, rf, basics, train_mod, loop_mod, card, dev,
 # the wire at full width is the same arithmetic, so every such candidate,
 # the controller's run and ZeRO at 1x1 are held bit-equal to the plain run.
 # A bf16 wire rounds each gradient once: phase 5's loss limit (1e-2).
-TUNE_THRESHOLDS = (4 << 20, 64 << 20, 256 << 20)
+TUNE_THRESHOLDS = (4 << 20, 64 << 20)
 TUNE_BUCKETS = (1, 4)
 TUNE_WIRES = ("none", "bf16")
 TUNE_WINDOW = dict(warmup=1, iters=2, reps=2)
@@ -3077,34 +3236,54 @@ def roofline_and_timeline(torch, fa, rf, basics, train_mod, card, dev, paths,
 
 def zero_tune(torch, fa, rf, basics, train_mod, dev, paths):
     """22d: ``tune(mesh_shapes=("1x1",))`` through ZeRO against the flat
-    candidate, both eager on a plain Adam (the graphed flat step's
-    capturable Adam rounds otherwise), 3 steps a call."""
+    candidate, 3 steps a call, twice: graphed (each candidate's step
+    captured on a capturable Adam) and with ``graphed=False`` (every
+    candidate's steps eager on a plain Adam). Each pair bit-equal; the
+    memory the graphed sweep leaves allocated held to 22a's rule."""
     from horovod_tpu_torch import autotune
+    from horovod_tpu_torch.loop import WARMUP_STEPS
 
     config = train_mod.TrainConfig(steps_per_dispatch=3)
-    factory = CountedFactory(train_mod.TuneStepFactory(config, "cuda",
-                                                       graphed=False), fa, rf)
-    read_counts(fa, rf)
     window = dict(warmup=1, iters=1, reps=1, gp_rounds=0)
-    flat = autotune.tune(factory, thresholds=(64 << 20,), **window)
-    zero = autotune.tune(factory, thresholds=(64 << 20,), mesh_shapes=("1x1",),
-                         **window)
-    factory.factory.close()
-    factory.finish()
-    a, b = factory.factory.records
-    log(f"  flat: {a['planned_buckets']} buckets, losses {a['losses']}, "
-        f"{flat.best.steps_per_s * 3:.3f} steps/s; ZeRO 1x1: "
-        f"{b['planned_buckets']} buckets, losses {b['losses']}, "
-        f"{zero.best.steps_per_s * 3:.3f} steps/s, best config {zero.best.config}")
-    if a["losses"] != b["losses"] or a["planned_buckets"] != b["planned_buckets"]:
-        raise AssertionError("ZeRO at 1x1 is not bit-equal to the flat candidate")
-    for counts, r in zip(factory.counts, (a, b)):
-        hold_counts(f"{'ZeRO 1x1' if r['mesh_shape'] else 'flat'}, 2 calls of 3 "
-                    f"eager steps", counts, {k: config.layers * 6 for k in KERNELS})
-    paths["22d: tune, ZeRO 1x1, 2 calls of 3 steps"] = factory.counts[1]
-    basics.shutdown()
-    gc.collect()
-    torch.cuda.empty_cache()
+    for graphed in (True, False):
+        basics.init("cuda")
+        before = held_memory(torch, dev)
+        factory = CountedFactory(train_mod.TuneStepFactory(config, "cuda",
+                                                           graphed=graphed), fa, rf)
+        read_counts(fa, rf)
+        flat = autotune.tune(factory, thresholds=(64 << 20,), **window)
+        zero = autotune.tune(factory, thresholds=(64 << 20,), mesh_shapes=("1x1",),
+                             **window)
+        factory.factory.close()
+        factory.finish()
+        after = held_memory(torch, dev)
+        a, b = factory.factory.records
+        log(f"  {'graphed' if graphed else 'eager'}: flat {a['planned_buckets']} "
+            f"buckets, graphed {a['graphed']}, losses {a['losses']}, "
+            f"{flat.best.steps_per_s * 3:.3f} steps/s; ZeRO 1x1 "
+            f"{b['planned_buckets']} buckets, graphed {b['graphed']}, losses "
+            f"{b['losses']}, {zero.best.steps_per_s * 3:.3f} steps/s, best config "
+            f"{zero.best.config}")
+        if (a["graphed"], b["graphed"]) != (graphed, graphed):
+            raise AssertionError(f"a candidate ran {'eagerly' if graphed else 'graphed'}")
+        if a["losses"] != b["losses"] or a["planned_buckets"] != b["planned_buckets"]:
+            raise AssertionError("ZeRO at 1x1 is not bit-equal to the flat candidate")
+        # Graphed: the warm-up and the capture run Python, the replays none.
+        steps, what = (WARMUP_STEPS + 1, "warm-up and capture") if graphed \
+            else (6, "2 calls of 3 steps")
+        for counts, r in zip(factory.counts, (a, b)):
+            hold_counts(f"{'ZeRO 1x1' if r['mesh_shape'] else 'flat'}, {what} "
+                        f"({steps} steps)", counts,
+                        {k: config.layers * steps for k in KERNELS})
+        paths[f"22d: tune, ZeRO 1x1, {what}"] = factory.counts[1]
+        log(f"  memory allocated before {before / 1e9:.3f} GB, after "
+            f"{after / 1e9:.3f} GB; peaks {a['peak_bytes'] / 1e9:.3f} (flat) and "
+            f"{b['peak_bytes'] / 1e9:.3f} GB (ZeRO 1x1)")
+        if graphed and abs(after - before) > TUNE_LEAK:
+            raise AssertionError(f"22d kept {after - before} B allocated")
+        basics.shutdown()
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 def tuning_phase(torch, fa, rf, basics, train_mod, card, dev, paths) -> None:
@@ -3127,7 +3306,7 @@ def tuning_phase(torch, fa, rf, basics, train_mod, card, dev, paths) -> None:
     gc.collect()
     torch.cuda.empty_cache()
     log("  (22d) tune(mesh_shapes=('1x1',)) through ZeRO against the flat "
-        "candidate, eager, 3 steps a call")
+        "candidate, 3 steps a call, graphed and all eager (graphed=False)")
     zero_tune(torch, fa, rf, basics, train_mod, dev, paths)
 
 
@@ -4690,80 +4869,68 @@ def recording_driver(base):
 
 def control_tree_run(torch, fa, rf, card, paths, tmp, ports, secret,
                      want_losses, layers) -> None:
-    """26d: ``run_command`` of 4 workers across fake hosts a and b, with
-    ``HOROVOD_CTRL_TREE`` unset (the tree on) and then set to 0."""
+    """26d: ``run_command`` of 4 workers across fake hosts a and b with the
+    tree on (``HOROVOD_CTRL_TREE`` unset). The flat control plane runs on
+    the card in every one-host launch (phases 23a, 27a, 28a, 30), and
+    tests/test_torch_port_ctrl.py holds the tree to it across fake hosts."""
     import horovod_tpu_torch.runner as prunner
 
     spec = ",".join(f"127.0.0.1@{p}:{n}" for p, n in zip(ports, TREE_SLOTS))
     world = sum(TREE_SLOTS)
-    runs = {}
+    out = os.path.join(tmp, "tree")
+    os.makedirs(out)
     saved = prunner.DriverService
-    for tree in (True, False):
-        out = os.path.join(tmp, "tree" if tree else "flat")
-        os.makedirs(out)
-        cls, made = recording_driver(saved)
-        prunner.DriverService = cls
-        prev = os.environ.pop("HOROVOD_CTRL_TREE", None)
-        if not tree:
-            os.environ["HOROVOD_CTRL_TREE"] = "0"
-        try:
-            t0 = time.perf_counter()
-            rc = prunner.run_command(
-                [sys.executable, os.path.abspath(__file__), "--tree-worker", out],
-                hosts=spec, agent_secret=secret, timeout=600,
-                env={"HOROVOD_DEVICE_ORDINAL": "0"})
-            secs = time.perf_counter() - t0
-        finally:
-            prunner.DriverService = saved
-            os.environ.pop("HOROVOD_CTRL_TREE", None)
-            if prev is not None:
-                os.environ["HOROVOD_CTRL_TREE"] = prev
-        if rc != 0:
-            raise AssertionError(f"26d: run_command exited {rc} "
-                                 f"({'tree' if tree else 'flat'})")
-        workers = []
-        for r in range(world):
-            with open(os.path.join(out, f"rank{r}.json")) as f:
-                workers.append(json.load(f))
-        (driver,) = made
-        runs[tree] = (workers, driver.seen, driver.final_stats, secs)
-    for tree, (workers, seen, stats, secs) in runs.items():
-        label = "tree" if tree else f"flat (HOROVOD_CTRL_TREE=0)"
-        for w in workers:
-            if w["losses"] != list(want_losses[:TREE_STEPS]) or w["size"] != 1:
-                raise AssertionError(f"26d {label}: launched rank "
-                                     f"{w['launched_rank']}'s losses {w['losses']} "
-                                     f"are not phase 4's first {TREE_STEPS}")
-            if bool(w["ctrl_addrs"]) != tree:
-                raise AssertionError(f"26d {label}: launched rank "
-                                     f"{w['launched_rank']} dialed "
-                                     f"{w['ctrl_addrs'] or 'the driver'}")
-        counts = {k: sum(w["launches"].get(k, 0) for w in workers)
-                  for k in {**KERNELS, **RING_KERNELS}}
-        hold_counts(f"26d {label}, {world} workers x {TREE_STEPS} steps", counts,
-                    {k: layers * TREE_STEPS * world for k in KERNELS})
-        paths[f"26d: {TREE_STEPS} steps in each of the {world} workers "
-              f"run_command launched across two fake hosts, {label}"] = counts
-        kinds = {}
-        for kind, addr in seen:
-            kinds.setdefault(kind, []).append(addr)
-        log(f"  (26d) {label}: {world} workers in {secs:.1f} s, each one's losses "
-            f"phase 4's first {TREE_STEPS}; at the driver: "
-            f"{stats['connections_total']} connections, "
-            f"{stats['bytes_in']:,} B in + {stats['bytes_out']:,} B out of control "
-            f"traffic, requests by kind "
-            f"{ {k: len(v) for k, v in sorted(kinds.items())} }")
-    _, seen, stats, _ = runs[True]
+    cls, made = recording_driver(saved)
+    prunner.DriverService = cls
+    prev = os.environ.pop("HOROVOD_CTRL_TREE", None)
+    try:
+        t0 = time.perf_counter()
+        rc = prunner.run_command(
+            [sys.executable, os.path.abspath(__file__), "--tree-worker", out],
+            hosts=spec, agent_secret=secret, timeout=600,
+            env={"HOROVOD_DEVICE_ORDINAL": "0"})
+        secs = time.perf_counter() - t0
+    finally:
+        prunner.DriverService = saved
+        if prev is not None:
+            os.environ["HOROVOD_CTRL_TREE"] = prev
+    if rc != 0:
+        raise AssertionError(f"26d: run_command exited {rc}")
+    workers = []
+    for r in range(world):
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            workers.append(json.load(f))
+    (driver,) = made
+    seen, stats = driver.seen, driver.final_stats
+    for w in workers:
+        if w["losses"] != list(want_losses[:TREE_STEPS]) or w["size"] != 1:
+            raise AssertionError(f"26d: launched rank {w['launched_rank']}'s "
+                                 f"losses {w['losses']} are not phase 4's first "
+                                 f"{TREE_STEPS}")
+        if not w["ctrl_addrs"]:
+            raise AssertionError(f"26d: launched rank {w['launched_rank']} "
+                                 f"dialed the driver, not its host's leader")
+    counts = {k: sum(w["launches"].get(k, 0) for w in workers)
+              for k in {**KERNELS, **RING_KERNELS}}
+    hold_counts(f"26d tree, {world} workers x {TREE_STEPS} steps", counts,
+                {k: layers * TREE_STEPS * world for k in KERNELS})
+    paths[f"26d: {TREE_STEPS} steps in each of the {world} workers "
+          f"run_command launched across two fake hosts, tree"] = counts
+    kinds = {}
+    for kind, addr in seen:
+        kinds.setdefault(kind, []).append(addr)
     request_conns = {a for k, a in seen if k != "host_wait_assignment"}
     wait_conns = {a for k, a in seen if k == "host_wait_assignment"}
     batches = [a for k, a in seen if k == "host_register"]
     per_host = {a: batches.count(a) for a in set(batches)}
-    log(f"  tree: worker-side request connections {len(request_conns)} (one per "
-        f"host leader; flat: {runs[False][2]['connections_total']}), wait "
+    log(f"  (26d) tree: {world} workers in {secs:.1f} s, each one's losses "
+        f"phase 4's first {TREE_STEPS}; at the driver: "
+        f"{stats['connections_total']} connections, {stats['bytes_in']:,} B in "
+        f"+ {stats['bytes_out']:,} B out of control traffic, requests by kind "
+        f"{ {k: len(v) for k, v in sorted(kinds.items())} }; worker-side request "
+        f"connections {len(request_conns)} (one per host leader), wait "
         f"connections {len(wait_conns)}; host_register per leader connection "
-        f"{sorted(per_host.values())}; control bytes at the driver "
-        f"{stats['bytes_in'] + stats['bytes_out']:,} B tree vs "
-        f"{runs[False][2]['bytes_in'] + runs[False][2]['bytes_out']:,} B flat ({card})")
+        f"{sorted(per_host.values())} ({card})")
     if len(request_conns) != len(ports) or len(wait_conns) != len(ports) \
             or "register" in {k for k, _ in seen} \
             or any(n > 1 for n in per_host.values()) or len(per_host) != len(ports):
@@ -4805,7 +4972,7 @@ def trees_phase(torch, fa, rf, basics, train_mod, card, dev, paths, want_losses,
         t0 = time.perf_counter()
         log(f"  (26d) the control tree: run_command of {sum(TREE_SLOTS)} workers "
             f"across fake hosts a:{TREE_SLOTS[0]} and b:{TREE_SLOTS[1]} on the one "
-            f"card, tree on (HOROVOD_CTRL_TREE unset) and off")
+            f"card, the tree on (HOROVOD_CTRL_TREE unset)")
         control_tree_run(torch, fa, rf, card, paths, tmp, ports, secret,
                          want_losses, train_mod.TrainConfig().layers)
         log(f"  26d took {time.perf_counter() - t0:.1f} s")
@@ -5396,7 +5563,10 @@ def realdata_phase(torch, fa, rf, basics, tc, card, dev, paths) -> None:
 
 # -- phase 30: the scaling benchmark ---------------------------------------------
 
-SCALE_STEPS, SCALE_REPS = 4, 3     # (b)'s windows: fewer steps than its default
+# (b)'s windows, and (a)'s iterations of the 100 MB allreduce: fewer than
+# the example's defaults (8 steps x 3, 3), so that the script keeps its
+# time limit on the slower hosts; every world still runs and is checked.
+SCALE_STEPS, SCALE_REPS, SCALE_ITERS = 2, 2, 2
 
 
 def scaling_phase(torch, card, cnn_step_ms, paths) -> None:
@@ -5410,7 +5580,7 @@ def scaling_phase(torch, card, cnn_step_ms, paths) -> None:
         [sys.executable, os.path.join(root, "examples", "torch_scaling_benchmark.py"),
          "--eager", "--hier", "--compiled", "--compiled-mp", "--buckets-ab",
          "--project", "--step-ms", repr(cnn_step_ms), "--steps", str(SCALE_STEPS),
-         "--reps", str(SCALE_REPS)],
+         "--reps", str(SCALE_REPS), "--iters", str(SCALE_ITERS)],
         env=launcher_env(), cwd=root, capture_output=True, text=True, timeout=900)
     for ln in proc.stderr.splitlines():
         if not ln.startswith("[W"):
@@ -5482,7 +5652,6 @@ def main() -> int:
     from horovod_tpu_torch import loop as loop_mod
     from horovod_tpu_torch import train as train_mod
     from horovod_tpu_torch import train_cnn as tc
-    from horovod_tpu_torch import transformer_benchmark as bench
 
     t_start = time.perf_counter()
     _STARTED.append(t_start)
@@ -5610,13 +5779,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     bf16_head(torch, fa, rf, basics, train_mod, dev, paths)
 
+    flat_graph = {}
     for config in (train_mod.TrainConfig(steps_per_dispatch=GRAPH_K),
                    train_mod.TrainConfig(sp=1, steps_per_dispatch=GRAPH_K)):
         log(f"[13] the graphed loop, {config_label(config)}, K = {GRAPH_K}: "
             f"{GRAPH_DISPATCHES} dispatches against "
             f"{GRAPH_K * GRAPH_DISPATCHES} eager steps")
         graphed_against_eager(torch, fa, rf, basics, train_mod, loop_mod,
-                              bench, config, dev, paths)
+                              config, dev, card, paths,
+                              keep=None if config.sp else flat_graph)
 
     log(f"[14] hierarchical data parallelism: ResNet-50 on the ('dcn', 'ici') "
         f"groups of a world of one, {HIER_THRESHOLD} and 64 MiB bucket caps")
@@ -5627,8 +5798,13 @@ def main() -> int:
     shard_timing = ulysses_on_card(torch, fa, rf, ra, dev, timing, paths)
 
     log(f"[16] sharded data parallelism at full width: ZeRO (HOROVOD_MESH=1x1) "
-        f"and FSDP against the flat step, {SHARD_STEPS} steps each")
+        f"and FSDP against the flat step, {SHARD_STEPS} steps each; graphed "
+        f"(K = {GRAPH_K}) against eager and ZeRO graphed against phase 13's "
+        f"graphed flat step")
     sharded_phase(torch, fa, rf, basics, train_mod, card, dev, paths)
+    graphed_sharded(torch, fa, rf, basics, train_mod, loop_mod, card, dev,
+                    paths, flat_graph)
+    del flat_graph
 
     log(f"[17] tensor parallelism: a model group of one against the flat step, "
         f"{TP_STEPS} steps each; a virtual model group of {TP_N}")
@@ -5640,13 +5816,14 @@ def main() -> int:
 
     log(f"[19] pipeline parallelism at full width: a pp group of one against the "
         f"flat step ({PP_STEPS} steps; n_micro 1 and {PP_MICRO}); a virtual pp "
-        f"of {PP_N}")
+        f"of {PP_N}; the pipelined step graphed (K = {GRAPH_K}) against eager")
     pipeline_parallel(torch, fa, rf, basics, train_mod, card, dev, paths)
+    graphed_pipeline(torch, fa, rf, basics, train_mod, loop_mod, card, dev, paths)
 
     log(f"[20] the gradient exchange from the gradient hooks "
         f"(HOROVOD_LATENCY_HIDING=1, {OVERLAP_BUCKETS} buckets) against the serial "
         f"exchange, {OVERLAP_STEPS} steps each; the graphed loop with the hooks on")
-    overlap_phase(torch, fa, rf, basics, train_mod, loop_mod, bench, card, dev, paths)
+    overlap_phase(torch, fa, rf, basics, train_mod, loop_mod, card, dev, paths)
 
     log(f"[21] checkpoint and resume at full width: eager, graphed (K = {GRAPH_K}) "
         f"and ZeRO into flat, each bit-equal to the run that never stopped; the "

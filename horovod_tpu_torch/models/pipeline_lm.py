@@ -159,7 +159,8 @@ def pipeline_lm_logits(stage: PipelineStage, tokens_micro: torch.Tensor,
 
 
 def pipeline_lm_loss_and_grads(stage: PipelineStage, tokens_micro: torch.Tensor,
-                               group: Optional[dist.ProcessGroup] = None
+                               group: Optional[dist.ProcessGroup] = None,
+                               targets_micro: Optional[torch.Tensor] = None
                                ) -> tuple[torch.Tensor, dict]:
     """Loss and gradients of the pipelined LM. Runs the backward pass into
     the stage's ``.grad`` (adding to what is there) and sums the outer
@@ -173,12 +174,16 @@ def pipeline_lm_loss_and_grads(stage: PipelineStage, tokens_micro: torch.Tensor,
     the ticks' P2P calls in one order.
 
     The loss is the mean next-token cross entropy over all ``n_micro * mb
-    * T`` rows in one call (targets rolled within each row; on a sequence
-    shard within the shard), masked to the last stage."""
+    * T`` rows in one call, masked to the last stage. The targets are
+    ``targets_micro`` (the shape of ``tokens_micro``), or by default the
+    tokens rolled left within each row (on a sequence shard within the
+    shard)."""
     n_micro, mb, t = tokens_micro.shape
     rows = tokens_micro.reshape(n_micro * mb, t)
+    targets = next_tokens(rows) if targets_micro is None \
+        else targets_micro.reshape(n_micro * mb, t)
     logits = pipeline_lm_logits(stage, tokens_micro, group).reshape(n_micro * mb, t, -1)
-    loss = masked_last_stage_loss(token_loss(logits, next_tokens(rows)), group)
+    loss = masked_last_stage_loss(token_loss(logits, targets), group)
     # The cross entropy keeps what its backward needs: holding the float32
     # logits through the backward too would add their size to the peak.
     del logits

@@ -62,7 +62,9 @@ def pipeline_ticks(n_micro: int, n_stages: int) -> list:
 
 
 def _flag(value: bool, like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(value, device=like.device)
+    # A fill on the device, not a copy from the host: the step that makes
+    # it may be captured in a CUDA graph.
+    return torch.full((), value, dtype=torch.bool, device=like.device)
 
 
 def pipeline_apply(layer_fn: Callable, stage_layers, microbatches: torch.Tensor,

@@ -35,7 +35,8 @@ FSDP step instead (``parallel/fsdp.py``): the model runs on the gathered
 leaves through ``torch.func.functional_call``. Adam runs its ``foreach``
 implementation on every path, so that it steps a flat row and a parameter
 with the same arithmetic per element: at ``shard = 1`` a sharded step is
-the data-parallel step bit for bit.
+the data-parallel step bit for bit, graphed (both Adams ``capturable``) or
+eager.
 
 ``setup_pipeline(config, pp, n_micro)`` builds the GPipe step of
 ``models/pipeline_lm.py`` on the ``('dp', 'pp')`` groups of
@@ -45,6 +46,15 @@ stage's parameters through ``DistributedOptimizer(group=<dp group>)``,
 and a step feeds the replica's batch of ``config.batch`` sequences as
 ``n_micro`` microbatches. The ranks of one pipeline share their batch,
 drawn from (seed, dp index).
+
+Every step takes ``config.steps_per_dispatch``: the ZeRO step of
+``setup(TrainConfig(sharded=True, steps_per_dispatch=K))``, the FSDP step
+and the pipelined step are captured and replayed by the loop as the flat
+one is, where the JAX package jits each one under ``shard_map`` and scans
+it (``make_scan_train_loop``). Every loop draws from ``make_cache(config,
+sp, device, index)``: a pipeline replica passes its dp index. The loop's
+warm-up restores the optimizer's parameters (ZeRO's and FSDP's rows), and
+a ZeRO step refreshes the model's parameters from them at its start.
 """
 
 from __future__ import annotations
@@ -222,15 +232,19 @@ def make_shard(config: TrainConfig, sp: DpSp, device,
     return tokens.contiguous(), positions
 
 
-def make_cache(config: TrainConfig, sp: Optional[DpSp], device) -> DeviceCache:
+def make_cache(config: TrainConfig, sp: Optional[DpSp], device,
+               index: Optional[int] = None) -> DeviceCache:
     """This rank's ``DeviceCache`` of ``CACHE_ROWS`` sequences (at least a
     batch) drawn from (seed, rank), or with ``sp`` from (seed, dp index) and
     cut to this rank's shard, so the ranks of a ring hold the same rows and,
-    with the same seed, draw them in the same order. The targets are each
-    row rolled left by one (within the shard), as ``lm_loss`` takes them."""
+    with the same seed, draw them in the same order. ``index`` draws from
+    (seed, index) in place of the rank: the ranks of one pipeline pass their
+    dp index, so that they share their batch. The targets are each row
+    rolled left by one (within the shard), as ``lm_loss`` takes them."""
     rows = max(CACHE_ROWS, config.batch)
     if sp is None:
-        tokens = make_batch(config, basics.rank(), "cpu", rows)
+        tokens = make_batch(config, basics.rank() if index is None else index,
+                            "cpu", rows)
     else:
         tokens, _ = make_shard(config, sp, "cpu", rows)
     return DeviceCache(tokens, next_tokens(tokens), batch_size=config.batch,
@@ -285,6 +299,13 @@ def adam(params, config: TrainConfig, capturable: bool = False):
                             foreach=True)
 
 
+def graphed_on_card(config: TrainConfig, device) -> bool:
+    """Whether the trainers' Adam is built ``capturable``: when a CUDA graph
+    of the step is asked for (``config.steps_per_dispatch``) on the card."""
+    return config.steps_per_dispatch is not None and \
+        torch.device(device).type == "cuda"
+
+
 def setup(config: TrainConfig, device=None, *,
           fusion_threshold: Optional[int] = None,
           num_buckets: Optional[int] = None,
@@ -295,8 +316,9 @@ def setup(config: TrainConfig, device=None, *,
     ``capturable`` when ``config.steps_per_dispatch`` is set and the device
     is the card, so that its step can be captured in a CUDA graph.
     Sharded: init -> model -> ``broadcast_parameters`` of the full
-    parameters -> this rank's rows -> Adam on the rows ->
-    ``DistributedOptimizer(sharded=True)`` -> ``broadcast_sharded_state``.
+    parameters -> this rank's rows -> Adam on the rows (``capturable`` as
+    the flat one) -> ``DistributedOptimizer(sharded=True)`` ->
+    ``broadcast_sharded_state``. Sharded training with ``sp`` raises.
 
     The exchange's knobs default to the environment's
     (HOROVOD_FUSION_THRESHOLD, HOROVOD_NUM_BUCKETS, HOROVOD_COMPRESSION,
@@ -308,9 +330,8 @@ def setup(config: TrainConfig, device=None, *,
     dev = basics.device()
     sharded = layout is not None or (basics.config().shard_params
                                      if config.sharded is None else config.sharded)
-    if sharded and (config.sp is not None or config.steps_per_dispatch is not None):
-        raise ValueError("sharded training does not combine with sp or "
-                         "steps_per_dispatch yet")
+    if sharded and config.sp is not None:
+        raise ValueError("sharded training does not combine with sp yet")
     sp = dp_sp_groups(config.sp) if config.sp is not None else None
     model = build_model(config, dev, sp.group if sp else None)
     named = jax_ordered(model.named_parameters())
@@ -339,6 +360,7 @@ def build_optimizer(config: TrainConfig, named, sharded: bool, adam_opt=None, *,
     shares) in place of a new one."""
     wire = None if compression is None \
         else Compression.by_name(normalize(compression))
+    graphed = graphed_on_card(config, named[0][1].device)
     if sharded:
         params = [p for _, p in named]
         layout = layout if layout is not None else sharded_groups()
@@ -347,7 +369,7 @@ def build_optimizer(config: TrainConfig, named, sharded: bool, adam_opt=None, *,
                                    hvd_opt._resolved_num_buckets(num_buckets))
         rows = sh.shard_params(params, plan, layout.shard_rank)
         opt = hvd_opt.DistributedOptimizer(
-            adam(rows, config), named, compression=wire,
+            adam(rows, config, graphed), named, compression=wire,
             fusion_threshold=fusion_threshold, num_buckets=num_buckets,
             hierarchical=hierarchical, groups=groups, sharded=True,
             shard_plan=plan, layout=layout)
@@ -355,9 +377,7 @@ def build_optimizer(config: TrainConfig, named, sharded: bool, adam_opt=None, *,
         return opt
     fresh = adam_opt is None
     if fresh:
-        capturable = (config.steps_per_dispatch is not None
-                      and named[0][1].device.type == "cuda")
-        adam_opt = adam([p for _, p in named], config, capturable)
+        adam_opt = adam([p for _, p in named], config, graphed)
     opt = hvd_opt.DistributedOptimizer(
         adam_opt, named, compression=wire, fusion_threshold=fusion_threshold,
         num_buckets=num_buckets, hierarchical=hierarchical, groups=groups,
@@ -409,13 +429,15 @@ def setup_fsdp(config: TrainConfig, layout: Optional[DpFsdp] = None,
                device=None) -> FsdpSetup:
     """init -> model -> ``broadcast_parameters`` -> each parameter cut into
     this rank's FSDP row (the model's own parameters are then released) ->
-    Adam on the rows -> the FSDP step. ``layout`` None is
-    ``training_groups(1, world)``. The plain forward only: no ring, graph,
-    remat or chunked loss."""
-    if (config.sp, config.steps_per_dispatch, config.remat, config.loss_chunk) \
-            != (None, None, False, 0):
+    Adam on the rows (``capturable`` when a graph is asked for on the card)
+    -> the FSDP step. ``layout`` None is ``training_groups(1, world)``. The
+    plain forward only: no ring, remat or chunked loss. With
+    ``config.steps_per_dispatch``, ``make_scan_train_loop(s.step,
+    make_cache(config, None, dev), K, optimizer=s.optimizer)`` is the
+    graphed FSDP loop."""
+    if (config.sp, config.remat, config.loss_chunk) != (None, False, 0):
         raise ValueError("FSDP training takes the plain step only: no sp, "
-                         "steps_per_dispatch, remat or loss_chunk")
+                         "remat or loss_chunk")
     basics.init(device)
     dev = basics.device()
     if layout is None:
@@ -427,7 +449,7 @@ def setup_fsdp(config: TrainConfig, layout: Optional[DpFsdp] = None,
                                           layout.fsdp_rank)
     for _, p in named:
         p.data = p.data.new_empty(0)
-    optimizer = adam(list(rows.values()), config)
+    optimizer = adam(list(rows.values()), config, graphed_on_card(config, dev))
     return FsdpSetup(model=model, rows=rows, shapes=shapes, layout=layout,
                      optimizer=optimizer,
                      step=make_fsdp_train_step(model, rows, shapes, layout,
@@ -438,19 +460,26 @@ def setup_fsdp(config: TrainConfig, layout: Optional[DpFsdp] = None,
 def make_pipeline_train_step(stage: PipelineStage,
                              opt: hvd_opt.DistributedOptimizer, pp_group,
                              n_micro: int):
-    """``step(tokens) -> loss``, GPipe: zero_grad, the replica's ``(batch,
-    T)`` tokens cut into ``n_micro`` microbatches through
+    """``step(tokens, targets=None) -> loss``, GPipe: zero_grad, the
+    replica's ``(batch, T)`` tokens (and ``targets``, by default the tokens
+    rolled left by one) cut into ``n_micro`` microbatches through
     ``pipeline_lm_loss_and_grads`` (the outer leaves' gradients summed over
     the pp group), then ``opt.step()`` (the average over the dp group and
-    Adam). The loss is the last stage's, on every stage."""
+    Adam). The loss is the last stage's, on every stage. ``step(x, y)`` is
+    the loop's ``train_step`` form."""
 
-    def step(tokens: torch.Tensor) -> torch.Tensor:
+    def step(tokens: torch.Tensor, targets: Optional[torch.Tensor] = None
+             ) -> torch.Tensor:
         if tokens.shape[0] % n_micro:
             raise ValueError(f"batch {tokens.shape[0]} not divisible by "
                              f"{n_micro} microbatches")
         opt.zero_grad()
-        loss, _ = pipeline_lm_loss_and_grads(
-            stage, tokens.reshape(n_micro, -1, tokens.shape[1]), pp_group)
+
+        def micro(t):
+            return None if t is None else t.reshape(n_micro, -1, t.shape[1])
+
+        loss, _ = pipeline_lm_loss_and_grads(stage, micro(tokens), pp_group,
+                                             micro(targets))
         opt.step()
         return loss
 
@@ -472,13 +501,18 @@ def setup_pipeline(config: TrainConfig, pp: int, n_micro: int,
                    device=None) -> PipelineSetup:
     """init -> ``training_groups(world / pp, 1, pp)`` -> this rank's stage
     -> ``broadcast_parameters`` over the dp group, and of the outer leaves
-    over the pp group -> Adam on the stage's parameters ->
+    over the pp group -> Adam on the stage's parameters (``capturable``
+    when a graph is asked for on the card) ->
     ``DistributedOptimizer(group=<dp group>)`` -> the pipelined step. The
-    plain step only: no ring, graph, remat, chunked loss or ZeRO."""
-    if (config.sp, config.steps_per_dispatch, config.remat, config.loss_chunk) \
-            != (None, None, False, 0) or config.sharded:
+    plain step only: no ring, remat, chunked loss or ZeRO. With
+    ``config.steps_per_dispatch``, ``make_scan_train_loop(s.step,
+    make_cache(config, None, dev, s.layout.dp_rank), K, optimizer=s.opt)``
+    is the graphed pipeline loop: the replica's cache, drawn from (seed, dp
+    index) as its eager batch is."""
+    if (config.sp, config.remat, config.loss_chunk) != (None, False, 0) \
+            or config.sharded:
         raise ValueError("pipeline training takes the plain step only: no sp, "
-                         "steps_per_dispatch, remat, loss_chunk or sharded")
+                         "remat, loss_chunk or sharded")
     basics.init(device)
     dev = basics.device()
     if basics.size() % pp:
@@ -490,9 +524,9 @@ def setup_pipeline(config: TrainConfig, pp: int, n_micro: int,
     hvd_opt.broadcast_parameters(
         [(n, p) for n, p in named if not n.startswith("blocks.")], 0,
         layout.pp_group)
-    opt = hvd_opt.DistributedOptimizer(adam([p for _, p in named], config),
-                                       named, sharded=False,
-                                       group=layout.dp_group)
+    opt = hvd_opt.DistributedOptimizer(
+        adam([p for _, p in named], config, graphed_on_card(config, dev)), named,
+        sharded=False, group=layout.dp_group)
     hvd_opt.broadcast_optimizer_state(opt, 0, layout.dp_group)
     return PipelineSetup(
         stage=stage, opt=opt, layout=layout,
@@ -566,14 +600,14 @@ class TuneStepFactory:
     the flat ``DistributedOptimizer``; a HOROVOD_MESH spec puts the step on
     ZeRO over that layout's ``sharded_groups`` (the model axis must be 1;
     the ladder has no ZeRO form, in either package, so ``hierarchical`` is
-    ignored there). With ``config.steps_per_dispatch = K`` a flat
-    candidate captures its step in a CUDA graph, where the JAX package
-    re-jits, and ``run`` replays it K times; ZeRO has no graphed step yet,
-    so a mesh candidate runs its K steps eagerly, on a plain Adam. With
-    ``graphed=False`` every candidate does, so that a flat candidate steps
-    as a ZeRO one does: the graph's Adam is ``capturable``, whose update
-    rounds otherwise than the plain one's. ``sync`` fences at a window's
-    end.
+    ignored there). With ``config.steps_per_dispatch = K`` every candidate,
+    flat or ZeRO, captures its step in a CUDA graph on a ``capturable``
+    Adam, where the JAX package re-jits its compiled step, and ``run``
+    replays it K times; a capture that fails raises. ``graphed=False``
+    tunes the eager step instead, the one a job runs where the loop takes
+    no graph (under HOROVOD_ELASTIC=1): every candidate's K steps run
+    eagerly on a plain Adam, whose update rounds otherwise than the
+    capturable one's. ``sync`` fences at a window's end.
 
     ``records`` holds one dict per candidate: its knobs, ``graphed``, the
     plan's ``num_buckets``, each bucket's wire dtype (None: as it is), ``build_s`` (setup, warm-up and capture), the
@@ -619,7 +653,7 @@ class TuneStepFactory:
             torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
         config, layout, groups = self.config, None, None
-        if mesh_shape or not self.graphed:     # eager: a plain Adam
+        if not self.graphed:                   # eager: a plain Adam
             config = dataclasses.replace(config, steps_per_dispatch=None)
         if mesh_shape:
             layout = self._layout(mesh_shape)

@@ -307,7 +307,7 @@ def test_step_factory_zero_at_one_shard_is_the_flat_step(world_of_one):
     factory.close()
     assert zero.best.mesh_shape == "1x1" and not flat.best.mesh_shape
     first, second = factory.records
-    assert first["graphed"] and not second["graphed"]
+    assert first["graphed"] and second["graphed"]
     assert second["losses"] == first["losses"]
     assert second["planned_buckets"] == first["planned_buckets"]
 

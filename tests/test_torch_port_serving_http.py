@@ -90,8 +90,22 @@ def test_streaming_reassembles_to_the_plain_body():
         with pytest.raises(urllib.error.HTTPError) as ei:
             _post(server.port, {"prompt": [], "stream": True})
         assert ei.value.code == 400
+        # The decode worker hands the next request out only once its
+        # deadline has passed, as a busy pool would: a request taken within
+        # its 1 ms would finish inside the frontend's 50 ms grace and
+        # answer 200 with its tokens.
+        take = server.take_decode_feed
+
+        def after_the_deadline():
+            item = take()
+            if item is not None:
+                time.sleep(max(0.0, item[0].deadline_t - time.monotonic()))
+            return item
+
+        server.take_decode_feed = after_the_deadline
         status, _, lines = _stream(server.port, {
             "prompt": [3, 1], "max_tokens": 16, "deadline_ms": 1})
+        server.take_decode_feed = take
         assert status == 200 and "error" in lines[-1]
         cs = server.stats()["metrics"]["counters"]
         assert cs.get("horovod_serve_llm_streams_total", 0) >= 2
@@ -217,8 +231,13 @@ def test_infer_server_kill_retry_and_drain(tmp_path):
             t.join(timeout=180)
             assert not t.is_alive()
         assert not failures, failures[:3]
+        # The load can finish on the survivor before the supervisor's next
+        # tick sees the victim's exit: until then the victim still counts
+        # as serving. Wait for its death to be recorded and its respawn.
         deadline = time.monotonic() + 120
-        while server.manager.serving_count() < 2 and time.monotonic() < deadline:
+        while (server.manager.serving_count() < 2
+               or not server.manager.blacklist.blacklisted()) \
+                and time.monotonic() < deadline:
             time.sleep(0.1)
         assert server.manager.serving_count() == 2, "no respawn"
         assert server.manager.blacklist.blacklisted()

@@ -323,14 +323,32 @@ def test_sharded_optimizer_reads_the_env(world_of_one):
 
 @pytest.mark.parametrize("kw", [dict(sp=1), dict(steps_per_dispatch=2)])
 def test_sharded_trainer_rejects_sp_and_graphs(world_of_one, kw):
-    from horovod_tpu_torch.train import TrainConfig, setup, setup_fsdp
+    """sp stays refused by ZeRO and FSDP; a graph is built by both and
+    each takes a dispatch of the loop (its other tests are in
+    tests/test_torch_port_sharded_graph.py)."""
+    import math
+
+    from horovod_tpu_torch.loop import make_scan_train_loop
+    from horovod_tpu_torch.train import (TrainConfig, make_cache, setup,
+                                         setup_fsdp)
 
     config = TrainConfig(vocab=16, dim=32, heads=2, layers=1, seq=8, sharded=True, **kw)
-    with pytest.raises(ValueError, match="does not combine"):
-        setup(config, "cpu")
-    with pytest.raises(ValueError, match="plain step only"):
-        setup_fsdp(TrainConfig(vocab=16, dim=32, heads=2, layers=1, seq=8, **kw),
-                   device="cpu")
+    plain = TrainConfig(vocab=16, dim=32, heads=2, layers=1, seq=8, **kw)
+    if "sp" in kw:
+        with pytest.raises(ValueError, match="does not combine"):
+            setup(config, "cpu")
+        with pytest.raises(ValueError, match="plain step only"):
+            setup_fsdp(plain, device="cpu")
+        return
+    s = setup(config, "cpu")
+    assert s.opt.sharded and s.sp is None
+    fs = setup_fsdp(plain, device="cpu")
+    for opt in (s.opt.optimizer, fs.optimizer):     # capturable on the card only
+        assert not opt.param_groups[0]["capturable"]
+    for step, opt in ((s.step, s.opt), (fs.step, fs.optimizer)):
+        loop = make_scan_train_loop(step, make_cache(plain, None, "cpu"),
+                                    plain.steps_per_dispatch, optimizer=opt)
+        assert math.isfinite(loop().item())
 
 
 def test_world_of_one_layout(world_of_one):

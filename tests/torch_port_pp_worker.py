@@ -25,8 +25,15 @@ per stage, 4 microbatches of one sequence) against the flat model on the
 same 4 sequences, and at pp 2 x sp 2 (6 blocks per stage, each rank a
 2048-token shard, ring flash) against the whole-sequence flat model on
 the same sequence, loss 1e-2 relative and every gradient 3e-2 relative
-norm (phase 5's bf16 limits); rank 0 prints the step times, each rank's
-peak and kernel launches per step, and ``ok pp world <n>``.
+norm (phase 5's bf16 limits); then the pipelined step at pp = 4 graphed
+(``setup_pipeline`` with ``steps_per_dispatch = GRAPH_K``, 4 microbatches
+of one sequence): GRAPH_DISPATCHES dispatches of one CUDA graph against
+as many eager steps of the same setup on the replica's cache draws,
+every loss and stage parameter within GRAPH_LIMIT relative (bit-equal
+expected; read printed), the P2P calls counted at the capture (one
+``batch_isend_irecv`` a tick hand-off, forward and backward) and none
+during the replays. Rank 0 prints the step times, each rank's peak and
+kernel launches per step, and ``ok pp world <n>``.
 
 Every rank exits non-zero on any failure. Identity and rendezvous come
 from the launcher's ``HOROVOD_*`` variables.
@@ -51,6 +58,7 @@ from horovod_tpu_torch.models.pipeline_lm import (  # noqa: E402
 from horovod_tpu_torch.parallel.mesh import training_groups  # noqa: E402
 from horovod_tpu_torch.parallel.pipeline import (  # noqa: E402
     last_stage_value, masked_last_stage_loss, pipeline_apply, stage_of)
+from torch_port_graphed import GRAPH_K, graphed_run, hold_pair  # noqa: E402
 
 LAYOUTS = ((1, 4, 1), (2, 2, 1), (1, 2, 2))      # (dp, pp, sp)
 DEFAULTS = ((4, 1), (2, 2), (1, 4))              # (dp, fsdp)
@@ -249,6 +257,25 @@ def hold(label, loss, want_loss, grads, want, bad, lines) -> None:
         bad.append(lines[-1])
 
 
+def hold_graphed_pipeline(T, config, pp: int, n_micro: int, bad, lines) -> None:
+    """The pipelined step graphed against its eager steps on every rank
+    (``tests/torch_port_graphed.py``), on the replica's cache draws, each
+    rank's stage parameters held; the P2P calls of one step are one
+    ``batch_isend_irecv`` a hand-off, after every tick but the last,
+    forward and backward."""
+    dev = basics.device()
+
+    def build():
+        s = T.setup_pipeline(config, pp, n_micro, dev.type)
+        return (s.step, T.make_cache(config, None, dev, s.layout.dp_rank), s.opt,
+                lambda: {n: p.detach().cpu() for n, p in s.stage.named_parameters()},
+                {"batch_isend_irecv": 2 * (n_micro + pp - 2)})
+
+    names = ("batch_isend_irecv",)
+    hold_pair(f"pp={pp}, {n_micro} microbatches", graphed_run(build, True, names),
+              graphed_run(build, False, names), lines, bad)
+
+
 def run_cuda() -> None:
     from horovod_tpu_torch import train as T
 
@@ -293,6 +320,9 @@ def run_cuda() -> None:
          lines)
     lines.append(f"pp 2 x sp 2: forward + backward {ms:.2f} ms per rank against "
                  f"{ms_flat:.2f} ms for the flat model on the whole sequence")
+    del want, grads
+    hold_graphed_pipeline(T, dataclasses.replace(
+        T.TrainConfig(), batch=4, steps_per_dispatch=GRAPH_K), 4, 4, bad, lines)
     every = [None] * n
     dist.all_gather_object(every, peaks)
     if rank == 0:

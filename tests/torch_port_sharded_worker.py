@@ -26,6 +26,19 @@ of fresh rows and of an optimizer one step in.
 on ``training_groups(1, 2)``: losses and the parameters after the last
 step.
 
+``graph`` (2 ranks): the graphed loop (``loop.make_scan_train_loop``, K
+steps a dispatch; on the CPU a dispatch runs them eagerly) over the
+trainer's ZeRO step at ``HOROVOD_MESH=1x2`` and its FSDP step on
+``training_groups(1, 2)``, each against K eager calls of the same step
+from a fresh setup on the same cache draws: the losses, the rows and the
+parameters. Then two dispatches of the loop over the reference tests'
+MLP in float64, through ``DistributedOptimizer(sharded=True)`` at 1x2
+(Adam, lr 1e-2) and through the FSDP step body of
+``__graft_entry__._fsdp_step`` at ``training_groups(1, 2)`` (Adam, lr
+1e-3), fed by a ``DeviceCache`` of this rank's rows, each row the input
+and, for the MLP, its target side by side: the loss of each dispatch
+averaged over the ranks, and the rows after each dispatch.
+
 ``cuda`` (4 GPUs): the full-width flash TransformerLM, 3 steps each of
 flat DP, ZeRO 2x2 and 1x4 (``TrainConfig(sharded=True)`` with
 ``HOROVOD_MESH``) and FSDP 4 (``setup_fsdp``), from the same weights on the
@@ -35,7 +48,15 @@ sums in another order; four ranks reduce-scatter and all-reduce in
 another order than the ring allreduce). Rank 0 prints each run's median
 step ms (steps 1-2), every rank's peak memory, the collectives of a
 sharded step (one reduce-scatter and one all-gather per bucket, and at
-2x2 one batch all-reduce per bucket), and ``ok sharded world <n>``.
+2x2 one batch all-reduce per bucket), and ``ok sharded world <n>``. Then
+the graphed steps (``graphed_world``): ZeRO 2x2, ZeRO 1x4 and FSDP 4 with
+``steps_per_dispatch = GRAPH_K``, GRAPH_DISPATCHES dispatches of one CUDA
+graph against as many eager steps of the same setup (the same capturable
+Adam) on each rank's cache draws, every loss and every row and parameter
+within GRAPH_LIMIT relative (bit-equal expected; read printed), the
+collectives counted at the capture (those of one eager step) and none
+during the replays, and each rank's step ms graphed and eager
+(``tests/torch_port_graphed.py``).
 
 Every rank exits non-zero on any failure. Identity and rendezvous come
 from the launcher's ``HOROVOD_*`` variables.
@@ -60,6 +81,8 @@ from horovod_tpu_torch.parallel import sharded as sh  # noqa: E402
 from horovod_tpu_torch.parallel.collectives import ReduceOp  # noqa: E402
 from horovod_tpu_torch.parallel.mesh import (sharded_groups,  # noqa: E402
                                              training_groups)
+from torch_port_graphed import (GRAPH_K, SHARD_COLLECTIVES,  # noqa: E402
+                                CountCollectives, graphed_run, hold_pair)
 
 # The reference tests' MLP leaves in JAX's flatten order (sorted keys).
 NAMES = ["b1", "w1", "w2"]
@@ -346,39 +369,128 @@ def run_train(data, rank: int) -> dict:
     return res
 
 
+def trainer_build(T, config, mesh=None):
+    """The trainer's setup of ``config`` as ``graphed_run`` builds it: ZeRO
+    at ``HOROVOD_MESH=mesh`` when ``config.sharded``, else FSDP on
+    ``training_groups(1, world)``, on this rank's cache draws. Its state:
+    this rank's rows (``row/<bucket or leaf>``) and the full parameters
+    (``param/<name>``; ZeRO's after a last gather); the collectives of one
+    step: an all-gather and a reduce-scatter per FSDP leaf, or per ZeRO
+    bucket with a batch all-reduce per bucket at a batch axis > 1."""
+    dev = basics.device()
+    cache = T.make_cache(config, None, dev)
+    if not config.sharded:
+        s = T.setup_fsdp(config, device=dev.type)
+
+        def fsdp_state():
+            rows = {k: v.detach().cpu() for k, v in s.rows.items()}
+            everyone = [None] * basics.size()
+            dist.all_gather_object(everyone, rows)
+            return {**{f"row/{k}": v for k, v in rows.items()},
+                    **{f"param/{k}": v for k, v in
+                       fsdp.fsdp_unshard_params(everyone, s.shapes).items()}}
+
+        n = len(s.rows)
+        return (s.step, cache, s.optimizer, fsdp_state,
+                {"all_gather_into_tensor": n, "reduce_scatter_tensor": n})
+    os.environ["HOROVOD_MESH"] = mesh
+    try:
+        s = T.setup(config, dev.type)
+    finally:
+        os.environ.pop("HOROVOD_MESH", None)
+    opt = s.opt
+
+    def zero_state():
+        sh.gather_params(opt.rows, opt.shard_plan, opt.layout, opt.params)
+        return {**{f"row/{b}": r.detach().cpu() for b, r in enumerate(opt.rows)},
+                **{f"param/{n}": p.detach().cpu() for n, p in s.model.named_parameters()}}
+
+    b = opt.plan.num_buckets
+    return (s.step, cache, opt, zero_state,
+            {"reduce_scatter_tensor": b, "all_gather_into_tensor": b,
+             **({"all_reduce": b} if opt.layout.batch_size > 1 else {})})
+
+
+def mlp_graphed(data, name: str, dispatches: int = 2) -> dict:
+    """``dispatches`` dispatches of K steps of the float64 MLP through the
+    loop: ZeRO at 1x2 (``zero64``) or the FSDP step body (``fsdp64``). The
+    rank-averaged loss of each dispatch and the rows after it."""
+    from horovod_tpu_torch.data import DeviceCache
+    from horovod_tpu_torch.loop import make_scan_train_loop
+
+    k, mb = int(data["k"]), int(data["mb"])
+    rows_in = _my_rows(data, f"{name}/rows", basics.rank())
+    cache = DeviceCache(rows_in.numpy(), np.zeros(len(rows_in), np.int64), mb,
+                        seed=int(data["seed"]), device="cpu")
+    if name == "zero64":
+        layout = sharded_groups(1, 2)
+        params = [torch.nn.Parameter(t.clone()) for t in _leaves(data, torch.float64)]
+        plan = sh.build_shard_plan(params, 2, THRESHOLD, NUM_BUCKETS)
+        rows = sh.shard_params(params, plan, layout.shard_rank)
+        opt = hvd.DistributedOptimizer(adam(rows), list(zip(NAMES, params)),
+                                       sharded=True, shard_plan=plan, layout=layout)
+        state = {f"row{b}": r for b, r in enumerate(rows)}
+
+        def step(xy, _):
+            opt.zero_grad()
+            sh.gather_params(rows, plan, layout, params)
+            loss = mlp_loss(params, xy[:, :16], xy[:, 16:])
+            loss.backward()
+            opt.step()
+            return loss.detach()
+    else:
+        layout = training_groups(1, 2)
+        leaves = {k_: torch.from_numpy(data[f"graft/{k_}"].copy()) for k_ in ("w", "b")}
+        state, shapes = fsdp.fsdp_shard_params(leaves, 2, layout.fsdp_rank)
+        opt = torch.optim.Adam(list(state.values()), lr=1e-3, foreach=True)
+
+        def step(x, _):
+            opt.zero_grad()
+            full = fsdp.fsdp_gather_params(state, shapes, layout.fsdp_group)
+            loss = torch.mean(torch.tanh(x @ full["w"] + full["b"]) ** 2)
+            loss.backward()
+            fsdp.fsdp_average_gradients_(state, layout)
+            opt.step()
+            fsdp.fsdp_mask_(state, shapes, layout.fsdp_rank)
+            return loss.detach()
+
+    loop = make_scan_train_loop(step, cache, k, optimizer=opt)
+    res = {}
+    for d in range(dispatches):
+        res[f"{name}/loss{d}"] = np.array(hvd.metric_average(loop().item()))
+        for key, row in state.items():
+            res[f"{name}/{d}/{key}"] = row.detach().numpy().copy()
+    return res
+
+
+def run_graph(data, rank: int) -> dict:
+    from horovod_tpu_torch import train as T
+
+    config = T.TrainConfig(**json.loads(str(data["config"])))
+    res = {}
+    for name in ("zero", "fsdp"):
+        run = T.TrainConfig(**{**config.__dict__, "sharded": name == "zero"})
+        for mode in ("graph", "eager"):
+            r = graphed_run(lambda: trainer_build(T, run, "1x2"), mode == "graph",
+                            k=config.steps_per_dispatch, dispatches=1)
+            res[f"{name}/{mode}/losses"] = np.array(r["losses"])
+            for key, t in r["state"].items():
+                res[f"{name}/{mode}/{key}"] = t.numpy().copy()
+    for name in ("zero64", "fsdp64"):
+        res.update(mlp_graphed(data, name))
+    return res
+
+
 def run_cpu() -> None:
     rank = hvd.rank()
     data = np.load(os.environ["SHARDED_IN"])
     mode = os.environ["SHARDED_MODE"]
-    res = {"zero": run_zero, "fsdp": run_fsdp, "train": run_train}[mode](data, rank)
+    res = {"zero": run_zero, "fsdp": run_fsdp, "train": run_train,
+           "graph": run_graph}[mode](data, rank)
     np.savez(f"{os.environ['SHARDED_OUT']}.{rank}.npz", **res)
 
 
 # ---------------------------------------------------------------- the cards
-
-class CountCollectives:
-    """Count ``torch.distributed``'s collectives inside the ``with``."""
-
-    NAMES = ("reduce_scatter_tensor", "all_reduce", "all_gather_into_tensor")
-
-    def __init__(self):
-        self.counts, self.saved = {}, {}
-
-    def __enter__(self):
-        for name in self.NAMES:
-            fn = self.saved[name] = getattr(dist, name)
-
-            def counted(*args, _fn=fn, _name=name, **kwargs):
-                self.counts[_name] = self.counts.get(_name, 0) + 1
-                return _fn(*args, **kwargs)
-
-            setattr(dist, name, counted)
-        return self
-
-    def __exit__(self, *exc):
-        for name, fn in self.saved.items():
-            setattr(dist, name, fn)
-
 
 def cuda_run(T, label, config, mesh=None):
     """CUDA_STEPS steps; (losses, median step ms of steps 1-2, this rank's
@@ -395,7 +507,7 @@ def cuda_run(T, label, config, mesh=None):
     finally:
         os.environ.pop("HOROVOD_MESH", None)
     tokens = T.make_batch(config, hvd.rank(), dev)
-    losses, times, counter = [], [], CountCollectives()
+    losses, times, counter = [], [], CountCollectives(dist, SHARD_COLLECTIVES)
     for i in range(CUDA_STEPS):
         torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
@@ -422,6 +534,24 @@ def cuda_run(T, label, config, mesh=None):
     return {"losses": losses, "ms": 1e3 * statistics.median(times[1:]),
             "peak": peak, "counts": counter.counts, "params": params,
             "buckets": buckets}
+
+
+def graphed_world(T, config) -> list:
+    """ZeRO 2x2, ZeRO 1x4 and FSDP 4, each graphed against eager (see the
+    module docstring). Returns the failures; rank 0 prints the readings."""
+    graph_config = T.TrainConfig(**{**config.__dict__, "steps_per_dispatch": GRAPH_K})
+    zero = T.TrainConfig(**{**graph_config.__dict__, "sharded": True})
+    bad, lines = [], []
+    for label, c, mesh in (("ZeRO 2x2", zero, "2x2"), ("ZeRO 1x4", zero, "1x4"),
+                           ("FSDP 4", graph_config, None)):
+        def build():
+            return trainer_build(T, c, mesh)
+
+        hold_pair(label, graphed_run(build, True), graphed_run(build, False),
+                  lines, bad)
+    if basics.rank() == 0:
+        print("\n".join(lines))
+    return bad
 
 
 def run_cuda() -> None:
@@ -466,6 +596,8 @@ def run_cuda() -> None:
         got = {k: runs[label]["counts"].get(k, 0) for k in want}
         if got != want:
             bad[f"{label} collectives"] = (got, want)
+    del runs
+    bad.update({f"graphed {i}": b for i, b in enumerate(graphed_world(T, config))})
     if bad:
         raise AssertionError(f"sharded world: {bad}")
     if rank == 0:

@@ -196,7 +196,8 @@ prints no result):
     ``utils/roofline.profile_device_ops`` of the eager step and of the
     graphed dispatch (``format_report``, the peaks read from the device
     with their inputs, B1-B3's FLOPs counted from their launches and held
-    to their shapes', the whole step's share of the device-read bf16
+    to their shapes', a trace that holds fewer of B1-B3's kernels than ran
+    taken again, up to 3 times, the whole step's share of the device-read bf16
     peak), and ``utils/timeline.trace`` over one graphed dispatch, whose
     Chrome trace names B1-B3's kernels or is said not to; (d)
     ``tune(mesh_shapes=("1x1",))``, ZeRO through the factory, eager, 3
@@ -452,6 +453,25 @@ RING_SHAPES = [
     (2, 96, 4, 2, 32, "bfloat16"),
 ]
 WHOLE_RING = (1, 1024, 8, 8, 128, "bfloat16")
+# Every built tile pair of the bf16 kernels (ops/flash_attention.py
+# TILE_PAIRS, at head dim 128 alone) against the plain versions, phases 3
+# (B1-B3) and 7 (B4-B6): the bf16 check shapes above at D = 128 (the
+# layer; GQA; a ragged T, non-causal) and a ragged causal T, whose tiles
+# of 64 and 128 rows straddle the diagonal and the tail apart.
+PAIR_SHAPES = [
+    (*SLICE_SHAPE, True, "bfloat16"),
+    (1, 1024, 8, 2, 128, True, "bfloat16"),
+    (2, 96, 4, 2, 128, False, "bfloat16"),
+    (2, 200, 4, 2, 128, True, "bfloat16"),
+]
+PAIR_RING_SHAPES = [
+    (1, 4096, 8, 8, 128, "bfloat16"),
+    (1, 1024, 8, 2, 128, "bfloat16"),
+    (2, 96, 4, 2, 128, "bfloat16"),
+]
+# Where every built pair is timed: the layer and its Ulysses head shard of
+# 4 (phase 15's), (B, T, H, Hkv, D).
+TILE_TIMING_SHAPES = [(1, 4096, 8, 8, 128), (1, 4096, 2, 2, 128)]
 # Rank 0 of a zigzag ring of 4 against rank 1's block, T 96 per rank in
 # stripes of 48: rank 0's low stripe (positions 0-47) sees none of rank 1's
 # keys (48-95 and 288-335). (B, T per rank, H, Hkv, my rank, source rank)
@@ -471,8 +491,9 @@ def log(msg: str) -> None:
 
 # The tensor-core kernels of csrc/flash_tc.cuh: (template, variant, the
 # kernel of the kernels line it runs for, the source whose library holds
-# it). Each template takes the variant of csrc/flash_kernels.cuh: 0 kFlash
-# (B1-B3), 3 kRing (B4-B6).
+# it). Each template takes the head dim, the variant of
+# csrc/flash_kernels.cuh (0 kFlash, B1-B3; 3 kRing, B4-B6) and its tile
+# pair (q extent, k extent): one instance per built pair.
 TC_KERNELS = [
     ("fwd_tc_kernel", 0, "flash_fwd", "flash_attention.cu"),
     ("dq_tc_kernel", 0, "flash_bwd_dq", "flash_attention.cu"),
@@ -481,14 +502,14 @@ TC_KERNELS = [
     ("dq_tc_kernel", 3, "ring_flash_bwd_dq", "ring_flash.cu"),
     ("dkv_tc_kernel", 3, "ring_flash_bwd_dkv", "ring_flash.cu"),
 ]
-# A mangled instance: the head dim, then the variant.
+# A mangled instance: the head dim, the variant, the q and k extents.
 TC_NAME = re.compile(r"(" + "|".join(sorted({k[0] for k in TC_KERNELS}))
-                     + r")ILi(\d+)ELi(\d+)EE")
+                     + r")ILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)EE")
 
 
-def tc_label(template, d, variant) -> str:
+def tc_label(template, d, variant, bq, bk) -> str:
     """An instance's name, from TC_KERNELS or from TC_NAME's groups."""
-    return f"{template}<{d}, {variant}>"
+    return f"{template}<{d}, {variant}, {bq}, {bk}>"
 
 
 def compiled_report(lib_path: str) -> dict:
@@ -527,25 +548,32 @@ def compiled_report(lib_path: str) -> dict:
     return report
 
 
-def check_compiled(build) -> dict:
-    """The compiled report of every tensor-core kernel at every head dim,
-    each read from its own library's; {kernel of the kernels line:
-    {instance: entry}}. Raises if an instance is missing, spills, or has
-    no HGMMA or no UTMALDG."""
+def check_compiled(torch, fa, build) -> dict:
+    """The compiled report of every tensor-core kernel at every head dim
+    and built tile pair, each read from its own library's; {kernel of the
+    kernels line: {instance: entry}}. Raises if an instance is missing,
+    spills, or has no HGMMA or no UTMALDG, or if a library holds an
+    instance that ``fa.TILE_PAIRS`` does not list."""
     reports = {src: compiled_report(build(src)) for src in {k[3] for k in TC_KERNELS}}
-    by_kernel = {}
+    by_kernel, want = {}, {src: set() for src in reports}
     for template, variant, kname, src in TC_KERNELS:
         for d in (32, 64, 128):
-            label = tc_label(template, d, variant)
-            e = reports[src].get(label, {})
-            log(f"  {label:24s} {src:18s} registers {e.get('registers')} spill "
-                f"bytes {e.get('spill_bytes')} HGMMA {e.get('HGMMA')} UTMALDG "
-                f"{e.get('UTMALDG')} USETMAXREG {e.get('USETMAXREG')}")
-            if not e.get("HGMMA") or not e.get("UTMALDG"):
-                raise AssertionError(f"{label}: no wgmma or no TMA load in its SASS: {e}")
-            if e.get("spill_bytes") != 0:
-                raise AssertionError(f"{label}: spills {e.get('spill_bytes')} bytes")
-            by_kernel.setdefault(kname, {})[label] = e
+            for bq, bk in fa.built_pairs(kname, d, torch.bfloat16):
+                label = tc_label(template, d, variant, bq, bk)
+                want[src].add(label)
+                e = reports[src].get(label, {})
+                log(f"  {label:32s} {src:18s} registers {e.get('registers')} spill "
+                    f"bytes {e.get('spill_bytes')} HGMMA {e.get('HGMMA')} UTMALDG "
+                    f"{e.get('UTMALDG')} USETMAXREG {e.get('USETMAXREG')}")
+                if not e.get("HGMMA") or not e.get("UTMALDG"):
+                    raise AssertionError(f"{label}: no wgmma or no TMA load in its SASS: {e}")
+                if e.get("spill_bytes") != 0:
+                    raise AssertionError(f"{label}: spills {e.get('spill_bytes')} bytes")
+                by_kernel.setdefault(kname, {})[label] = e
+    for src, report in reports.items():
+        if set(report) != want[src]:
+            raise AssertionError(f"{src}: instances {sorted(set(report) ^ want[src])} "
+                                 f"differ from ops/flash_attention.py's TILE_PAIRS")
     return by_kernel
 
 
@@ -755,6 +783,118 @@ def time_kernels(torch, fa, inputs, shape):
     return rows
 
 
+def tile_ceilings(fa) -> list:
+    """Every built pair of every kernel as (block_q, block_k) ceilings,
+    largest first: a kernel built for the pair runs it itself."""
+    return sorted({p for pairs in fa.TILE_PAIRS.values() for p in pairs}, reverse=True)
+
+
+def hold_covered(torch, label, fa, names, covered) -> None:
+    """Raise unless ``covered`` holds every built pair at D = 128 of each
+    kernel of ``names``."""
+    want = {(n, p) for n in names
+            for p in fa.built_pairs(n, fa.TILE_HEAD_DIM, torch.bfloat16)}
+    if want - covered:
+        raise AssertionError(f"{label}: pairs never run {sorted(want - covered)}")
+
+
+def check_pairs(torch, fa, dev, shape) -> set:
+    """B1-B3 at every built tile pair against their plain versions on the
+    same inputs (phase 2's rules); returns the (kernel, pair) run."""
+    b, t, h, hkv, d, causal, dtype_name = shape
+    dtype = getattr(torch, dtype_name)
+    gen = torch.Generator(device=dev).manual_seed(1234)
+
+    def rand(*s):
+        return torch.randn(*s, generator=gen, device=dev).to(dtype)
+
+    q, k, v, g = rand(b, t, h, d), rand(b, t, hkv, d), rand(b, t, hkv, d), rand(b, t, h, d)
+    qr, kr, vr, dor = fa._rows(q), fa._rows(k), fa._rows(v), fa._rows(g)
+    o_p, lse_p = fa.fwd_plain(qr, kr, vr, h, hkv, causal)
+    delta = (dor.float() * o_p.float()).sum(-1)
+    dq_p = fa.dq_plain(qr, kr, vr, dor, lse_p, delta, h, hkv, causal)
+    dk_p, dv_p = fa.dkv_plain(qr, kr, vr, dor, lse_p, delta, h, hkv, causal)
+    covered = set()
+    for bq, bk in tile_ceilings(fa):
+        eff = fa.effective_blocks(t, d, dtype, bq, bk)
+        o_k, lse_k = fa.flash_fwd(qr, kr, vr, h, hkv, causal, bq, bk)
+        dq_k = fa.flash_bwd_dq(qr, kr, vr, dor, lse_p, delta, h, hkv, causal, bq, bk)
+        dk_k, dv_k = fa.flash_bwd_dkv(qr, kr, vr, dor, lse_p, delta, h, hkv, causal, bq, bk)
+        torch.cuda.synchronize()
+        errs = {}
+        for name, label, got, want in (
+                ("flash_fwd", "O", o_k, o_p), ("flash_fwd", "L", lse_k, lse_p),
+                ("flash_bwd_dq", "dQ", dq_k, dq_p), ("flash_bwd_dkv", "dK", dk_k, dk_p),
+                ("flash_bwd_dkv", "dV", dv_k, dv_p)):
+            if not torch.isfinite(got.float()).all():
+                raise AssertionError(f"{name} {label} at {eff[name]}: non-finite output")
+            noise_rows = [0] if causal and label == "dQ" else ()
+            e = check(torch, f"{name} {label} {eff[name]}", got, want, quiet=True,
+                      noise_rows=noise_rows)
+            errs[name] = max(errs.get(name, 0.0), e)
+            covered.add((name, eff[name]))
+        log(f"  ceilings {bq}/{bk}: " + ", ".join(
+            f"{n} {eff[n][0]}/{eff[n][1]} max_abs_err {e:.3e}" for n, e in errs.items()))
+    return covered
+
+
+def pair_row(torch, name, call, entry, dtype_name) -> dict:
+    """``time_ms`` of one kernel at one pair (runs of 10 and single calls)
+    beside its bound."""
+    ms, single_ms = time_ms(torch, call), time_ms(torch, call, inner=1)
+    f, bound_ms, bound_by = bound(entry, dtype_name)
+    return {"ms": ms, "single_ms": single_ms, "tflops": f / ms / 1e9,
+            "bound_ms": bound_ms, "bound_by": bound_by, "bound_share": bound_ms / ms}
+
+
+def log_pair(label, r) -> None:
+    log(f"    {label:34s} {r['ms']:8.4f} ms (single {r['single_ms']:.4f})  "
+        f"{r['tflops']:6.1f} TFLOP/s  {100 * r['bound_share']:5.2f}% of the "
+        f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+
+
+def time_pairs(torch, fa, dev, shape, card) -> dict:
+    """B1-B3 at every built pair, bf16, causal, at ``shape`` (B, T, H, Hkv,
+    D; multi-head), with PyTorch's fused attention beside them as the
+    yardstick: {kernel: {"q/k": row}, "sdpa": {...}}."""
+    import torch.nn.functional as F
+
+    b, t, h, hkv, d = shape
+    gen = torch.Generator(device=dev).manual_seed(77)
+    q, k, v, g = (torch.randn(b, t, hh, d, generator=gen, device=dev).to(torch.bfloat16)
+                  for hh in (h, hkv, hkv, h))
+    qr, kr, vr, dor = fa._rows(q), fa._rows(k), fa._rows(v), fa._rows(g)
+    o, lse = fa.flash_fwd(qr, kr, vr, h, hkv, True)
+    delta = (dor.float() * o.float()).sum(-1)
+    log(f"  every built pair at {shape} (B, T, H, Hkv, D), bf16, causal; {card}")
+    out = {}
+    for name in KERNELS:
+        for bq, bk in fa.built_pairs(name, d, torch.bfloat16):
+            call = {
+                "flash_fwd": lambda: fa.flash_fwd(qr, kr, vr, h, hkv, True, bq, bk),
+                "flash_bwd_dq": lambda: fa.flash_bwd_dq(qr, kr, vr, dor, lse, delta, h,
+                                                        hkv, True, bq, bk),
+                "flash_bwd_dkv": lambda: fa.flash_bwd_dkv(qr, kr, vr, dor, lse, delta, h,
+                                                          hkv, True, bq, bk),
+            }[name]
+            r = pair_row(torch, name, call, (name, b * h, b * hkv, t, d, 2, True),
+                         "bfloat16")
+            out.setdefault(name, {})[f"{bq}/{bk}"] = r
+            log_pair(f"{name} {bq}/{bk}", r)
+    qs, ks, vs = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    qg, kg, vg = (x.clone().requires_grad_(True) for x in (qs, ks, vs))
+    sdpa_out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+    out["sdpa"] = {
+        "fwd_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, is_causal=True)),
+        "bwd_ms": time_ms(torch, lambda: torch.autograd.grad(
+            sdpa_out, (qg, kg, vg), dor.view(b, h, t, d), retain_graph=True))}
+    log(f"    yardstick scaled_dot_product_attention: fwd "
+        f"{out['sdpa']['fwd_ms']:.4f} ms, bwd {out['sdpa']['bwd_ms']:.4f} ms "
+        f"(dQ, dK, dV together)")
+    return out
+
+
 def one_step(torch, model, tokens, positions=None, loss_chunk=0):
     """Loss and gradients of one forward/backward, no optimizer step; with
     ``loss_chunk``, the loss of ``chunked_lm_loss`` on the hidden states."""
@@ -823,11 +963,11 @@ def ring_steps(ra, t, zigzag):
             if not ra.fully_masked(r, (r - s) % RING_N, t, RING_N, zigzag)]
 
 
-def check_ring_shape(torch, rf, ra, dev, shape, zigzag):
+def check_ring_shape(torch, rf, ra, dev, shape, zigzag, tiles=(None, None)):
     """Each ring kernel against its plain version at every step of a
     virtual ring, on the same inputs and the same carries (the ones the ring
-    has built so far, carried on from the plain version). Returns the max
-    abs error per kernel."""
+    has built so far, carried on from the plain version), the kernels at
+    the tile ceilings ``tiles``. Returns the max abs error per kernel."""
     b, t, h, hkv, d, dtype_name = shape
     ranks = ring_rows(torch, dev, shape, seed=99)
     pos = [rf.ring_positions(r, t, RING_N, zigzag, dev) for r in range(RING_N)]
@@ -844,7 +984,7 @@ def check_ring_shape(torch, rf, ra, dev, shape, zigzag):
         want = [c.clone() for c in carries[r]]
         got = [c.clone() for c in carries[r]]
         rf.rf_fwd_plain(qr, kr, vr, *want, pos[r], pos[src], h, hkv)
-        rf.rf_fwd(qr, kr, vr, *got, pos[r], pos[src], h, hkv)
+        rf.rf_fwd(qr, kr, vr, *got, pos[r], pos[src], h, hkv, *tiles)
         for label, g, w in zip(("acc", "m", "l"), got, want):
             hold("ring_flash_fwd", label, g, w)
         carries[r] = want
@@ -858,20 +998,71 @@ def check_ring_shape(torch, rf, ra, dev, shape, zigzag):
         args = (qr, kr, vr, dor, fin[r][1], delta[r], pos[r], pos[src])
         want, got = dq[r].clone(), dq[r].clone()
         rf.rf_dq_plain(*args, want, h, hkv)
-        rf.rf_bwd_dq(*args, got, h, hkv)
+        rf.rf_bwd_dq(*args, got, h, hkv, *tiles)
         hold("ring_flash_bwd_dq", "dQ", got, want)
         dq[r] = want
         want = [c.clone() for c in dkv[src]]
         got = [c.clone() for c in dkv[src]]
         rf.rf_dkv_plain(*args, *want, h, hkv)
-        rf.rf_bwd_dkv(*args, *got, h, hkv)
+        rf.rf_bwd_dkv(*args, *got, h, hkv, *tiles)
         for label, g, w in zip(("dK", "dV"), got, want):
             hold("ring_flash_bwd_dkv", label, g, w)
         dkv[src] = want
     torch.cuda.synchronize()
-    log(f"  {len(steps)} ring steps, every kernel within its limit; max abs "
+    note = "" if tiles == (None, None) else f"ceilings {tiles[0]}/{tiles[1]}: "
+    log(f"  {note}{len(steps)} ring steps, every kernel within its limit; max abs "
         f"err {errs}")
     return errs
+
+
+def check_ring_pairs(torch, fa, rf, ra, dev) -> None:
+    """B4-B6 at every built tile pair against their plain versions at every
+    step of the virtual ring, PAIR_RING_SHAPES, contiguous and zigzag."""
+    covered = set()
+    for shape in PAIR_RING_SHAPES:
+        for zigzag in (False, True):
+            log(f"  shape (B, T per rank, H, Hkv, D, dtype) = {shape}, "
+                f"{'zigzag' if zigzag else 'contiguous'}")
+            b, t, h, hkv, d, dtype_name = shape
+            for tiles in tile_ceilings(fa):
+                eff = fa.effective_blocks(t, d, getattr(torch, dtype_name), *tiles)
+                check_ring_shape(torch, rf, ra, dev, shape, zigzag, tiles)
+                covered |= {(n, eff[n]) for n in RING_KERNELS}
+            torch.cuda.empty_cache()
+    hold_covered(torch, "7: B4-B6", fa, RING_KERNELS, covered)
+
+
+def time_ring_pairs(torch, fa, rf, dev, shape, card) -> dict:
+    """B4-B6 at every built pair on a diagonal and a past ring step of a
+    contiguous ring of RING_N at ``shape`` (B, T per rank, H, Hkv, D), bf16:
+    {kernel: {"q/k": {"diagonal": row, "past": row}}}."""
+    b, t, h, hkv, d = shape
+    (qr, kr, vr, dor), = ring_rows(torch, dev, (*shape, "bfloat16"), seed=7)[:1]
+    lse = torch.rand(b * h, t, device=dev) + 5.0
+    delta = torch.randn(b * h, t, device=dev)
+    log(f"  every built pair at {shape} (B, T per rank, H, Hkv, D), bf16; {card}")
+    out = {}
+    for step, (my, src) in (("diagonal", (1, 1)), ("past", (1, 0))):
+        qpos = rf.ring_positions(my, t, RING_N, False, dev)
+        kpos = rf.ring_positions(src, t, RING_N, False, dev)
+        acc, m, l = rf.init_carries(b * h, t, d, dev)
+        dq = torch.zeros(b * h, t, d, device=dev)
+        dk, dv = (torch.zeros(b * hkv, t, d, device=dev) for _ in range(2))
+        bwd = (qr, kr, vr, dor, lse, delta, qpos, kpos)
+        for name in RING_KERNELS:
+            for bq, bk in fa.built_pairs(name, d, torch.bfloat16):
+                call = {
+                    "ring_flash_fwd": lambda: rf.rf_fwd(qr, kr, vr, acc, m, l, qpos, kpos,
+                                                        h, hkv, bq, bk),
+                    "ring_flash_bwd_dq": lambda: rf.rf_bwd_dq(*bwd, dq, h, hkv, bq, bk),
+                    "ring_flash_bwd_dkv": lambda: rf.rf_bwd_dkv(*bwd, dk, dv, h, hkv,
+                                                                bq, bk),
+                }[name]
+                r = pair_row(torch, name, call,
+                             (name, b * h, b * hkv, t, d, 2, (qpos, kpos)), "bfloat16")
+                out.setdefault(name, {}).setdefault(f"{bq}/{bk}", {})[step] = r
+                log_pair(f"{step} {name} {bq}/{bk}", r)
+    return out
 
 
 def virtual_ring(torch, fa, rf, ra, q, k, v, g, zigzag):
@@ -1264,6 +1455,9 @@ LONG_SEQ, LONG_CHUNK, LONG_STEPS = 32768, 4096, 3
 # expected; every loss and parameter is held to 1e-6 relative
 # (``graph_pair``, which phases 16, 19 and 20 share).
 GRAPH_K, GRAPH_DISPATCHES, GRAPH_LIMIT = 4, 2, 1e-6
+# Profiles of one window taken before a trace that keeps losing kernel
+# records fails the phase.
+PROFILE_TRIES = 3
 
 
 def read_counts(fa, rf) -> dict:
@@ -3176,15 +3370,34 @@ def roofline_and_timeline(torch, fa, rf, basics, train_mod, card, dev, paths,
         x, y, box[0] = plain.cache.sample(box[0])
         plain.s.step(x, y)
 
+    layers = train_mod.TrainConfig().layers
+
+    def whole_profile(label, run, calls, steps, **kw):
+        """A profile of ``calls`` calls of ``steps`` steps each whose trace
+        holds every launch of B1-B3, and the number of profiles taken: a
+        trace that lost kernel records is taken again, up to
+        ``PROFILE_TRIES`` times."""
+        want = {k: layers * calls * steps for k in KERNELS}
+        for attempt in range(1, PROFILE_TRIES + 1):
+            rep = roofline.profile_device_ops(run, steps=calls, peaks=peaks, **kw)
+            if not rep.get("ok"):
+                return rep, attempt
+            records = {k: rep["port_kernel_records"].get(k, 0) for k in KERNELS}
+            if records == want:
+                return rep, attempt
+            log(f"  the trace of the {label} holds {records} kernels of B1-B3, "
+                f"{want} ran: the profiler lost records ({attempt} of "
+                f"{PROFILE_TRIES} profiles)")
+        raise AssertionError(f"{label}: {PROFILE_TRIES} traces lost kernel records")
+
     eager_step()
     read_counts(fa, rf)
-    eager = roofline.profile_device_ops(eager_step, steps=2, peaks=peaks)
+    eager, tries = whole_profile("eager step", eager_step, 2, 1)
     counts = read_counts(fa, rf)
-    graph = roofline.profile_device_ops(plain, steps=1, peaks=peaks,
-                                        costs=eager.get("kernel_costs"))
+    graph, _ = whole_profile(f"graphed dispatch ({GRAPH_K} steps)", plain, 1,
+                             GRAPH_K, costs=eager.get("kernel_costs"))
     read_counts(fa, rf)
     b, t, h, hkv, d = SLICE_SHAPE
-    layers = train_mod.TrainConfig().layers
     per_step = {k: layers * bound((k, b * h, b * hkv, t, d, 2, True), "bfloat16")[0]
                 for k in KERNELS}
     for label, rep, steps in (("eager step", eager, 1), (f"graphed dispatch "
@@ -3211,8 +3424,8 @@ def roofline_and_timeline(torch, fa, rf, basics, train_mod, card, dev, paths,
                                      f"TFLOP, the shapes give {v * steps / 1e12}")
     if not eager.get("ok"):
         raise AssertionError(f"no roofline of the eager step: {eager}")
-    hold_counts("the profiled eager steps", counts,
-                {k: 2 * layers for k in KERNELS})
+    hold_counts(f"the profiled eager steps ({tries} profiles of 2)", counts,
+                {k: 2 * layers * tries for k in KERNELS})
     tmp = tempfile.mkdtemp(prefix="chip_smoke_trace_")
     try:
         with timeline.trace(tmp):
@@ -3221,9 +3434,9 @@ def roofline_and_timeline(torch, fa, rf, basics, train_mod, card, dev, paths,
         path = os.path.join(tmp, timeline.DEVICE_TRACE)
         with open(path) as f:
             text = f.read()
-        seen = {k: tc in text for k, tc in (("flash_fwd", "fwd_tc_kernel<128, 0>"),
-                                            ("flash_bwd_dq", "dq_tc_kernel<128, 0>"),
-                                            ("flash_bwd_dkv", "dkv_tc_kernel<128, 0>"))}
+        seen = {k: tc in text for k, tc in (("flash_fwd", "fwd_tc_kernel<128, 0, "),
+                                            ("flash_bwd_dq", "dq_tc_kernel<128, 0, "),
+                                            ("flash_bwd_dkv", "dkv_tc_kernel<128, 0, "))}
         log(f"  timeline.trace over one graphed dispatch: {path}, "
             f"{len(text)} B; B1-B3's kernels named: {seen}")
         if not all(seen.values()):
@@ -5671,7 +5884,7 @@ def main() -> int:
         native = native.result()
     log(f"  the native eager engine's core (g++, beside them) in "
         f"{native[1]:.1f} s: {native[0]}")
-    compiled = check_compiled(_build.build)
+    compiled = check_compiled(torch, fa, _build.build)
     errs = None
     timing_inputs = None
     for shape in CHECK_SHAPES:
@@ -5680,9 +5893,18 @@ def main() -> int:
         if errs is None:
             errs, timing_inputs = shape_errs, inputs
 
-    log(f"[3] timing at {CHECK_SHAPES[0]}")
+    log(f"[3] timing at {CHECK_SHAPES[0]}; every built tile pair of B1-B3 "
+        f"against the plain versions, and timed")
     timing = time_kernels(torch, fa, timing_inputs, CHECK_SHAPES[0])
     del timing_inputs
+    torch.cuda.empty_cache()
+    covered = set()
+    for shape in PAIR_SHAPES:
+        log(f"  shape (B, T, H, Hkv, D, causal, dtype) = {shape}")
+        covered |= check_pairs(torch, fa, dev, shape)
+    hold_covered(torch, "3: B1-B3", fa, KERNELS, covered)
+    tile_timing = {shape: time_pairs(torch, fa, dev, shape, card)
+                   for shape in TILE_TIMING_SHAPES}
     torch.cuda.empty_cache()
 
     config = train_mod.TrainConfig()
@@ -5725,8 +5947,13 @@ def main() -> int:
         check_whole_ring(torch, fa, rf, ra, dev, zigzag)
         torch.cuda.empty_cache()
 
-    log(f"[7] ring kernel timing at {RING_SHAPES[0]}")
+    log(f"[7] ring kernel timing at {RING_SHAPES[0]}; every built tile pair of "
+        f"B4-B6 against the plain versions over the virtual ring, and timed")
     timing.update(time_ring_kernels(torch, rf, dev))
+    torch.cuda.empty_cache()
+    check_ring_pairs(torch, fa, rf, ra, dev)
+    for shape in TILE_TIMING_SHAPES:
+        tile_timing[shape].update(time_ring_pairs(torch, fa, rf, dev, shape, card))
     torch.cuda.empty_cache()
 
     sp_config = train_mod.TrainConfig(sp=1)
@@ -5911,6 +6138,9 @@ def main() -> int:
                    "launches_by_path": {p: c[kname] for p, c in paths.items()}}
             if kname in shard_timing:
                 row["ulysses_head_shard"] = shard_timing[kname]
+            # Every built tile pair at the layer's shape and its head shard.
+            row["tiles"] = {"x".join(map(str, shape)): tile_timing[shape][kname]
+                            for shape in TILE_TIMING_SHAPES}
             if kname in compiled:   # bf16 runs on flash_tc.cuh's tensor-core kernel
                 row["bf16_kernel"] = {"header": "horovod_tpu_torch/csrc/flash_tc.cuh",
                                       "compiled": compiled[kname]}

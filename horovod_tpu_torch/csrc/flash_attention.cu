@@ -68,24 +68,28 @@ extern "C" {
 // Each entry launches one kernel on `stream`, which belongs to the
 // calling thread's current device (the wrappers make the inputs' device
 // current around the call), and returns cudaGetLastError() (0 on
-// success), 1000 for arguments no kernel takes, or 1001 when a tensor map
-// of the bf16 kernels does not encode. None of these falls back to
-// another kernel.
+// success), 1000 for arguments no kernel takes, a tile pair (bq, bk) not
+// built among them, or 1001 when a tensor map of the bf16 kernels does not
+// encode. None of these falls back to another kernel. (bq, bk) are the
+// kernel's q and k extents: for dK/dV, q rows per tile and k rows per
+// block. The float32 kernels take (kTile, kTile) alone; the bf16 ones the
+// pairs of flash_tc.cuh's fwd_tc, dq_tc and dkv_tc.
 int hvd_flash_fwd(const void* q, const void* k, const void* v, void* o,
                   void* lse, int rows, int h, int hkv, int t, int d,
-                  int causal, int dtype, void* stream) {
+                  int causal, int dtype, int bq, int bk, void* stream) {
   if (bad_shape(rows, h, hkv, t)) return kBadArgs;
+  if (dtype == 0 && (bq != kTile || bk != kTile)) return kBadArgs;
   cudaStream_t st = (cudaStream_t)stream;
   switch (dtype * 1000 + d) {
     case 32: return launch_fwd<32>(q, k, v, o, lse, rows, h, hkv, t, causal, st);
     case 64: return launch_fwd<64>(q, k, v, o, lse, rows, h, hkv, t, causal, st);
     case 128: return launch_fwd<128>(q, k, v, o, lse, rows, h, hkv, t, causal, st);
-    case 1032: return launch_fwd_tc<32, kFlash>(q, k, v, o, lse, nullptr, nullptr, nullptr,
-                                                 nullptr, nullptr, rows, h, hkv, t, causal, st);
-    case 1064: return launch_fwd_tc<64, kFlash>(q, k, v, o, lse, nullptr, nullptr, nullptr,
-                                                 nullptr, nullptr, rows, h, hkv, t, causal, st);
-    case 1128: return launch_fwd_tc<128, kFlash>(q, k, v, o, lse, nullptr, nullptr, nullptr,
-                                                 nullptr, nullptr, rows, h, hkv, t, causal, st);
+    case 1032: return fwd_tc<32, kFlash>(bq, bk, q, k, v, o, lse, nullptr, nullptr, nullptr,
+                                         nullptr, nullptr, rows, h, hkv, t, causal, st);
+    case 1064: return fwd_tc<64, kFlash>(bq, bk, q, k, v, o, lse, nullptr, nullptr, nullptr,
+                                         nullptr, nullptr, rows, h, hkv, t, causal, st);
+    case 1128: return fwd_tc<128, kFlash>(bq, bk, q, k, v, o, lse, nullptr, nullptr, nullptr,
+                                          nullptr, nullptr, rows, h, hkv, t, causal, st);
     default: return kBadArgs;
   }
 }
@@ -93,19 +97,20 @@ int hvd_flash_fwd(const void* q, const void* k, const void* v, void* o,
 int hvd_flash_bwd_dq(const void* q, const void* k, const void* v,
                      const void* dout, const void* lse, const void* delta,
                      void* dq, int rows, int h, int hkv, int t, int d,
-                     int causal, int dtype, void* stream) {
+                     int causal, int dtype, int bq, int bk, void* stream) {
   if (bad_shape(rows, h, hkv, t)) return kBadArgs;
+  if (dtype == 0 && (bq != kTile || bk != kTile)) return kBadArgs;
   cudaStream_t st = (cudaStream_t)stream;
   switch (dtype * 1000 + d) {
     case 32: return launch_dq<32>(q, k, v, dout, lse, delta, dq, rows, h, hkv, t, causal, st);
     case 64: return launch_dq<64>(q, k, v, dout, lse, delta, dq, rows, h, hkv, t, causal, st);
     case 128: return launch_dq<128>(q, k, v, dout, lse, delta, dq, rows, h, hkv, t, causal, st);
-    case 1032: return launch_dq_tc<32, kFlash>(q, k, v, dout, lse, delta, nullptr, nullptr, dq,
-                                                rows, h, hkv, t, causal, st);
-    case 1064: return launch_dq_tc<64, kFlash>(q, k, v, dout, lse, delta, nullptr, nullptr, dq,
-                                                rows, h, hkv, t, causal, st);
-    case 1128: return launch_dq_tc<128, kFlash>(q, k, v, dout, lse, delta, nullptr, nullptr, dq,
-                                                rows, h, hkv, t, causal, st);
+    case 1032: return dq_tc<32, kFlash>(bq, bk, q, k, v, dout, lse, delta, nullptr, nullptr, dq,
+                                        rows, h, hkv, t, causal, st);
+    case 1064: return dq_tc<64, kFlash>(bq, bk, q, k, v, dout, lse, delta, nullptr, nullptr, dq,
+                                        rows, h, hkv, t, causal, st);
+    case 1128: return dq_tc<128, kFlash>(bq, bk, q, k, v, dout, lse, delta, nullptr, nullptr, dq,
+                                         rows, h, hkv, t, causal, st);
     default: return kBadArgs;
   }
 }
@@ -113,8 +118,9 @@ int hvd_flash_bwd_dq(const void* q, const void* k, const void* v,
 int hvd_flash_bwd_dkv(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
                       void* dk, void* dv, int rows_kv, int h, int hkv, int t,
-                      int d, int causal, int dtype, void* stream) {
+                      int d, int causal, int dtype, int bq, int bk, void* stream) {
   if (bad_kv_shape(rows_kv, h, hkv, t)) return kBadArgs;
+  if (dtype == 0 && (bq != kTile || bk != kTile)) return kBadArgs;
   cudaStream_t st = (cudaStream_t)stream;
   switch (dtype * 1000 + d) {
     case 32: return launch_dkv<32>(q, k, v, dout, lse, delta, dk, dv, rows_kv, h, hkv, t,
@@ -123,12 +129,12 @@ int hvd_flash_bwd_dkv(const void* q, const void* k, const void* v,
                           causal, st);
     case 128: return launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, rows_kv, h, hkv, t,
                           causal, st);
-    case 1032: return launch_dkv_tc<32, kFlash>(q, k, v, dout, lse, delta, nullptr, nullptr,
-                                              dk, dv, rows_kv, h, hkv, t, causal, st);
-    case 1064: return launch_dkv_tc<64, kFlash>(q, k, v, dout, lse, delta, nullptr, nullptr,
-                                              dk, dv, rows_kv, h, hkv, t, causal, st);
-    case 1128: return launch_dkv_tc<128, kFlash>(q, k, v, dout, lse, delta, nullptr, nullptr,
-                                              dk, dv, rows_kv, h, hkv, t, causal, st);
+    case 1032: return dkv_tc<32, kFlash>(bq, bk, q, k, v, dout, lse, delta, nullptr, nullptr,
+                                         dk, dv, rows_kv, h, hkv, t, causal, st);
+    case 1064: return dkv_tc<64, kFlash>(bq, bk, q, k, v, dout, lse, delta, nullptr, nullptr,
+                                         dk, dv, rows_kv, h, hkv, t, causal, st);
+    case 1128: return dkv_tc<128, kFlash>(bq, bk, q, k, v, dout, lse, delta, nullptr, nullptr,
+                                          dk, dv, rows_kv, h, hkv, t, causal, st);
     default: return kBadArgs;
   }
 }

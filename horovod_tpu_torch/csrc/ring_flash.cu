@@ -88,29 +88,32 @@ extern "C" {
 
 // Each entry launches one kernel on `stream` (of the calling thread's
 // current device) and returns cudaGetLastError() (0 on success), 1000 for
-// arguments no kernel takes, or 1001 when a tensor map of a bf16 kernel
-// does not encode. Carries (acc, m, l, dq, dk, dv) are float32 and
-// updated in place; qpos and kpos are int32 (t,). The bf16 kernels load
-// their tiles and the positions of the tile in the ring by TMA: they need
-// 16-byte aligned q, k, v and dout, kpos (forward, dQ), and lse, delta and
-// qpos (dK/dV, which reads lse and delta with rows t rounded up to 4
-// apart; the wrapper pads them).
+// arguments no kernel takes, a tile pair (bq, bk) not built among them,
+// or 1001 when a tensor map of a bf16 kernel does not encode. Carries
+// (acc, m, l, dq, dk, dv) are float32 and updated in place; qpos and kpos
+// are int32 (t,). (bq, bk) are the kernel's q and k extents, as in
+// flash_attention.cu: the float32 kernels take (kTile, kTile) alone. The
+// bf16 kernels load their tiles and the positions of the tile in the ring
+// by TMA: they need 16-byte aligned q, k, v and dout, kpos (forward, dQ),
+// and lse, delta and qpos (dK/dV, which reads lse and delta with rows t
+// rounded up to 4 apart; the wrapper pads them).
 int hvd_ring_flash_fwd(const void* q, const void* k, const void* v, void* acc,
                        void* m, void* l, const void* qpos, const void* kpos,
                        int rows, int h, int hkv, int t, int d, int dtype,
-                       void* stream) {
+                       int bq, int bk, void* stream) {
   if (bad_shape(rows, h, hkv, t)) return kBadArgs;
+  if (dtype == 0 && (bq != kTile || bk != kTile)) return kBadArgs;
   cudaStream_t st = (cudaStream_t)stream;
   switch (dtype * 1000 + d) {
     case 32: return ring_fwd<32>(q, k, v, acc, m, l, qpos, kpos, rows, h, hkv, t, st);
     case 64: return ring_fwd<64>(q, k, v, acc, m, l, qpos, kpos, rows, h, hkv, t, st);
     case 128: return ring_fwd<128>(q, k, v, acc, m, l, qpos, kpos, rows, h, hkv, t, st);
-    case 1032: return launch_fwd_tc<32, kRing>(q, k, v, nullptr, nullptr, acc, m, l, qpos, kpos,
-                                               rows, h, hkv, t, 1, st);
-    case 1064: return launch_fwd_tc<64, kRing>(q, k, v, nullptr, nullptr, acc, m, l, qpos, kpos,
-                                               rows, h, hkv, t, 1, st);
-    case 1128: return launch_fwd_tc<128, kRing>(q, k, v, nullptr, nullptr, acc, m, l, qpos, kpos,
-                                                rows, h, hkv, t, 1, st);
+    case 1032: return fwd_tc<32, kRing>(bq, bk, q, k, v, nullptr, nullptr, acc, m, l, qpos,
+                                        kpos, rows, h, hkv, t, 1, st);
+    case 1064: return fwd_tc<64, kRing>(bq, bk, q, k, v, nullptr, nullptr, acc, m, l, qpos,
+                                        kpos, rows, h, hkv, t, 1, st);
+    case 1128: return fwd_tc<128, kRing>(bq, bk, q, k, v, nullptr, nullptr, acc, m, l, qpos,
+                                         kpos, rows, h, hkv, t, 1, st);
     default: return kBadArgs;
   }
 }
@@ -118,8 +121,10 @@ int hvd_ring_flash_fwd(const void* q, const void* k, const void* v, void* acc,
 int hvd_ring_flash_dq(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
                       const void* qpos, const void* kpos, void* dq, int rows,
-                      int h, int hkv, int t, int d, int dtype, void* stream) {
+                      int h, int hkv, int t, int d, int dtype, int bq, int bk,
+                      void* stream) {
   if (bad_shape(rows, h, hkv, t)) return kBadArgs;
+  if (dtype == 0 && (bq != kTile || bk != kTile)) return kBadArgs;
   cudaStream_t st = (cudaStream_t)stream;
   switch (dtype * 1000 + d) {
     case 32: return ring_dq<32>(q, k, v, dout, lse, delta, qpos, kpos, dq, rows, h, hkv,
@@ -128,12 +133,12 @@ int hvd_ring_flash_dq(const void* q, const void* k, const void* v,
                                        t, st);
     case 128: return ring_dq<128>(q, k, v, dout, lse, delta, qpos, kpos, dq, rows, h, hkv,
                                          t, st);
-    case 1032: return launch_dq_tc<32, kRing>(q, k, v, dout, lse, delta, qpos, kpos, dq, rows, h,
-                                              hkv, t, 1, st);
-    case 1064: return launch_dq_tc<64, kRing>(q, k, v, dout, lse, delta, qpos, kpos, dq, rows, h,
-                                              hkv, t, 1, st);
-    case 1128: return launch_dq_tc<128, kRing>(q, k, v, dout, lse, delta, qpos, kpos, dq, rows, h,
-                                               hkv, t, 1, st);
+    case 1032: return dq_tc<32, kRing>(bq, bk, q, k, v, dout, lse, delta, qpos, kpos, dq, rows,
+                                       h, hkv, t, 1, st);
+    case 1064: return dq_tc<64, kRing>(bq, bk, q, k, v, dout, lse, delta, qpos, kpos, dq, rows,
+                                       h, hkv, t, 1, st);
+    case 1128: return dq_tc<128, kRing>(bq, bk, q, k, v, dout, lse, delta, qpos, kpos, dq, rows,
+                                        h, hkv, t, 1, st);
     default: return kBadArgs;
   }
 }
@@ -142,8 +147,9 @@ int hvd_ring_flash_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
                        const void* qpos, const void* kpos, void* dk, void* dv,
                        int rows_kv, int h, int hkv, int t, int d, int dtype,
-                       void* stream) {
+                       int bq, int bk, void* stream) {
   if (bad_kv_shape(rows_kv, h, hkv, t)) return kBadArgs;
+  if (dtype == 0 && (bq != kTile || bk != kTile)) return kBadArgs;
   cudaStream_t st = (cudaStream_t)stream;
   switch (dtype * 1000 + d) {
     case 32: return ring_dkv<32>(q, k, v, dout, lse, delta, qpos, kpos, dk, dv, rows_kv,
@@ -152,12 +158,12 @@ int hvd_ring_flash_dkv(const void* q, const void* k, const void* v,
                                         h, hkv, t, st);
     case 128: return ring_dkv<128>(q, k, v, dout, lse, delta, qpos, kpos, dk, dv, rows_kv,
                                           h, hkv, t, st);
-    case 1032: return launch_dkv_tc<32, kRing>(q, k, v, dout, lse, delta, qpos, kpos, dk, dv,
-                                               rows_kv, h, hkv, t, 1, st);
-    case 1064: return launch_dkv_tc<64, kRing>(q, k, v, dout, lse, delta, qpos, kpos, dk, dv,
-                                               rows_kv, h, hkv, t, 1, st);
-    case 1128: return launch_dkv_tc<128, kRing>(q, k, v, dout, lse, delta, qpos, kpos, dk, dv,
-                                                rows_kv, h, hkv, t, 1, st);
+    case 1032: return dkv_tc<32, kRing>(bq, bk, q, k, v, dout, lse, delta, qpos, kpos, dk, dv,
+                                        rows_kv, h, hkv, t, 1, st);
+    case 1064: return dkv_tc<64, kRing>(bq, bk, q, k, v, dout, lse, delta, qpos, kpos, dk, dv,
+                                        rows_kv, h, hkv, t, 1, st);
+    case 1128: return dkv_tc<128, kRing>(bq, bk, q, k, v, dout, lse, delta, qpos, kpos, dk, dv,
+                                         rows_kv, h, hkv, t, 1, st);
     default: return kBadArgs;
   }
 }

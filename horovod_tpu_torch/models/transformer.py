@@ -7,7 +7,12 @@ before the product; RMSNorm reduces in float32 with epsilon 1e-6; GELU is
 the tanh approximation; rotary embedding rotates the two halves of each
 head; the LM head runs at ``logits_dtype`` (float32 by default).
 ``attention="flash"`` runs the flash kernels of ``ops/flash_attention.py``,
-``attention="dense"`` the plain causal attention below.
+``attention="dense"`` the plain causal attention below. ``block_q`` and
+``block_k`` (flax's fields of the same names) are the flash kernels' tile
+ceilings, passed to both flash paths (``flash_attention`` and
+``ring_flash_attention``; ``effective_blocks`` resolves them); None is
+each kernel's default. They are not weights: ``tp_state_dict`` and
+``convert.py`` do not see them.
 
 ``remat=True`` recomputes each block's forward in the backward pass
 (``torch.utils.checkpoint``, the counterpart of flax's ``nn.remat(Block)``):
@@ -120,7 +125,8 @@ class Block(nn.Module):
                  dtype: torch.dtype = torch.bfloat16, attention: str = "dense",
                  kv_heads: Optional[int] = None, sp_group=None,
                  moe_experts: int = 0, tp_group=None,
-                 tp_size: Optional[int] = None, ep_group=None):
+                 tp_size: Optional[int] = None, ep_group=None,
+                 block_q: Optional[int] = None, block_k: Optional[int] = None):
         super().__init__()
         if attention not in ("dense", "flash"):
             raise ValueError(
@@ -135,6 +141,7 @@ class Block(nn.Module):
         self.dim, self.heads, self.kv_heads = dim, heads, kvh
         self.head_dim = dim // heads
         self.attention = attention
+        self.block_q, self.block_k = block_q, block_k
         self.sp_group = sp_group
         self.tp_group, self.tp_size = tp_group, tp
         self.norm1 = RMSNorm(dim, dtype)
@@ -168,11 +175,14 @@ class Block(nn.Module):
         q = _rope(q.reshape(b, t, h_local, hd), positions)
         k = _rope(k.reshape(b, t, kv_local, hd), positions)
         v = v.reshape(b, t, kv_local, hd)
-        if self.sp_group is not None:
-            ring = ring_flash_attention if self.attention == "flash" else ring_attention
-            attn = ring(q, k, v, self.sp_group)
+        if self.sp_group is not None and self.attention == "flash":
+            attn = ring_flash_attention(q, k, v, self.sp_group,
+                                        block_q=self.block_q, block_k=self.block_k)
+        elif self.sp_group is not None:
+            attn = ring_attention(q, k, v, self.sp_group)
         elif self.attention == "flash":
-            attn = flash_attention(q, k, v, causal=True)
+            attn = flash_attention(q, k, v, causal=True, block_q=self.block_q,
+                                   block_k=self.block_k)
         else:
             if kv_local != h_local:
                 k = k.repeat_interleave(h_local // kv_local, dim=2)
@@ -214,7 +224,8 @@ class TransformerLM(nn.Module):
                  kv_heads: Optional[int] = None,
                  logits_dtype: torch.dtype = torch.float32, sp_group=None,
                  remat: bool = False, moe_experts: int = 0, moe_every: int = 2,
-                 tp_group=None, tp_size: Optional[int] = None, ep_group=None):
+                 tp_group=None, tp_size: Optional[int] = None, ep_group=None,
+                 block_q: Optional[int] = None, block_k: Optional[int] = None):
         super().__init__()
         self.vocab, self.dim, self.dtype = vocab, dim, dtype
         self.remat = remat
@@ -223,7 +234,7 @@ class TransformerLM(nn.Module):
         self.blocks = nn.ModuleList(
             Block(dim, heads, mlp_ratio, dtype, attention, kv_heads, sp_group,
                   moe_experts if moe_experts > 0 and i % moe_every == moe_every - 1
-                  else 0, tp_group, tp_size, ep_group)
+                  else 0, tp_group, tp_size, ep_group, block_q, block_k)
             for i in range(layers))
         self.norm = RMSNorm(dim, dtype)
         self.lm_head = Dense(dim // self.tp_size, vocab, logits_dtype)

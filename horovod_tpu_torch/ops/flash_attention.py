@@ -1,7 +1,8 @@
 """Flash attention, trainable: three CUDA kernels behind one autograd
 Function, each with its plain PyTorch version beside it.
 
-``flash_attention(q, k, v, causal=True)`` takes q ``(B, T, H, D)`` and k/v
+``flash_attention(q, k, v, causal=True, block_q=None, block_k=None)`` takes
+q ``(B, T, H, D)`` and k/v
 ``(B, T, Hkv, D)`` with ``H % Hkv == 0`` (grouped-query attention: each kv
 head serves a contiguous group of H/Hkv q heads), the layout of
 ``horovod_tpu.ops.flash_attention.flash_attention``. Inside, tensors are in
@@ -20,6 +21,17 @@ every kernel is held to. In bfloat16 the three kernels run on the tensor
 cores (``csrc/flash_tc.cuh``: TMA loads, wgmma) and need 16-byte aligned
 inputs. There is no other fallback: a CUDA tensor the kernel does not take
 raises.
+
+``block_q`` and ``block_k`` are tile ceilings, as in the JAX package: each
+kernel runs the largest (q extent, k extent) pair it was built for within
+them (``effective_blocks``; ``TILE_PAIRS`` lists the pairs). A ceiling
+below the smallest built extent takes the smallest, and None takes the
+kernel's default extent. At head dim 128 the bf16 kernels are built for
+4 (forward), 3 (dQ) and 2 (dK/dV) pairs of 64- and 128-row extents, at 32
+and 64 for their default pair alone; the float32 kernels for their one
+64 x 64 tile. A tile need not divide T: the kernels
+mask a ragged tail. On the CPU the tiles are validated and resolved the
+same way, and the plain versions run.
 """
 
 from __future__ import annotations
@@ -35,6 +47,62 @@ _SOURCE = "flash_attention.cu"
 
 # Kernel launches per wrapper, counted where the kernel launches.
 launches = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+
+# The tile pairs (q extent, k extent) the bf16 kernels are built for at
+# TILE_HEAD_DIM, per kernel, default first; csrc/flash_tc.cuh's
+# HVD_*_PAIRS list the same. For dK/dV the k extent is a block's rows and
+# the q extent a tile's; for the others the reverse. The ring kernels
+# (ops/ring_flash.py) are the same templates and take the same pairs.
+# Other bf16 head dims take the default pair alone, float32 F32_TILE.
+TILE_HEAD_DIM = 128
+TILE_PAIRS = {
+    "flash_fwd": ((128, 128), (128, 64), (64, 128), (64, 64)),
+    "flash_bwd_dq": ((128, 64), (64, 64), (64, 128)),
+    "flash_bwd_dkv": ((64, 128), (64, 64)),
+}
+F32_TILE = (64, 64)
+RING_OF = {"ring_flash_fwd": "flash_fwd", "ring_flash_bwd_dq": "flash_bwd_dq",
+           "ring_flash_bwd_dkv": "flash_bwd_dkv"}
+
+
+def built_pairs(name: str, d: int, dtype) -> tuple:
+    """The tile pairs kernel ``name`` (a flash or a ring kernel) is built
+    for at head dim ``d`` in ``dtype``, default first."""
+    pairs = TILE_PAIRS[RING_OF.get(name, name)]
+    if dtype == torch.float32:
+        return (F32_TILE,)
+    return pairs if d == TILE_HEAD_DIM else pairs[:1]
+
+
+def _ceiling(value, name: str):
+    if value is None:
+        return None
+    if isinstance(value, bool) or not isinstance(value, int) or value < 1:
+        raise ValueError(f"{name} must be a positive int or None, not {value!r}")
+    return value
+
+
+def effective_blocks(t: int, d: int, dtype, block_q=None,
+                     block_k=None) -> dict:
+    """{kernel: (q extent, k extent)} that the six kernels (B1-B6) run for
+    the ceilings ``block_q`` and ``block_k`` at sequence length ``t``, head
+    dim ``d`` and ``dtype``: the port's counterpart of the JAX package's
+    ``_check_blocks``. Each kernel takes the built pair of the largest
+    area (then q extent) with both extents within the ceilings; a ceiling
+    below the smallest built extent is raised to it, and None is the
+    kernel's default extent. ``t`` takes no part: the kernels mask a
+    ragged tail, so no tile has to divide it."""
+    bq, bk = _ceiling(block_q, "block_q"), _ceiling(block_k, "block_k")
+    if t < 1:
+        raise ValueError(f"sequence length {t} < 1")
+    out = {}
+    for name in (*TILE_PAIRS, *RING_OF):
+        pairs = built_pairs(name, d, dtype)
+        cq = max(pairs[0][0] if bq is None else bq, min(p[0] for p in pairs))
+        ck = max(pairs[0][1] if bk is None else bk, min(p[1] for p in pairs))
+        out[name] = max((p for p in pairs if p[0] <= cq and p[1] <= ck),
+                        key=lambda p: (p[0] * p[1], p[0]))
+    return out
 
 
 # While a list: each launch of a kernel here or in ``ring_flash`` appends
@@ -164,9 +232,9 @@ def _library() -> ctypes.CDLL:
 
         lib = load(_SOURCE)
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.hvd_flash_fwd.argtypes = [p] * 5 + [i] * 7 + [p]
-        lib.hvd_flash_bwd_dq.argtypes = [p] * 7 + [i] * 7 + [p]
-        lib.hvd_flash_bwd_dkv.argtypes = [p] * 8 + [i] * 7 + [p]
+        lib.hvd_flash_fwd.argtypes = [p] * 5 + [i] * 9 + [p]
+        lib.hvd_flash_bwd_dq.argtypes = [p] * 7 + [i] * 9 + [p]
+        lib.hvd_flash_bwd_dkv.argtypes = [p] * 8 + [i] * 9 + [p]
         for fn in (lib.hvd_flash_fwd, lib.hvd_flash_bwd_dq, lib.hvd_flash_bwd_dkv):
             fn.restype = ctypes.c_int
         _lib = lib
@@ -213,7 +281,7 @@ def _tma_rows(t: int, *rows_f32):
     return tuple(torch.nn.functional.pad(x, (0, 4 - t % 4)) for x in rows_f32)
 
 
-_ERRORS = {1000: "arguments no kernel takes",
+_ERRORS = {1000: "arguments no kernel takes (or a tile pair not built)",
            1001: "a TMA tensor map did not encode"}
 
 
@@ -237,8 +305,17 @@ def _ptr(x: torch.Tensor):
     return ctypes.c_void_p(x.data_ptr())
 
 
-def flash_fwd(qr, kr, vr, h: int, hkv: int, causal: bool):
+def tiles_of(name: str, x: torch.Tensor, block_q=None, block_k=None) -> tuple:
+    """The (q extent, k extent) kernel ``name`` runs on rows-layout ``x``
+    (rows, T, D) for the ceilings ``block_q`` and ``block_k``."""
+    _, t, d = x.shape
+    return effective_blocks(t, d, x.dtype, block_q, block_k)[name]
+
+
+def flash_fwd(qr, kr, vr, h: int, hkv: int, causal: bool, block_q=None,
+              block_k=None):
     """(O, L) of rows-layout q, k, v: the kernel on CUDA, plain on CPU."""
+    bq, bk = tiles_of("flash_fwd", qr, block_q, block_k)
     if not qr.is_cuda:
         return fwd_plain(qr, kr, vr, h, hkv, causal)
     code = _check_cuda(h, hkv, (qr, kr, vr))
@@ -248,13 +325,15 @@ def flash_fwd(qr, kr, vr, h: int, hkv: int, causal: bool):
     lse = torch.empty(rows, t, device=qr.device, dtype=torch.float32)
     _launch(_library().hvd_flash_fwd, "flash_fwd", qr.device,
             _ptr(qr), _ptr(kr), _ptr(vr), _ptr(out), _ptr(lse), rows, h, hkv,
-            t, d, int(causal), code,
+            t, d, int(causal), code, bq, bk,
             geometry=(rows, kr.shape[0], t, d, qr.element_size(), causal))
     return out, lse
 
 
-def flash_bwd_dq(qr, kr, vr, dor, lse, delta, h: int, hkv: int, causal: bool):
+def flash_bwd_dq(qr, kr, vr, dor, lse, delta, h: int, hkv: int, causal: bool,
+                 block_q=None, block_k=None):
     """dQ: the kernel on CUDA, plain on CPU."""
+    bq, bk = tiles_of("flash_bwd_dq", qr, block_q, block_k)
     if not qr.is_cuda:
         return dq_plain(qr, kr, vr, dor, lse, delta, h, hkv, causal)
     code = _check_cuda(h, hkv, (qr, kr, vr, dor), (lse, delta))
@@ -263,13 +342,15 @@ def flash_bwd_dq(qr, kr, vr, dor, lse, delta, h: int, hkv: int, causal: bool):
     dq = torch.empty_like(qr)
     _launch(_library().hvd_flash_bwd_dq, "flash_bwd_dq", qr.device,
             _ptr(qr), _ptr(kr), _ptr(vr), _ptr(dor), _ptr(lse), _ptr(delta),
-            _ptr(dq), rows, h, hkv, t, d, int(causal), code,
+            _ptr(dq), rows, h, hkv, t, d, int(causal), code, bq, bk,
             geometry=(rows, kr.shape[0], t, d, qr.element_size(), causal))
     return dq
 
 
-def flash_bwd_dkv(qr, kr, vr, dor, lse, delta, h: int, hkv: int, causal: bool):
+def flash_bwd_dkv(qr, kr, vr, dor, lse, delta, h: int, hkv: int, causal: bool,
+                  block_q=None, block_k=None):
     """(dK, dV): the kernel on CUDA, plain on CPU."""
+    bq, bk = tiles_of("flash_bwd_dkv", qr, block_q, block_k)
     if not qr.is_cuda:
         return dkv_plain(qr, kr, vr, dor, lse, delta, h, hkv, causal)
     code = _check_cuda(h, hkv, (qr, kr, vr, dor), (lse, delta))
@@ -281,36 +362,40 @@ def flash_bwd_dkv(qr, kr, vr, dor, lse, delta, h: int, hkv: int, causal: bool):
     _launch(_library().hvd_flash_bwd_dkv, "flash_bwd_dkv", qr.device,
             _ptr(qr), _ptr(kr), _ptr(vr), _ptr(dor), _ptr(lse), _ptr(delta),
             _ptr(dk), _ptr(dv), rows_kv, h, hkv, t, d, int(causal), code,
+            bq, bk,
             geometry=(qr.shape[0], rows_kv, t, d, qr.element_size(), causal))
     return dk, dv
 
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, causal):
+    def forward(ctx, q, k, v, causal, block_q, block_k):
         b, h, hkv = q.shape[0], q.shape[2], k.shape[2]
         qr, kr, vr = _rows(q), _rows(k), _rows(v)
-        out, lse = flash_fwd(qr, kr, vr, h, hkv, causal)
+        out, lse = flash_fwd(qr, kr, vr, h, hkv, causal, block_q, block_k)
         ctx.save_for_backward(qr, kr, vr, out, lse)
-        ctx.geometry = (b, h, hkv, causal)
+        ctx.geometry = (b, h, hkv, causal, block_q, block_k)
         return _unrows(out, b)
 
     @staticmethod
     def backward(ctx, dout):
         qr, kr, vr, out, lse = ctx.saved_tensors
-        b, h, hkv, causal = ctx.geometry
+        b, h, hkv, causal, block_q, block_k = ctx.geometry
         dor = _rows(dout.to(qr.dtype))
         delta = (dor.float() * out.float()).sum(dim=-1)
-        dq = flash_bwd_dq(qr, kr, vr, dor, lse, delta, h, hkv, causal)
-        dk, dv = flash_bwd_dkv(qr, kr, vr, dor, lse, delta, h, hkv, causal)
-        return _unrows(dq, b), _unrows(dk, b), _unrows(dv, b), None
+        dq = flash_bwd_dq(qr, kr, vr, dor, lse, delta, h, hkv, causal,
+                          block_q, block_k)
+        dk, dv = flash_bwd_dkv(qr, kr, vr, dor, lse, delta, h, hkv, causal,
+                               block_q, block_k)
+        return _unrows(dq, b), _unrows(dk, b), _unrows(dv, b), None, None, None
 
 
-def flash_attention(q, k, v, causal: bool = True):
+def flash_attention(q, k, v, causal: bool = True, block_q=None, block_k=None):
     """Fused attention, trainable; see the module docstring."""
     _gqa_group(q, k, v)
     if q.dim() != 4 or k.shape != v.shape or q.shape[:2] != k.shape[:2] \
             or q.shape[3] != k.shape[3]:
         raise ValueError(f"bad shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)}")
-    return _FlashAttention.apply(q, k, v, causal)
+    effective_blocks(q.shape[1], q.shape[3], q.dtype, block_q, block_k)
+    return _FlashAttention.apply(q, k, v, causal, block_q, block_k)

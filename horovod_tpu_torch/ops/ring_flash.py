@@ -1,7 +1,8 @@
 """Ring flash attention, trainable: the ring schedule of sequence
 parallelism with each step's local block product in CUDA kernels.
 
-``ring_flash_attention(q, k, v, group=None, zigzag=False)`` takes this
+``ring_flash_attention(q, k, v, group=None, zigzag=False, block_q=None,
+block_k=None)`` takes this
 rank's sequence shard, q ``(B, T_local, H, D)`` and k/v
 ``(B, T_local, Hkv, D)`` with ``H % Hkv == 0``, and returns its shard of
 causal attention over the whole sequence: the counterpart of
@@ -23,6 +24,9 @@ three kernels run on the tensor cores (``csrc/flash_tc.cuh``: TMA loads,
 wgmma) and need 16-byte aligned inputs, the positions they load by TMA
 included (k positions for the forward and dQ, q positions for dK/dV).
 There is no other fallback: a CUDA tensor the kernel does not take raises.
+``block_q`` and ``block_k`` are tile ceilings with the rules of
+``flash_attention.effective_blocks``: the three kernels are the flash
+kernels' templates and take the same built pairs.
 
 The schedule is the JAX package's step for step: carries start as zeros,
 -1e30 and zeros; at step s a rank holds the block of rank (my - s) % n and
@@ -132,9 +136,9 @@ def _library() -> ctypes.CDLL:
 
         lib = load(_SOURCE)
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.hvd_ring_flash_fwd.argtypes = [p] * 8 + [i] * 6 + [p]
-        lib.hvd_ring_flash_dq.argtypes = [p] * 9 + [i] * 6 + [p]
-        lib.hvd_ring_flash_dkv.argtypes = [p] * 10 + [i] * 6 + [p]
+        lib.hvd_ring_flash_fwd.argtypes = [p] * 8 + [i] * 8 + [p]
+        lib.hvd_ring_flash_dq.argtypes = [p] * 9 + [i] * 8 + [p]
+        lib.hvd_ring_flash_dkv.argtypes = [p] * 10 + [i] * 8 + [p]
         for fn in (lib.hvd_ring_flash_fwd, lib.hvd_ring_flash_dq,
                    lib.hvd_ring_flash_dkv):
             fn.restype = ctypes.c_int
@@ -158,9 +162,11 @@ def _check_cuda(h, hkv, inputs, rows_f32, carries, qpos, kpos) -> int:
     return code
 
 
-def rf_fwd(qr, kr, vr, acc, m, l, qpos, kpos, h: int, hkv: int):
+def rf_fwd(qr, kr, vr, acc, m, l, qpos, kpos, h: int, hkv: int,
+           block_q=None, block_k=None):
     """One ring step's forward on (acc, m, l), in place: the kernel on CUDA,
     plain on CPU."""
+    bq, bk = fa.tiles_of("ring_flash_fwd", qr, block_q, block_k)
     if not qr.is_cuda:
         return rf_fwd_plain(qr, kr, vr, acc, m, l, qpos, kpos, h, hkv)
     code = _check_cuda(h, hkv, (qr, kr, vr), (), (acc, m, l), qpos, kpos)
@@ -168,13 +174,15 @@ def rf_fwd(qr, kr, vr, acc, m, l, qpos, kpos, h: int, hkv: int):
     rows, t, d = qr.shape
     ptrs = [fa._ptr(x) for x in (qr, kr, vr, acc, m, l, qpos, kpos)]
     fa._launch(_library().hvd_ring_flash_fwd, "ring_flash_fwd", qr.device,
-               *ptrs, rows, h, hkv, t, d, code, counts=launches,
+               *ptrs, rows, h, hkv, t, d, code, bq, bk, counts=launches,
                geometry=(rows, kr.shape[0], t, d, qr.element_size(), (qpos, kpos)))
     return acc, m, l
 
 
-def rf_bwd_dq(qr, kr, vr, dor, lse, delta, qpos, kpos, dq, h: int, hkv: int):
+def rf_bwd_dq(qr, kr, vr, dor, lse, delta, qpos, kpos, dq, h: int, hkv: int,
+              block_q=None, block_k=None):
     """dq += one ring step's dQ, in place: the kernel on CUDA, plain on CPU."""
+    bq, bk = fa.tiles_of("ring_flash_bwd_dq", qr, block_q, block_k)
     if not qr.is_cuda:
         return rf_dq_plain(qr, kr, vr, dor, lse, delta, qpos, kpos, dq, h, hkv)
     code = _check_cuda(h, hkv, (qr, kr, vr, dor), (lse, delta), (dq,), qpos, kpos)
@@ -182,15 +190,16 @@ def rf_bwd_dq(qr, kr, vr, dor, lse, delta, qpos, kpos, dq, h: int, hkv: int):
     rows, t, d = qr.shape
     ptrs = [fa._ptr(x) for x in (qr, kr, vr, dor, lse, delta, qpos, kpos, dq)]
     fa._launch(_library().hvd_ring_flash_dq, "ring_flash_bwd_dq", qr.device,
-               *ptrs, rows, h, hkv, t, d, code, counts=launches,
+               *ptrs, rows, h, hkv, t, d, code, bq, bk, counts=launches,
                geometry=(rows, kr.shape[0], t, d, qr.element_size(), (qpos, kpos)))
     return dq
 
 
 def rf_bwd_dkv(qr, kr, vr, dor, lse, delta, qpos, kpos, dk, dv, h: int,
-               hkv: int):
+               hkv: int, block_q=None, block_k=None):
     """(dk, dv) += one ring step's dK, dV, in place: the kernel on CUDA,
     plain on CPU."""
+    bq, bk = fa.tiles_of("ring_flash_bwd_dkv", qr, block_q, block_k)
     if not qr.is_cuda:
         return rf_dkv_plain(qr, kr, vr, dor, lse, delta, qpos, kpos, dk, dv,
                             h, hkv)
@@ -202,7 +211,7 @@ def rf_bwd_dkv(qr, kr, vr, dor, lse, delta, qpos, kpos, dk, dv, h: int,
         lse, delta = fa._tma_rows(t, lse, delta)
     ptrs = [fa._ptr(x) for x in (qr, kr, vr, dor, lse, delta, qpos, kpos, dk, dv)]
     fa._launch(_library().hvd_ring_flash_dkv, "ring_flash_bwd_dkv", qr.device,
-               *ptrs, rows_kv, h, hkv, t, d, code, counts=launches,
+               *ptrs, rows_kv, h, hkv, t, d, code, bq, bk, counts=launches,
                geometry=(qr.shape[0], rows_kv, t, d, qr.element_size(),
                          (qpos, kpos)))
     return dk, dv
@@ -231,7 +240,7 @@ def finalize(acc, m, l, dtype):
 
 class _RingFlash(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, group, zigzag):
+    def forward(ctx, q, k, v, group, zigzag, block_q, block_k):
         my, n = ring_rank(group)
         b, t, h, d = q.shape
         hkv = k.shape[2]
@@ -243,18 +252,19 @@ class _RingFlash(torch.autograd.Function):
             src = (my - step) % n
             if not fully_masked(my, src, t, n, zigzag):
                 rf_fwd(qr, k_blk, v_blk, acc, m, l, qpos,
-                       ring_positions(src, t, n, zigzag, q.device), h, hkv)
+                       ring_positions(src, t, n, zigzag, q.device), h, hkv,
+                       block_q, block_k)
             if step + 1 < n:
                 k_blk, v_blk = ring_hop([k_blk, v_blk], group)
         out, lse = finalize(acc, m, l, q.dtype)
         ctx.save_for_backward(qr, kr, vr, out, lse)
-        ctx.geometry = (b, h, hkv, group, zigzag)
+        ctx.geometry = (b, h, hkv, group, zigzag, block_q, block_k)
         return fa._unrows(out, b)
 
     @staticmethod
     def backward(ctx, dout):
         qr, kr, vr, out, lse = ctx.saved_tensors
-        b, h, hkv, group, zigzag = ctx.geometry
+        b, h, hkv, group, zigzag, block_q, block_k = ctx.geometry
         my, n = ring_rank(group)
         t, d = qr.shape[1], qr.shape[2]
         dor = fa._rows(dout.to(qr.dtype))
@@ -268,20 +278,21 @@ class _RingFlash(torch.autograd.Function):
             src = (my - step) % n
             if not fully_masked(my, src, t, n, zigzag):
                 kpos = ring_positions(src, t, n, zigzag, qr.device)
-                rf_bwd_dq(qr, k_blk, v_blk, dor, lse, delta, qpos, kpos, dq, h, hkv)
+                rf_bwd_dq(qr, k_blk, v_blk, dor, lse, delta, qpos, kpos, dq, h,
+                          hkv, block_q, block_k)
                 rf_bwd_dkv(qr, k_blk, v_blk, dor, lse, delta, qpos, kpos, dk,
-                           dv, h, hkv)
+                           dv, h, hkv, block_q, block_k)
             # (dK, dV) travel with their (K, V) block, the last step included.
             if step + 1 < n:
                 dk, dv, k_blk, v_blk = ring_hop([dk, dv, k_blk, v_blk], group)
             else:
                 dk, dv = ring_hop([dk, dv], group)
         return (fa._unrows(dq.to(qr.dtype), b), fa._unrows(dk.to(kr.dtype), b),
-                fa._unrows(dv.to(vr.dtype), b), None, None)
+                fa._unrows(dv.to(vr.dtype), b), None, None, None, None)
 
 
 def ring_flash_attention(q, k, v, group: Optional[dist.ProcessGroup] = None,
-                         zigzag: bool = False):
+                         zigzag: bool = False, block_q=None, block_k=None):
     """Causal ring attention over ``group`` with the fused kernels,
     trainable; see the module docstring."""
     fa._gqa_group(q, k, v)
@@ -289,4 +300,5 @@ def ring_flash_attention(q, k, v, group: Optional[dist.ProcessGroup] = None,
             or q.shape[3] != k.shape[3]:
         raise ValueError(f"bad shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)}")
-    return _RingFlash.apply(q, k, v, group, zigzag)
+    fa.effective_blocks(q.shape[1], q.shape[3], q.dtype, block_q, block_k)
+    return _RingFlash.apply(q, k, v, group, zigzag, block_q, block_k)

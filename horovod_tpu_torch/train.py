@@ -115,6 +115,8 @@ class TrainConfig:
     logits_dtype: str = "float32"       # the LM head's
     steps_per_dispatch: Optional[int] = None   # K steps per CUDA graph dispatch
     sharded: Optional[bool] = None      # ZeRO; None: HOROVOD_SHARD_PARAMS
+    block_q: Optional[int] = None       # flash tile ceilings (TransformerLM's);
+    block_k: Optional[int] = None       # None: each kernel's default
 
     def __post_init__(self):
         if self.loss_chunk < 0:
@@ -157,7 +159,8 @@ def build_model(config: TrainConfig, device, sp_group=None, tp_group=None,
               kv_heads=config.kv_heads,
               logits_dtype=getattr(torch, config.logits_dtype),
               sp_group=sp_group, remat=config.remat, moe_experts=moe_experts,
-              moe_every=moe_every)
+              moe_every=moe_every, block_q=config.block_q,
+              block_k=config.block_k)
     model = TransformerLM(**kw, tp_group=tp_group, ep_group=ep_group).to(device)
     gen = torch.Generator(device=device).manual_seed(config.seed)
     tp, ep = model_size(tp_group), model_size(ep_group)

@@ -5,6 +5,8 @@ package's ``examples/transformer_benchmark.py``.
     python -m horovod_tpu_torch.transformer_benchmark --scan-steps 8 --json
     python -m horovod_tpu_torch.transformer_benchmark --device cpu --dim 32 \\
         --heads 4 --layers 2 --vocab 64 --seq-len 64
+    python -m horovod_tpu_torch.transformer_benchmark --scan-steps 4 \\
+        --sweep-blocks
 
 A full training step of ``train.TrainConfig``'s model: forward, loss,
 backward and ``DistributedOptimizer`` (bucket allreduces, then Adam), bf16
@@ -15,6 +17,17 @@ counterpart of the JAX example's ``lax.scan``); otherwise each step is a
 dispatch of its own, eager. ``--remat``, ``--loss-chunk`` and
 ``--bf16-logits`` are the model's long-context options. The defaults are
 ``TrainConfig``'s: 8 heads of 128 (the JAX example's default is 16 of 64).
+``--attention dense`` runs the plain causal attention instead of the flash
+kernels. ``--block-q`` and ``--block-k`` are the flash kernels' tile
+ceilings (``ops/flash_attention.effective_blocks``; default: each kernel's
+own tiles), and each run prints the tiles every kernel took.
+``--sweep-blocks`` measures the model at today's tiles and then at each
+(block_q, block_k) of ``--sweep-qs`` x ``--sweep-ks`` with block_k <=
+block_q, as the JAX example's sweep does: one row per distinct set of
+effective tiles, labelled with them, and a ``best:`` line. A built tile
+that fails to launch raises; the sweep does not record it as data. The
+JAX example's ``--nominal-tflops`` (a TPU data-sheet figure) is not
+carried over.
 
 The rate is the median-window one of ``autotune.measure_steps_per_s``,
 the JAX package's method: ``--num-iters`` dispatches per window, one host
@@ -36,6 +49,7 @@ from __future__ import annotations
 import argparse
 import json
 import subprocess
+import gc
 from typing import Optional
 
 import torch
@@ -43,6 +57,7 @@ import torch
 from .autotune import measure_steps_per_s
 from .common import basics
 from .loop import make_scan_train_loop
+from .ops.flash_attention import TILE_PAIRS, effective_blocks
 from .train import TrainConfig, make_cache, setup
 from .utils import roofline
 
@@ -88,6 +103,22 @@ def parse_args(argv=None):
     parser.add_argument("--seq-len", type=int, default=base.seq)
     parser.add_argument("--batch-size", type=int, default=base.batch,
                         help="sequences per card (with --sp: per ring)")
+    parser.add_argument("--attention", choices=["dense", "flash"],
+                        default=base.attention)
+    parser.add_argument("--block-q", type=int, default=None,
+                        help="flash kernel q tile ceiling (default: each "
+                             "kernel's own)")
+    parser.add_argument("--block-k", type=int, default=None,
+                        help="flash kernel k tile ceiling (default: each "
+                             "kernel's own)")
+    parser.add_argument("--sweep-blocks", action="store_true",
+                        help="measure today's tiles and a grid of flash "
+                             "(block_q, block_k) ceilings at this config and "
+                             "print the table (a new model and graph per row)")
+    parser.add_argument("--sweep-qs", default="64,128",
+                        help="comma-separated block_q grid for --sweep-blocks")
+    parser.add_argument("--sweep-ks", default="64,128",
+                        help="comma-separated block_k grid for --sweep-blocks")
     parser.add_argument("--remat", action="store_true",
                         help="recompute each block in the backward pass")
     parser.add_argument("--loss-chunk", type=int, default=0,
@@ -122,20 +153,37 @@ def parse_args(argv=None):
     return args
 
 
-def config_of(args) -> TrainConfig:
+def config_of(args, block_q=None, block_k=None) -> TrainConfig:
     return TrainConfig(
         vocab=args.vocab, dim=args.dim, heads=args.heads,
         kv_heads=args.kv_heads, layers=args.layers, seq=args.seq_len,
-        batch=args.batch_size, sp=args.sp,
+        batch=args.batch_size, sp=args.sp, attention=args.attention,
         remat=args.remat, loss_chunk=args.loss_chunk,
         logits_dtype="bfloat16" if args.bf16_logits else "float32",
-        steps_per_dispatch=args.scan_steps if args.scan_steps > 1 else None)
+        steps_per_dispatch=args.scan_steps if args.scan_steps > 1 else None,
+        block_q=block_q, block_k=block_k)
 
 
-def measure(args) -> tuple[float, float, int, Optional[dict]]:
+def tiles(args, block_q=None, block_k=None) -> dict:
+    """{kernel: (q extent, k extent)} the model's flash kernels run for
+    these ceilings: the ring kernels under ``--sp``, else B1-B3 (bf16, the
+    model's activations, at its head dim)."""
+    t = args.seq_len // (args.sp or 1)
+    eff = effective_blocks(t, args.dim // args.heads, torch.bfloat16,
+                           block_q, block_k)
+    names = [("ring_" + k if args.sp else k) for k in TILE_PAIRS]
+    return {k: eff[k] for k in names}
+
+
+def tiles_label(eff: dict) -> str:
+    return ", ".join(f"{k} {q}/{kk}" for k, (q, kk) in eff.items())
+
+
+def measure(args, block_q=None, block_k=None
+            ) -> tuple[float, float, int, Optional[dict]]:
     """(tokens/s over all ranks, the last loss, world size, the roofline
     report with ``--profile`` or None)."""
-    config = config_of(args)
+    config = config_of(args, block_q, block_k)
     s = setup(config, args.device)
     dev = basics.device()
     cache = make_cache(config, s.sp, dev)
@@ -185,6 +233,39 @@ def peak_flops(args) -> tuple[float, str]:
     return peaks.bf16_flops, peaks.describe()
 
 
+def sweep_blocks(args) -> list:
+    """Measure today's tiles, then each (block_q, block_k) of the grid with
+    block_k <= block_q, once per distinct set of effective tiles; print a
+    row per set and the best. Returns the rows (ceilings, tiles, tok/s)."""
+    if args.attention != "flash":
+        raise SystemExit("--sweep-blocks tunes the flash kernel tiles; "
+                         "the dense schedule has none (use --attention flash)")
+    qs = [int(x) for x in args.sweep_qs.split(",")]
+    ks = [int(x) for x in args.sweep_ks.split(",")]
+    grid = [(None, None)] + [(bq, bk) for bq in qs for bk in ks if bk <= bq]
+    rows, seen = [], set()
+    for bq, bk in grid:
+        eff = tiles(args, bq, bk)
+        key = tuple(eff.values())
+        if key in seen:
+            continue
+        seen.add(key)
+        tok_s, _, _, _ = measure(args, bq, bk)
+        gc.collect()
+        if basics.device().type == "cuda":
+            torch.cuda.empty_cache()
+        rows.append(((bq, bk), eff, tok_s))
+        if basics.rank() == 0:
+            ceil = "default" if bq is None else f"{bq:>4}/{bk:<4}"
+            print(f"  blocks {ceil:>9}: {tok_s:10.0f} tok/s  ({tiles_label(eff)})",
+                  flush=True)
+    if basics.rank() == 0:
+        (bq, bk), eff, tok_s = max(rows, key=lambda r: r[2])
+        print(f"best: block_q={bq} block_k={bk} ({tok_s:.0f} tok/s; "
+              f"{tiles_label(eff)})")
+    return rows
+
+
 def report(args, tok_s: float, loss: float, n_dev: int,
            rep: Optional[dict] = None) -> None:
     if basics.rank() != 0:
@@ -202,9 +283,15 @@ def report(args, tok_s: float, loss: float, n_dev: int,
     else:
         name, limit, mfu = "cpu", None, None
         mfu_note = "no MFU on the CPU"
+    tiles_note = ""
+    if args.attention == "flash":
+        # The effective tiles (the flags are ceilings), as the sweep labels rows.
+        tiles_note = f", tiles {tiles_label(tiles(args, args.block_q, args.block_k))}"
     print(f"Model: dim {args.dim} x {args.layers}L, heads {args.heads} "
-          f"(kv {kv}), seq {args.seq_len}, remat={args.remat}, loss_chunk={args.loss_chunk}, "
-          f"bf16_logits={args.bf16_logits}, scan_steps={args.scan_steps}")
+          f"(kv {kv}), seq {args.seq_len}, attention={args.attention}, "
+          f"remat={args.remat}, loss_chunk={args.loss_chunk}, "
+          f"bf16_logits={args.bf16_logits}, scan_steps={args.scan_steps}"
+          + tiles_note)
     print(f"Tokens/sec on {n_dev} device(s): {tok_s:.0f} "
           f"({tok_s / n_dev:.0f} per device); {mfu_note}; loss {loss:.3f}")
     if args.profile:
@@ -216,7 +303,9 @@ def report(args, tok_s: float, loss: float, n_dev: int,
             "unit": "tok/s", "per_device": tok_s / n_dev, "mfu": mfu,
             "peak_flops": peak, "peak_source": source,
             "device": name, "power_limit": limit, "devices": n_dev,
-            "seq_len": args.seq_len, "remat": args.remat, "loss_chunk": args.loss_chunk,
+            "seq_len": args.seq_len, "attention": args.attention,
+            "block_q": args.block_q, "block_k": args.block_k,
+            "remat": args.remat, "loss_chunk": args.loss_chunk,
             "bf16_logits": args.bf16_logits, "scan_steps": args.scan_steps,
             "sp": args.sp, "loss": loss}))
 
@@ -224,7 +313,10 @@ def report(args, tok_s: float, loss: float, n_dev: int,
 def main(argv=None) -> None:
     args = parse_args(argv)
     try:
-        report(args, *measure(args))
+        if args.sweep_blocks:
+            sweep_blocks(args)
+            return
+        report(args, *measure(args, args.block_q, args.block_k))
     finally:
         basics.shutdown()
 

@@ -13,8 +13,9 @@ keys (``ok``, ``steps``, ``device_ms_per_step``,
 - **Device time** is the sum of kernel durations, by class: the classes
   of ``trace_step.kernel_class``, plus one class per kernel of the port
   (B1-B6: ``flash_fwd``, ``flash_bwd_dq``, ``flash_bwd_dkv`` and the three
-  ``ring_flash_*``), told apart by their names (``fwd_tc_kernel<D, 0>``
-  and so on; the variant 0 is flash, 3 ring).
+  ``ring_flash_*``), told apart by their names (``fwd_tc_kernel<D, 0, BQ,
+  BK>``, ``fwd_kernel<D, 0>`` and so on; the variant 0 is flash, 3 ring;
+  the tensor-core kernels carry their tile pair after it).
 - **FLOPs** of GEMMs and convolutions are the profiler's own
   (``with_flops``), which counts only those aten ops. The port's kernels
   are launched through ``ctypes`` and have no aten op: their FLOPs are
@@ -34,6 +35,13 @@ keys (``ok``, ``steps``, ``device_ms_per_step``,
   the ``kernel_costs`` of a report of the same step run eagerly (launches,
   FLOPs and bytes by kernel name, B1-B6 included). Kernels left without a
   cost count time only, in ``unattributed_ms_per_step``.
+- **Records**: ``port_kernel_records`` counts the trace's kernels of each
+  of B1-B6. A trace can hold fewer kernels than ran (the profiler drops
+  device records it cannot place or store), and then every sum above is
+  short: a caller that knows its launches holds the two counts equal and
+  profiles again if they are not. The window opens and closes on an idle
+  device with ``WINDOW_MARGIN_S`` of margin, so the first and last
+  kernels lie well inside it.
 - **Peaks** come from the device (``device_peaks``): dense bf16 FLOP/s =
   SMs x SM clock x 4096 FLOP per clock per SM, HBM bytes/s = 2 x memory
   clock x bus width / 8, with the SM count, the SM clock, the memory clock
@@ -52,6 +60,7 @@ import ctypes
 import os
 import re
 import subprocess
+import time
 from collections import defaultdict
 from dataclasses import asdict, dataclass
 from typing import Callable, Optional
@@ -72,7 +81,10 @@ _ATTRIBUTES = {"sms": 16, "sm_clock_khz": 13, "mem_clock_khz": 36,
 # Products per live (q, k) pair of each kernel of the port.
 PRODUCTS = {"flash_fwd": 2, "flash_bwd_dq": 3, "flash_bwd_dkv": 4,
             "ring_flash_fwd": 2, "ring_flash_bwd_dq": 3, "ring_flash_bwd_dkv": 4}
-_PORT_KERNEL = re.compile(r"\b(fwd|dq|dkv)(?:_tc)?_kernel<\s*\d+\s*,\s*(\d+)\s*>")
+_PORT_KERNEL = re.compile(
+    r"\b(fwd|dq|dkv)(?:_tc)?_kernel<\s*\d+\s*,\s*(\d+)\s*(?:,\s*\d+\s*)*>")
+# Idle seconds at each end of a profile's window.
+WINDOW_MARGIN_S = 0.2
 _PASSES = {"fwd": "fwd", "dq": "bwd_dq", "dkv": "bwd_dkv"}
 _VARIANTS = {"0": "flash", "3": "ring_flash"}
 
@@ -244,9 +256,12 @@ def profile_device_ops(run_step: Callable[[], None], steps: int = 5,
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                    record_shapes=True, with_flops=True)
     with record_launches() as log, prof:
+        fence()
+        time.sleep(WINDOW_MARGIN_S)
         for _ in range(steps):
             run_step()
         fence()
+        time.sleep(WINDOW_MARGIN_S)
     if logdir:
         os.makedirs(logdir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
@@ -289,6 +304,7 @@ def profile_device_ops(run_step: Callable[[], None], steps: int = 5,
     named.update(port_named)
     cat = defaultdict(lambda: [0.0, 0.0, 0.0])        # us, bytes, flops
     by_name = defaultdict(lambda: [0.0, 0.0, 0.0, 0])
+    records = defaultdict(int)
     unattributed_us = 0.0
     for k in kernels:
         us = k.time_range.elapsed_us()
@@ -303,6 +319,7 @@ def profile_device_ops(run_step: Callable[[], None], steps: int = 5,
             table[key][1] += b
             table[key][2] += f
         by_name[k.name][3] += 1
+        records[cls] += 1
     peaks = peaks or device_peaks()
     tot_t = sum(v[0] for v in cat.values()) / 1e6
     tot_b = sum(v[1] for v in cat.values())
@@ -328,6 +345,7 @@ def profile_device_ops(run_step: Callable[[], None], steps: int = 5,
         "unattributed_ms_per_step": round(unattributed_us / steps / 1e3, 3),
         "port_kernel_tflop_per_step": {
             n: v[2] / steps / 1e12 for n, v in cat.items() if n in PRODUCTS},
+        "port_kernel_records": {n: c for n, c in records.items() if n in PRODUCTS},
         "categories": [row(k, *v) for k, v in
                        sorted(cat.items(), key=lambda kv: -kv[1][0])],
         "top_ops": [row(k, *v[:3]) for k, v in

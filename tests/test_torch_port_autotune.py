@@ -1,28 +1,24 @@
 """The port's autotuner against the JAX package's.
 
-``autotune_gp.gp_fit_predict`` against ``horovod_tpu.autotune
-.gp_fit_predict`` (the native ``GaussianProcess`` of
-``horovod_tpu/cc/src/autotuner.h``) on the same inputs, drawn from a
-numpy seed, in 1 to 5 dimensions, at the points ``tune`` measures (its
+``autotune.gp_fit_predict`` (the native ``GaussianProcess`` of the port's
+own core, which ``tune`` ranks with) against ``horovod_tpu.autotune
+.gp_fit_predict`` (the JAX package's core) on the same inputs, drawn from
+a numpy seed, in 1 to 5 dimensions, at the points ``tune`` measures (its
 seed grid: 5 log-spaced values per knob, mapped to the unit cube, and the
-log2 thresholds of the 1-D search): to 1e-12 of each output's scale, the
-larger of its magnitude and the targets' standard deviation (a mean
-prediction near 0 or a sigma near the noise floor is a difference of
-large terms). The native library is built with ``-O3 -march=native``,
-where the compiler fuses multiplies and adds; a kernel matrix of points
-closer than the length scale (random points in the cube) is
-ill-conditioned and amplifies those roundings past 1e-12 (1.5e-12 at 4
-random points in 1-D), so the native outputs are not the header's
-arithmetic to the last bit. Against the header built without that
-contraction (``-ffp-contract=off``), the port is bit-equal everywhere,
-random points included: it follows the header's loop order in double
-precision.
+log2 thresholds of the 1-D search), random points of the cube included:
+bit for bit. The two cores are one source built with the same flags.
 
 ``tune`` and ``OnlineTuner`` against ``horovod_tpu.jax.autotune``'s with
 ``measure_steps_per_s`` replaced, in both modules, by the same
 deterministic function of the candidate's knobs: the same candidates in
 the same order, the same table, the same best and the same CSV bytes, for
-every dimension. No test times anything.
+every dimension; and on rates that make a near tie (mirrored about the
+middle of the threshold range, so that two candidates' expected
+improvements are equal in exact arithmetic and differ by rounding), the
+same pick. A GP whose arithmetic rounds apart (the header's loops in
+Python, every product rounded, against the core's fused multiply-adds:
+1.1e-12 at 34.8 on 9 random points) can break such a tie the other way.
+No test times anything.
 
 ``train.TuneStepFactory`` on the CPU at a small size: each candidate's
 bucket count is the fusion plan's for its knobs, every candidate starts
@@ -39,7 +35,6 @@ import pytest
 from horovod_tpu import autotune as jax_gp
 from horovod_tpu.jax import autotune as jax_at
 from horovod_tpu_torch import autotune as at
-from horovod_tpu_torch import autotune_gp
 
 
 def _gp_problem(seed, dims, n, kind):
@@ -63,85 +58,26 @@ def _gp_problems(dims, n, kind):
 
 
 GP_CASES = [(1, "seed_grid"), (2, "seed_grid"), (3, "seed_grid"),
-            (5, "seed_grid"), (8, "seed_grid"), (5, "threshold_grid")]
+            (5, "seed_grid"), (8, "seed_grid"), (5, "threshold_grid"),
+            (3, "cube"), (6, "cube"), (17, "cube")]
 
 
 @pytest.mark.parametrize("dims", [1, 2, 3, 4, 5])
 @pytest.mark.parametrize("n,kind", GP_CASES)
 def test_gp_matches_the_native_gp(dims, n, kind):
-    worst = 0.0
     for X, y, xs in _gp_problems(dims, n, kind):
-        want = jax_gp.gp_fit_predict(X, y, xs)
-        got = autotune_gp.gp_fit_predict(X, y, xs)
-        spread = float(np.std(y, ddof=1)) if len(y) > 1 else 1.0
-        for g, w in zip(got, want):
-            worst = max(worst, abs(g - w) / max(abs(w), spread))
-    assert worst <= 1e-12, worst
-
-
-HEADER_SHIM = r"""
-#include "autotuner.h"
-extern "C" int gp(int n, int dims, const double* X, const double* y,
-                  const double* xstar, double* mu, double* sigma) {
-  std::vector<std::vector<double>> xs((size_t)n);
-  for (int i = 0; i < n; i++)
-    xs[(size_t)i].assign(X + (size_t)i * dims, X + (size_t)(i + 1) * dims);
-  hvd::GaussianProcess g;
-  if (!g.fit(xs, std::vector<double>(y, y + n))) return 1;
-  g.predict(std::vector<double>(xstar, xstar + dims), mu, sigma);
-  return 0;
-}
-"""
-
-
-@pytest.fixture(scope="module")
-def header_gp(tmp_path_factory):
-    """The header's GaussianProcess, built without fused multiply-adds."""
-    import ctypes
-    import shutil
-    import subprocess
-
-    from launch_util import REPO
-
-    cxx = shutil.which("g++") or shutil.which("c++")
-    if cxx is None:
-        pytest.skip("needs a C++ compiler")
-    d = tmp_path_factory.mktemp("gp")
-    (d / "gp.cc").write_text(HEADER_SHIM)
-    lib = d / "gp.so"
-    subprocess.run([cxx, "-O2", "-ffp-contract=off", "-fPIC", "-shared",
-                    "-std=c++17", "-I", f"{REPO}/horovod_tpu/cc/src",
-                    "-o", str(lib), str(d / "gp.cc")], check=True, timeout=120)
-    gp = ctypes.CDLL(str(lib)).gp
-    ptr = ctypes.POINTER(ctypes.c_double)
-
-    def fit_predict(X, y, xs):
-        X, y, xs = (np.ascontiguousarray(a, dtype=np.float64) for a in (X, y, xs))
-        mu, sigma = ctypes.c_double(), ctypes.c_double()
-        assert gp(X.shape[0], X.shape[1], X.ctypes.data_as(ptr),
-                  y.ctypes.data_as(ptr), xs.ctypes.data_as(ptr),
-                  ctypes.byref(mu), ctypes.byref(sigma)) == 0
-        return mu.value, sigma.value
-
-    return fit_predict
-
-
-@pytest.mark.parametrize("dims", [1, 3, 5])
-def test_gp_is_the_headers_arithmetic_bit_for_bit(header_gp, dims):
-    for n, kind in GP_CASES + [(3, "cube"), (6, "cube"), (17, "cube")]:
-        for X, y, xs in _gp_problems(dims, n, kind):
-            assert autotune_gp.gp_fit_predict(X, y, xs) == header_gp(X, y, xs)
+        assert at.gp_fit_predict(X, y, xs) == jax_gp.gp_fit_predict(X, y, xs)
 
 
 def test_gp_raises_where_the_native_gp_fails():
     X = [[0.5], [0.5]]
     # Two equal points are positive definite only by the noise term.
-    for fn in (jax_gp.gp_fit_predict, autotune_gp.gp_fit_predict):
+    for fn in (jax_gp.gp_fit_predict, at.gp_fit_predict):
         assert math.isfinite(fn(X, [1.0, 2.0], [0.4])[0])
     with pytest.raises(RuntimeError):
         jax_gp.gp_fit_predict(np.zeros((0, 1)), [], [0.0])
     with pytest.raises(RuntimeError):
-        autotune_gp.gp_fit_predict([], [], [0.0])
+        at.gp_fit_predict(np.zeros((0, 1)), [], [0.0])
 
 
 def _score(knobs: dict) -> float:
@@ -212,6 +148,56 @@ def test_tune_visits_the_reference_candidates(kw, monkeypatch, tmp_path):
                 "branches"):
         grid *= len(kw.get(key, (1,)))
     assert len(runs["port"][0]) > grid
+
+
+# Rates of log2(threshold) mirrored about the middle of the thresholds'
+# range: the GP's fit is mirrored too, so each candidate of the 1-D search
+# and its mirror image have equal expected improvements in exact
+# arithmetic, and the first round's pick is a near tie.
+NEAR_TIES = {
+    "ends_high": ((1 << 20, 1 << 24, 1 << 28), lambda lt: 10.0 + 0.1 * (lt - 24) ** 2),
+    "middle_high": ((1 << 20, 1 << 24, 1 << 28), lambda lt: 10.0 - 0.1 * (lt - 24) ** 2),
+    "five_points": ((1 << 20, 1 << 22, 1 << 24, 1 << 26, 1 << 28),
+                    lambda lt: 7.0 + math.cos(lt - 24)),
+    "wide_pair": ((1 << 21, 1 << 27), lambda lt: 3.0 + 1e-3 * (lt - 24) ** 4),
+}
+
+
+@pytest.mark.parametrize("case", sorted(NEAR_TIES))
+def test_tune_breaks_a_near_tie_as_the_reference_does(case, monkeypatch):
+    thresholds, rate = NEAR_TIES[case]
+
+    def factory(fusion_threshold, **kw):
+        def run():
+            raise AssertionError("the scripted rate never runs a step")
+        run.threshold = fusion_threshold
+        return run
+
+    picks, eis = {}, {}
+    for name, module in (("jax", jax_at), ("port", at)):
+        calls, seen = [], []
+        real_ei = module._expected_improvement
+
+        def recorded_ei(mu, sigma, best, real_ei=real_ei, seen=seen):
+            seen.append(real_ei(mu, sigma, best))
+            return seen[-1]
+
+        def fake_measure(run_step, warmup=2, iters=5, reps=3, sync=None, calls=calls):
+            calls.append(run_step.threshold)
+            return rate(math.log2(run_step.threshold))
+
+        monkeypatch.setattr(module, "_expected_improvement", recorded_ei)
+        monkeypatch.setattr(module, "measure_steps_per_s", fake_measure)
+        module.tune(factory, thresholds=thresholds, gp_rounds=1)
+        picks[name], eis[name] = calls, seen
+    # The same candidates, the GP's pick included, from the same expected
+    # improvements, bit for bit.
+    assert picks["port"] == picks["jax"]
+    assert len(picks["port"]) == len(thresholds) + 1
+    assert eis["port"] == eis["jax"]
+    # It was a near tie: the two best candidates within 1e-9 of each other.
+    top = sorted(eis["jax"], reverse=True)[:2]
+    assert top[0] > 0 and top[1] >= top[0] * (1 - 1e-9), top
 
 
 def _online(module, seed=None, steps=14):

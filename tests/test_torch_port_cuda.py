@@ -1,5 +1,6 @@
 """The CUDA kernels against their plain versions, on the card: the flash
-kernels (B1-B3) and the ring-flash kernels (B4-B6); the sequence-parallel
+kernels (B1-B3) and the ring-flash kernels (B4-B6), the bf16 ones at every
+built tile pair too; the sequence-parallel
 training step over NCCL on every visible GPU; the CNN step on the card
 against the CPU's; ResNet-50 data parallelism over NCCL on every visible
 GPU (tests/torch_port_cnn_worker.py); the graphed training loop against
@@ -120,11 +121,11 @@ def _assert_close(name, got, want, noise_rows=()):
     assert (g - w).norm().item() <= 1e-2 * w.norm().item(), name
 
 
-def _check(cuda, b, t, h, hkv, d, causal, dtype, seed=0, zero=()):
-    """The kernels against their plain versions; outputs named in ``zero``
-    are 0 in exact arithmetic, and both sides must come out as float32
-    noise (|x| <= 1e-4), which no relative rule can compare; so must
-    causal dQ's first row."""
+def _check(cuda, b, t, h, hkv, d, causal, dtype, seed=0, zero=(), tiles=(None, None)):
+    """The kernels, at the tile ceilings ``tiles``, against their plain
+    versions; outputs named in ``zero`` are 0 in exact arithmetic, and both
+    sides must come out as float32 noise (|x| <= 1e-4), which no relative
+    rule can compare; so must causal dQ's first row."""
     gen = torch.Generator(device=cuda).manual_seed(seed)
 
     def rand(*shape):
@@ -138,9 +139,10 @@ def _check(cuda, b, t, h, hkv, d, causal, dtype, seed=0, zero=()):
             "dq": fa.dq_plain(qr, kr, vr, dor, lse_p, delta, h, hkv, causal)}
     want["dk"], want["dv"] = fa.dkv_plain(qr, kr, vr, dor, lse_p, delta, h, hkv, causal)
     got = {}
-    got["o"], got["lse"] = fa.flash_fwd(qr, kr, vr, h, hkv, causal)
-    got["dq"] = fa.flash_bwd_dq(qr, kr, vr, dor, lse_p, delta, h, hkv, causal)
-    got["dk"], got["dv"] = fa.flash_bwd_dkv(qr, kr, vr, dor, lse_p, delta, h, hkv, causal)
+    got["o"], got["lse"] = fa.flash_fwd(qr, kr, vr, h, hkv, causal, *tiles)
+    got["dq"] = fa.flash_bwd_dq(qr, kr, vr, dor, lse_p, delta, h, hkv, causal, *tiles)
+    got["dk"], got["dv"] = fa.flash_bwd_dkv(qr, kr, vr, dor, lse_p, delta, h, hkv,
+                                            causal, *tiles)
     torch.cuda.synchronize()
     for name in want:
         if name in zero:
@@ -179,6 +181,48 @@ def test_bf16_tensor_core_kernels_ragged(cuda, t, d, causal):
 def test_bf16_tensor_core_kernels_gqa(cuda, d):
     _check(cuda, 1, 256, 8, 2, d, True, torch.bfloat16, seed=5)
     _check(cuda, 2, 200, 8, 2, d, False, torch.bfloat16, seed=6)
+
+
+# Every built tile pair as ceilings: each kernel built for a pair runs it.
+TILE_CEILINGS = sorted({p for pairs in fa.TILE_PAIRS.values() for p in pairs})
+
+
+@pytest.mark.parametrize("tiles", TILE_CEILINGS, ids=lambda p: f"{p[0]}x{p[1]}")
+@pytest.mark.parametrize("case", [
+    # (b, t, h, hkv, causal)
+    (1, 256, 8, 2, True),      # GQA, tiles of 64 and 128 across the diagonal
+    (2, 200, 4, 2, True),      # ragged causal: the diagonal and the tail apart
+    (2, 96, 4, 4, False),      # ragged, non-causal
+    (2, 1, 4, 4, True),        # one row: dQ and dK vanish
+], ids=["gqa", "ragged_causal", "ragged", "t1"])
+def test_bf16_tile_pairs_match_plain(cuda, case, tiles):
+    """B1-B3 at every built pair (head dim 128) against their plain
+    versions, at the rules above; the pair each kernel ran is the one
+    ``effective_blocks`` names, and each launched once."""
+    b, t, h, hkv, causal = case
+    eff = fa.effective_blocks(t, 128, torch.bfloat16, *tiles)
+    assert all(eff[n] == tiles for n in fa.TILE_PAIRS if tiles in fa.TILE_PAIRS[n])
+    fa.reset_launches()
+    _check(cuda, b, t, h, hkv, 128, causal, torch.bfloat16, seed=t, tiles=tiles,
+           zero=("dq", "dk") if t == 1 else ())
+    assert fa.launches == {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+
+
+def test_a_pair_not_built_raises(cuda):
+    """A ceiling resolves to a built pair; a pair the library was not built
+    for, passed to the entry point itself, is refused (kBadArgs), and the
+    wrapper raises: nothing runs in its place."""
+    q = torch.randn(1, 128, 2, 128, device=cuda).to(torch.bfloat16)
+    qr = fa._rows(q)
+    out, lse = torch.empty_like(qr), torch.empty(2, 128, device=cuda)
+    fa.reset_launches()
+    for code, (bq, bk) in ((1, (128, 32)), (1, (192, 64)), (0, (128, 128))):
+        x = qr if code else qr.float()
+        with pytest.raises(RuntimeError, match="arguments no kernel takes"):
+            fa._launch(fa._library().hvd_flash_fwd, "flash_fwd", cuda,
+                       fa._ptr(x), fa._ptr(x), fa._ptr(x), fa._ptr(out), fa._ptr(lse),
+                       2, 2, 2, 128, 128, 1, code, bq, bk)
+    assert fa.launches["flash_fwd"] == 0
 
 
 def test_bf16_tensor_core_kernels_reject_unaligned_inputs(cuda):
@@ -245,9 +289,11 @@ def test_rejects_what_the_kernels_do_not_take(cuda):
 
 # ------------------------------------------------------- ring-flash (B4-B6)
 
-def _ring_check(cuda, b, t, h, hkv, d, dtype, my, src, zigzag, n=4, seed=0):
-    """One ring step's three kernels against their plain versions on the
-    same inputs and the same nonzero carries; returns the carries before."""
+def _ring_check(cuda, b, t, h, hkv, d, dtype, my, src, zigzag, n=4, seed=0,
+                tiles=(None, None)):
+    """One ring step's three kernels, at the tile ceilings ``tiles``,
+    against their plain versions on the same inputs and the same nonzero
+    carries; returns the carries before."""
     gen = torch.Generator(device=cuda).manual_seed(seed)
 
     def rand(*shape, dt=dtype):
@@ -266,11 +312,14 @@ def _ring_check(cuda, b, t, h, hkv, d, dtype, my, src, zigzag, n=4, seed=0):
     kpos = rf.ring_positions(src, t, n, zigzag, cuda)
     got = {k: v.clone() for k, v in carries.items()}
     want = {k: v.clone() for k, v in carries.items()}
-    for c, fwd, dq, dkv in ((got, rf.rf_fwd, rf.rf_bwd_dq, rf.rf_bwd_dkv),
-                            (want, rf.rf_fwd_plain, rf.rf_dq_plain, rf.rf_dkv_plain)):
-        fwd(qr, kr, vr, c["acc"], c["m"], c["l"], qpos, kpos, h, hkv)
-        dq(qr, kr, vr, dor, lse, delta, qpos, kpos, c["dq"], h, hkv)
-        dkv(qr, kr, vr, dor, lse, delta, qpos, kpos, c["dk"], c["dv"], h, hkv)
+    rf.rf_fwd(qr, kr, vr, got["acc"], got["m"], got["l"], qpos, kpos, h, hkv, *tiles)
+    rf.rf_bwd_dq(qr, kr, vr, dor, lse, delta, qpos, kpos, got["dq"], h, hkv, *tiles)
+    rf.rf_bwd_dkv(qr, kr, vr, dor, lse, delta, qpos, kpos, got["dk"], got["dv"], h,
+                  hkv, *tiles)
+    rf.rf_fwd_plain(qr, kr, vr, want["acc"], want["m"], want["l"], qpos, kpos, h, hkv)
+    rf.rf_dq_plain(qr, kr, vr, dor, lse, delta, qpos, kpos, want["dq"], h, hkv)
+    rf.rf_dkv_plain(qr, kr, vr, dor, lse, delta, qpos, kpos, want["dk"], want["dv"],
+                    h, hkv)
     torch.cuda.synchronize()
     for name in carries:
         _assert_close(name, got[name], want[name])
@@ -293,6 +342,25 @@ def test_ring_kernels_match_plain(cuda, d, dtype):
 def test_ring_kernels_shapes(cuda, case):
     b, t, h, hkv, d, dtype, my, src, zigzag = case
     _ring_check(cuda, b, t, h, hkv, d, dtype, my, src, zigzag, seed=3)
+
+
+@pytest.mark.parametrize("tiles", TILE_CEILINGS, ids=lambda p: f"{p[0]}x{p[1]}")
+@pytest.mark.parametrize("case", [
+    # (b, t, h, hkv, my, src, zigzag)
+    (1, 200, 4, 1, 2, 2, True),       # ragged zigzag diagonal
+    (1, 256, 8, 2, 2, 1, False),      # GQA, every pair live
+    (2, 96, 4, 2, 1, 1, False),       # ragged contiguous diagonal
+    (1, 96, 4, 2, 0, 1, True),        # zigzag: some rows see no key
+], ids=["ragged_zigzag_diagonal", "gqa_past", "ragged_diagonal", "zigzag_partial"])
+def test_bf16_ring_tile_pairs_match_plain(cuda, case, tiles):
+    """B4-B6 at every built pair (head dim 128) against their plain
+    versions on one ring step of a ring of 4, each launched once."""
+    b, t, h, hkv, my, src, zigzag = case
+    rf.reset_launches()
+    _ring_check(cuda, b, t, h, hkv, 128, torch.bfloat16, my, src, zigzag, seed=t,
+                tiles=tiles)
+    assert rf.launches == {"ring_flash_fwd": 1, "ring_flash_bwd_dq": 1,
+                           "ring_flash_bwd_dkv": 1}
 
 
 def test_ring_step_with_every_tile_skipped_keeps_the_carries(cuda):
@@ -374,18 +442,22 @@ def test_bf16_ring_fwd_rows_with_no_live_key_keep_the_initial_carries(cuda, d):
 def test_bf16_ring_kernels_are_the_tensor_core_instances(cuda):
     """The ring library's bf16 entries reach the tensor-core kernels: its
     build log compiles fwd_tc_kernel, dq_tc_kernel and dkv_tc_kernel of
-    variant 3 (kRing) at every head dim, and no FMA kernel in bf16 (the
-    FMA templates are instantiated for float32 alone), so a bf16 ring
-    launch has nowhere else to go."""
+    variant 3 (kRing) at every head dim and built tile pair, and no FMA
+    kernel in bf16 (the FMA templates are instantiated for float32 alone),
+    so a bf16 ring launch has nowhere else to go."""
     import re
 
     from horovod_tpu_torch.ops import _build
 
     with open(_build.build("ring_flash.cu") + ".log") as f:
         entries = re.findall(r"Compiling entry function '(\S+)'", f.read())
-    for template in ("fwd_tc_kernel", "dq_tc_kernel", "dkv_tc_kernel"):
+    for template, name in (("fwd_tc_kernel", "ring_flash_fwd"),
+                           ("dq_tc_kernel", "ring_flash_bwd_dq"),
+                           ("dkv_tc_kernel", "ring_flash_bwd_dkv")):
         for d in (32, 64, 128):
-            assert any(f"{template}ILi{d}ELi3EE" in e for e in entries), (template, d)
+            for bq, bk in fa.built_pairs(name, d, torch.bfloat16):
+                mangled = f"{template}ILi{d}ELi3ELi{bq}ELi{bk}EE"
+                assert any(mangled in e for e in entries), (template, d, bq, bk)
     fma = [e for e in entries if re.search(r"(fwd|dq|dkv)_kernelI", e)]
     assert fma and not any("bfloat16" in e for e in fma), fma
     rf.reset_launches()

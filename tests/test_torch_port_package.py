@@ -62,7 +62,7 @@ def test_import_pulls_in_no_jax():
             "horovod_tpu_torch.metrics.schema, "
             "horovod_tpu_torch.metrics.aggregate, "
             "horovod_tpu_torch.utils.logging, horovod_tpu_torch.autotune, "
-            "horovod_tpu_torch.autotune_gp, horovod_tpu_torch.control, "
+            "horovod_tpu_torch.control, "
             "horovod_tpu_torch.control.core, "
             "horovod_tpu_torch.control.training, "
             "horovod_tpu_torch.utils.roofline, "

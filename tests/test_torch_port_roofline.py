@@ -82,6 +82,9 @@ def test_report_formatting_from_synthetic():
     ("void dq_kernel<32, 3>(Args)", "ring_flash_bwd_dq"),
     ("void dkv_kernel<128, 3>(Args)", "ring_flash_bwd_dkv"),
     ("void fwd_kernel<64, 0>(Args)", "flash_fwd"),
+    ("void fwd_tc_kernel<128, 0, 64, 128>(CUtensorMap_st, int)", "flash_fwd"),
+    ("void dq_tc_kernel<128, 3, 128, 64>(CUtensorMap_st)", "ring_flash_bwd_dq"),
+    ("void dkv_tc_kernel<32, 0, 64, 128>(CUtensorMap_st)", "flash_bwd_dkv"),
     ("nvjet_tst_256x128_64x4_1x2_h_ssched_bz_coopA_TNT", "gemm"),
     ("ncclDevKernel_AllReduce_Sum_f32_RING_LL", "nccl"),
     ("void at::native::vectorized_elementwise_kernel<8, CUDAFunctor_add<c10::BFloat16>>",

@@ -1803,21 +1803,29 @@ PLANNED_SHARDS = (1, 2, 4, 8)
 
 
 def sharded_run(torch, fa, rf, basics, train_mod, sh, fsdp_mod, label, config,
-                dev) -> dict:
+                dev, cube=None) -> dict:
     """SHARD_STEPS steps of ``config`` (``label`` "FSDP": through
-    ``setup_fsdp``) on one repeated batch: losses, step ms, peak memory,
-    the collectives of step 1, B1-B6's launches (counts zeroed just
-    before the steps), the parameters after the last step (on the host)
-    and the planned per-rank bytes."""
+    ``setup_fsdp``; ``cube``, a ``sharded_groups`` shape: through
+    ``setup(layout=)``) on one repeated batch: losses, step ms, peak
+    memory, the collectives of step 1 (and those on the model group),
+    B1-B6's launches (counts zeroed just before the steps), the
+    parameters after the last step (on the host) and the planned
+    per-rank bytes."""
     import torch.distributed as dist
+    from horovod_tpu_torch.parallel.mesh import sharded_groups
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     if label == "ZeRO":
         os.environ["HOROVOD_MESH"] = "1x1"
     try:
-        s = train_mod.setup_fsdp(config, device="cuda") if label == "FSDP" \
-            else train_mod.setup(config, "cuda")
+        if label == "FSDP":
+            s = train_mod.setup_fsdp(config, device="cuda")
+        elif cube is not None:
+            basics.init("cuda")
+            s = train_mod.setup(config, "cuda", layout=sharded_groups(*cube))
+        else:
+            s = train_mod.setup(config, "cuda")
     finally:
         os.environ.pop("HOROVOD_MESH", None)
     tokens = train_mod.make_batch(config, 0, dev)
@@ -1836,6 +1844,9 @@ def sharded_run(torch, fa, rf, basics, train_mod, sh, fsdp_mod, label, config,
     run = {"losses": losses, "ms": [1e3 * t for t in times],
            "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
            "collectives": counter.counts, "launches": counts}
+    if cube is not None:
+        run["on_model"] = counter.on(s.layout.model_group)
+        run["tp"] = s.model.tp_size
     if label == "FSDP":
         run["params"] = {n: t.cpu() for n, t in
                          fsdp_mod.fsdp_unshard_params([s.rows], s.shapes).items()}
@@ -1868,7 +1879,9 @@ def torch_equal(a, b) -> bool:
     return a.shape == b.shape and bool((a == b).all())
 
 
-def sharded_phase(torch, fa, rf, basics, train_mod, card, dev, paths) -> None:
+def sharded_phase(torch, fa, rf, basics, train_mod, card, dev, paths) -> dict:
+    """Phase 16's eager runs; returns the flat one, which phase 17 holds
+    the cube of one to."""
     from horovod_tpu_torch.parallel import fsdp as fsdp_mod
     from horovod_tpu_torch.parallel import sharded as sh
 
@@ -1908,6 +1921,7 @@ def sharded_phase(torch, fa, rf, basics, train_mod, card, dev, paths) -> None:
     log("  planned per-rank bytes of the parameters (state_bytes_per_rank(); "
         "Adam's state is twice that), not measured: " + ", ".join(
             f"shard {n} {v} B" for n, v in zero["planned"].items()))
+    return runs["flat"]
 
 
 # Phase 16, graphed, and phase 19, graphed. One CUDA graph of each sharded
@@ -2073,20 +2087,37 @@ def graphed_sharded(torch, fa, rf, basics, train_mod, loop_mod, card, dev,
                "16", per_step)
 
 
-# Phase 17. Tensor parallelism. (a) A model group of one in a world of one
-# over NCCL: copy_to_model and reduce_from_model issue nothing, the flat
-# allreduce runs over the batch group of one, and the model draws the same
-# weights, so TP_STEPS steps are expected bit-equal to the flat step in
-# every loss and parameter, with no collective on the model group. (b) A
-# virtual model group of TP_N on the card: one full-width block cut by
-# tp_state_dict into TP_N rank blocks, each rank's attn_partial and
-# mlp_partial summed in float32 in place of the reduce, against the whole
-# block. Its output is held to phase 2's bf16 relative norm (1e-2) and its
-# gradients (x and every parameter, reassembled: the sliced ones by
-# tp_merge_state_dicts, each replicated norm scale as the sum of the
-# ranks' partial gradients) to phase 5's 3e-2: the ranks' partial products
-# are summed in another order than the whole block's contraction.
-TP_STEPS, TP_N = 3, 4
+# Phase 17. Tensor parallelism through the trainer, in a world of one over
+# NCCL. (17a) ``train.setup`` under a named model axis of one rank
+# (``sharded_groups(1, 1, 1)``) against phase 16's flat setup, SHARD_STEPS
+# eager steps: copy_to_model and reduce_from_model issue nothing, the flat
+# exchange runs over the batch group of one and the model draws the same
+# weights, so every loss and parameter is expected bit-equal, with no
+# collective on the model group. (17b) The same setup graphed
+# (``steps_per_dispatch = GRAPH_K``) against its eager steps (``graph_pair``)
+# and against phase 13's graphed flat step, bit for bit (phase 13's rule).
+# (17c) ZeRO on the cube of one (``sharded=True``, 1x1x1) against the flat
+# setup, bit for bit (phase 16's shard-1 rule). (17d) A virtual model group
+# of TP_N on the card: one full-width block cut by tp_state_dict into TP_N
+# rank blocks, each rank's attn_partial and mlp_partial summed in float32
+# in place of the reduce, against the whole block, at 8 kv heads and at
+# TP_KV (each rank keeps the one kv head its q heads read: kv_proj whole);
+# and the LM head cut into TP_N row-parallel slices, each chunk's partial
+# logits summed in float32 before the cross entropy, as ``chunked_lm_loss(
+# tp_group=)`` does (chunk TP_CHUNK, each rank's partial logits from
+# ``tp_partial_logits``, the function the port's head calls), against the
+# whole head. The block's output is held to phase 2's bf16 relative norm
+# (1e-2) and its gradients (the input and every parameter, reassembled:
+# the sliced ones by tp_merge_state_dicts, each replicated leaf as the sum
+# of the ranks' partial gradients) to phase 5's 3e-2: the ranks' partial
+# products are summed in another order than the whole contraction. The
+# head computes in float32 from the same bf16 hidden states, so its loss
+# is held to HEAD_LOSS relative and its gradients to HEAD_GRAD relative
+# norm (a full-width run read a loss difference of 0, the hidden states'
+# bf16 cotangent 1.1e-4 and the head's 6.1e-7; a wrong slice is off by
+# order 1).
+TP_N, TP_KV, TP_CHUNK = 4, 2, 4096
+HEAD_LOSS, HEAD_GRAD = 1e-5, 1e-3
 # Phase 18. The full-width MoE TransformerLM (8 experts in every 2nd
 # block, capacity factor 1.25), loss = task + MOE_AUX x the sum of the
 # load-balancing losses, Adam through DistributedOptimizer.
@@ -2096,8 +2127,8 @@ MOE_EXPERTS, MOE_EVERY, MOE_AUX = 8, 2, 0.01
 def lm_setup(torch, train_mod, config, dev, group=None, **model_kw):
     """model -> ``broadcast_parameters`` -> Adam ->
     ``DistributedOptimizer(group=)`` -> ``broadcast_optimizer_state``, the
-    port's own functions, after ``init``; ``group`` is the batch group
-    (None: the world)."""
+    port's own functions, after ``init``, for the MoE model (``setup`` does
+    not build it yet); ``group`` is the batch group (None: the world)."""
     from horovod_tpu_torch import optimizer as hvd_opt
     from horovod_tpu_torch.convert import jax_ordered
 
@@ -2146,62 +2177,25 @@ def run_steps(torch, fa, rf, model, opt, tokens, steps, dev, loss_fn=None,
             "params": {n: p.detach().cpu() for n, p in model.named_parameters()}}
 
 
-def tp_of_one(torch, fa, rf, basics, train_mod, config, card, dev, paths) -> None:
-    import torch.distributed as dist
-    from horovod_tpu_torch.parallel.mesh import sharded_groups
-
-    runs = {}
-    for label in ("flat", "TP=1"):
-        basics.init("cuda")
-        layout = sharded_groups(1, 1, 1) if label == "TP=1" else None
-        model, opt = lm_setup(
-            torch, train_mod, config, dev,
-            group=layout.batch_group if layout else None,
-            tp_group=layout.model_group if layout else None)
-        tokens = train_mod.make_batch(config, 0, dev)
-        counter = CountCollectives(dist)
-        runs[label] = run_steps(torch, fa, rf, model, opt, tokens, TP_STEPS, dev,
-                                counter=counter)
-        if layout is not None:
-            on_model = counter.on(layout.model_group)
-            log(f"  TP=1: collectives of step 1 on the model group: {on_model}; "
-                f"on the batch group: {counter.on(layout.batch_group)} "
-                f"({opt.plan.num_buckets} buckets)")
-            if on_model:
-                raise AssertionError(f"a model group of one issued {on_model} "
-                                     f"collectives")
-        del model, opt
-        basics.shutdown()
-        torch.cuda.empty_cache()
-    hold_runs_bit_equal("TP=1 (sharded_groups(1, 1, 1)) vs flat", runs["TP=1"],
-                        runs["flat"])
-    for label, run in runs.items():
-        hold_counts(f"{label}, {TP_STEPS} steps", run["launches"],
-                    {k: config.layers * TP_STEPS for k in KERNELS})
-        paths[f"17: {TP_STEPS} steps, {label}"] = run["launches"]
-        log(f"  {label}: median step {statistics.median(run['ms'][1:]):.2f} ms "
-            f"(steps 1-{TP_STEPS - 1}; per step {[round(t, 2) for t in run['ms']]}), "
-            f"peak memory {run['peak_gb']:.3f} GB, on {card}")
-
-
 def relnorm_t(a, b) -> float:
     return ((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30)).item()
 
 
-def virtual_tp(torch, fa, rf, config, dev, paths) -> None:
+def virtual_tp(torch, fa, rf, config, dev, paths, kv_heads=None) -> None:
     from horovod_tpu_torch.models.transformer import (
         TransformerLM, init_weights, tp_merge_state_dicts, tp_param_specs,
         tp_state_dict)
 
     kw = dict(vocab=config.vocab, dim=config.dim, heads=config.heads, layers=1,
               mlp_ratio=config.mlp_ratio, dtype=getattr(torch, config.dtype),
-              attention=config.attention)
+              attention=config.attention, kv_heads=kv_heads)
+    label = f"virtual TP={TP_N}, kv_heads {kv_heads or config.heads}"
     whole = TransformerLM(**kw).to(dev)
     init_weights(whole, torch.Generator(device=dev).manual_seed(config.seed))
     ranks = []
     for r in range(TP_N):
-        m = TransformerLM(**kw, tp_size=TP_N).to(dev)
-        m.load_state_dict(tp_state_dict(whole.state_dict(), TP_N, r))
+        m = TransformerLM(**kw, tp_size=TP_N, tp_rank=r).to(dev)
+        m.load_state_dict(tp_state_dict(whole.state_dict(), TP_N, r, kv_heads))
         ranks.append(m.blocks[0])
     gen = torch.Generator(device=dev).manual_seed(1717)
     shape = (config.batch, config.seq, config.dim)
@@ -2215,8 +2209,8 @@ def virtual_tp(torch, fa, rf, config, dev, paths) -> None:
     want.backward(g)
     want_grads = {"x": x.grad, **{n: p.grad for n, p in
                                   whole.blocks[0].named_parameters()}}
-    hold_counts("the whole block, one pass", read_counts(fa, rf),
-                {k: 1 for k in KERNELS})
+    hold_counts(f"the whole block, kv_heads {kv_heads or config.heads}, one pass",
+                read_counts(fa, rf), {k: 1 for k in KERNELS})
 
     x = x0.clone().requires_grad_(True)
     x1 = x + torch.stack([b.attn_partial(x, pos).float() for b in ranks]).sum(0) \
@@ -2226,28 +2220,77 @@ def virtual_tp(torch, fa, rf, config, dev, paths) -> None:
     got.backward(g)
     torch.cuda.synchronize(dev)
     counts = read_counts(fa, rf)
-    hold_counts(f"virtual TP world of {TP_N}, one pass", counts,
-                {k: TP_N for k in KERNELS})
-    paths[f"17: virtual TP world of {TP_N}, one block, one pass"] = counts
-    out_err = relnorm_t(got, want)
-    log(f"  virtual TP={TP_N} block vs the whole block: output relative norm "
-        f"{out_err:.3e} (limit {BF16_RELNORM:g})")
-    if not out_err <= BF16_RELNORM:
-        raise AssertionError(f"virtual TP output {out_err:.3e} > {BF16_RELNORM:g}")
+    hold_counts(f"{label}, one pass", counts, {k: TP_N for k in KERNELS})
+    paths[f"17d: {label}, one block, one pass"] = counts
     specs = tp_param_specs(ranks[0])
     grads = {"x": x.grad}
     for n in specs:
         parts = [dict(b.named_parameters())[n].grad for b in ranks]
         grads[n] = torch.stack([p.float() for p in parts]).sum(0) \
             if specs[n] is None else tp_merge_state_dicts([{n: p} for p in parts])[n]
-    errs = sorted(((relnorm_t(grads[n], w), n) for n, w in want_grads.items()),
-                  reverse=True)
-    log("  gradients vs the whole block, relative norm: " + ", ".join(
-        f"{n} {e:.3e}" for e, n in errs) + " (limit 3e-2)")
-    if not errs[0][0] <= 3e-2:
-        raise AssertionError(f"virtual TP gradient {errs[0]} > 3e-2")
+    hold_virtual(label, relnorm_t(got, want), grads, want_grads)
     del whole, ranks
     torch.cuda.empty_cache()
+
+
+def hold_virtual(label, out_err, grads, want_grads, out_limit=BF16_RELNORM,
+                 grad_limit=3e-2) -> None:
+    """Phase 17d's limits, by relative norm: the block's output to
+    BF16_RELNORM and every gradient to 3e-2 (the head: HEAD_LOSS and
+    HEAD_GRAD)."""
+    errs = sorted(((relnorm_t(grads[n], w), n) for n, w in want_grads.items()),
+                  reverse=True)
+    log(f"  {label} vs the whole: output relative norm {out_err:.3e} (limit "
+        f"{out_limit:g}); gradients, relative norm: " + ", ".join(
+            f"{n} {e:.3e}" for e, n in errs) + f" (limit {grad_limit:g})")
+    if not out_err <= out_limit:
+        raise AssertionError(f"{label}: output {out_err:.3e} > {out_limit:g}")
+    if not errs[0][0] <= grad_limit:
+        raise AssertionError(f"{label}: gradient {errs[0]} > {grad_limit:g}")
+
+
+def virtual_tp_head(torch, config, dev) -> None:
+    """The row-parallel head of ``chunked_lm_loss(tp_group=)`` in a virtual
+    model group of TP_N: each rank's columns of the bf16 hidden states
+    against its slice of the float32 head (``tp_state_dict``), the partial
+    logits summed in float32, the cross entropy per chunk of TP_CHUNK
+    (checkpointed), against the whole head's loss."""
+    from torch.utils.checkpoint import checkpoint
+
+    from horovod_tpu_torch.models.transformer import (
+        token_loss, tp_merge_state_dicts, tp_partial_logits, tp_state_dict)
+
+    gen = torch.Generator(device=dev).manual_seed(1719)
+    b, t, d = config.batch, config.seq, config.dim
+    h0 = torch.randn(b, t, d, generator=gen, device=dev).to(torch.bfloat16)
+    w0 = torch.randn(config.vocab, d, generator=gen, device=dev) / d ** 0.5
+    targets = torch.randint(0, config.vocab, (b, t), generator=gen, device=dev)
+
+    h = h0.clone().requires_grad_(True)
+    w = w0.clone().requires_grad_(True)
+    want = token_loss(h.float() @ w.t(), targets)
+    want.backward()
+    want_grads = {"hidden": h.grad, "lm_head.weight": w.grad}
+
+    def chunk_loss(hc, tc, *ws):
+        return token_loss(sum(tp_partial_logits(hc, wr, r)
+                              for r, wr in enumerate(ws)), tc)
+
+    h = h0.clone().requires_grad_(True)
+    ws = [tp_state_dict({"lm_head.weight": w0}, TP_N, r)["lm_head.weight"]
+          .requires_grad_(True) for r in range(TP_N)]
+    got = torch.stack([
+        checkpoint(chunk_loss, h[:, i:i + TP_CHUNK], targets[:, i:i + TP_CHUNK],
+                   *ws, use_reentrant=False, preserve_rng_state=False)
+        for i in range(0, t, TP_CHUNK)]).mean()
+    got.backward()
+    grads = {"hidden": h.grad, "lm_head.weight": tp_merge_state_dicts(
+        [{"lm_head.weight": wr.grad} for wr in ws])["lm_head.weight"]}
+    log(f"  the TP={TP_N} chunked head: loss {got.item():.6f} vs the whole "
+        f"head's {want.item():.6f}")
+    hold_virtual(f"virtual TP={TP_N} chunked head (chunk {TP_CHUNK})",
+                 abs(got.item() - want.item()) / abs(want.item()), grads,
+                 want_grads, HEAD_LOSS, HEAD_GRAD)
 
 
 def tp_wire(torch, config) -> None:
@@ -2267,14 +2310,73 @@ def tp_wire(torch, config) -> None:
         f"in all")
 
 
-def tensor_parallel(torch, fa, rf, basics, train_mod, card, dev, paths) -> None:
+def tensor_parallel(torch, fa, rf, basics, train_mod, loop_mod, card, dev,
+                    paths, flat, flat_graph) -> None:
+    """Phase 17; ``flat`` is phase 16's eager flat run, ``flat_graph``
+    phase 13's graphed flat run."""
+    from horovod_tpu_torch.parallel import fsdp as fsdp_mod
+    from horovod_tpu_torch.parallel import sharded as sh
+    from horovod_tpu_torch.parallel.mesh import sharded_groups
+
     config = train_mod.TrainConfig()
-    tp_of_one(torch, fa, rf, basics, train_mod, config, card, dev, paths)
-    log(f"  a virtual model group of {TP_N}: one full-width block, the head "
-        f"shard ({config.batch}, {config.seq}, {config.heads // TP_N}, "
-        f"{config.dim // config.heads}) per rank")
+    per_step = {k: config.layers * SHARD_STEPS for k in KERNELS}
+    for key, label, cfg in (("17a", "TP=1", config),
+                            ("17c", "ZeRO x TP=1",
+                             dataclasses.replace(config, sharded=True))):
+        if key == "17c":
+            graphed_cube(torch, fa, rf, basics, train_mod, loop_mod, config, card,
+                         dev, paths, flat_graph)
+        log(f"  ({key}) setup({'sharded=True, ' if cfg.sharded else ''}"
+            f"layout=sharded_groups(1, 1, 1)) against phase 16's flat setup, "
+            f"{SHARD_STEPS} steps")
+        run = sharded_run(torch, fa, rf, basics, train_mod, sh, fsdp_mod, label,
+                          cfg, dev, cube=(1, 1, 1))
+        hold_runs_bit_equal(f"{label} (1x1x1) vs flat", run, flat)
+        hold_counts(f"{label}, {SHARD_STEPS} steps", run["launches"], per_step)
+        paths[f"{key}: {SHARD_STEPS} steps, {label}"] = run["launches"]
+        log(f"  {label}: collectives of step 1 {run['collectives']}, on the model "
+            f"group {run['on_model']}; model cut into {run['tp']}; median step "
+            f"{statistics.median(run['ms'][1:]):.2f} ms (steps 1-{SHARD_STEPS - 1}; "
+            f"per step {[round(t, 2) for t in run['ms']]}), peak memory "
+            f"{run['peak_gb']:.3f} GB, on {card}")
+        if run["on_model"] or run["tp"] != 1:
+            raise AssertionError(f"{label}: {run['on_model']} collectives on the "
+                                 f"model group, model cut into {run['tp']}")
+    log(f"  (17d) a virtual model group of {TP_N}: one full-width block at the "
+        f"head shard ({config.batch}, {config.seq}, {config.heads // TP_N}, "
+        f"{config.dim // config.heads}) per rank, at kv_heads {config.heads} and "
+        f"{TP_KV}; the chunked head")
     virtual_tp(torch, fa, rf, config, dev, paths)
+    virtual_tp(torch, fa, rf, config, dev, paths, kv_heads=TP_KV)
+    virtual_tp_head(torch, config, dev)
+    torch.cuda.empty_cache()
     tp_wire(torch, config)
+
+
+def graphed_cube(torch, fa, rf, basics, train_mod, loop_mod, config, card, dev,
+                 paths, flat_graph) -> None:
+    """17b: ``setup(layout=sharded_groups(1, 1, 1))`` graphed against its
+    eager steps and against phase 13's graphed flat step, bit for bit."""
+    from horovod_tpu_torch.parallel.mesh import sharded_groups
+
+    cfg = dataclasses.replace(config, steps_per_dispatch=GRAPH_K)
+    log(f"  (17b) the same, graphed (K = {GRAPH_K}, {GRAPH_DISPATCHES} "
+        f"dispatches), against phase 13's graphed flat step")
+
+    def build():
+        basics.init("cuda")
+        s = train_mod.setup(cfg, "cuda", layout=sharded_groups(1, 1, 1))
+
+        def snapshot():
+            return {n: p.detach().cpu() for n, p in s.model.named_parameters()}
+
+        return (s.step, train_mod.setup_cache(cfg, s, dev), s.opt, snapshot,
+                {"all_reduce": s.opt.plan.num_buckets})
+
+    g, _ = graph_pair(torch, fa, rf, basics, loop_mod, "TP=1 (1x1x1)", build, dev,
+                      card, paths, "17b", {k: config.layers for k in KERNELS})
+    hold_graph_pair("TP=1 graphed vs phase 13's graphed flat step", g, flat_graph,
+                    bit_equal_required=True)
 
 
 def moe_oracle(torch, params, x):
@@ -3448,11 +3550,13 @@ def roofline_and_timeline(torch, fa, rf, basics, train_mod, card, dev, paths,
 
 
 def zero_tune(torch, fa, rf, basics, train_mod, dev, paths):
-    """22d: ``tune(mesh_shapes=("1x1",))`` through ZeRO against the flat
-    candidate, 3 steps a call, twice: graphed (each candidate's step
-    captured on a capturable Adam) and with ``graphed=False`` (every
-    candidate's steps eager on a plain Adam). Each pair bit-equal; the
-    memory the graphed sweep leaves allocated held to 22a's rule."""
+    """22d: ``tune(mesh_shapes=("1x1", "1x1x1"))`` through ZeRO, the
+    second candidate with a named model axis of one (the model cut over a
+    model group of one), against the flat candidate, 3 steps a call,
+    twice: graphed (each candidate's step captured on a capturable Adam)
+    and with ``graphed=False`` (every candidate's steps eager on a plain
+    Adam). The three bit-equal; the memory the graphed sweep leaves
+    allocated held to 22a's rule."""
     from horovod_tpu_torch import autotune
     from horovod_tpu_torch.loop import WARMUP_STEPS
 
@@ -3465,33 +3569,40 @@ def zero_tune(torch, fa, rf, basics, train_mod, dev, paths):
                                                            graphed=graphed), fa, rf)
         read_counts(fa, rf)
         flat = autotune.tune(factory, thresholds=(64 << 20,), **window)
-        zero = autotune.tune(factory, thresholds=(64 << 20,), mesh_shapes=("1x1",),
-                             **window)
+        zero = autotune.tune(factory, thresholds=(64 << 20,),
+                             mesh_shapes=("1x1", "1x1x1"), **window)
         factory.factory.close()
         factory.finish()
         after = held_memory(torch, dev)
-        a, b = factory.factory.records
+        a, b, c = factory.factory.records
         log(f"  {'graphed' if graphed else 'eager'}: flat {a['planned_buckets']} "
             f"buckets, graphed {a['graphed']}, losses {a['losses']}, "
             f"{flat.best.steps_per_s * 3:.3f} steps/s; ZeRO 1x1 "
             f"{b['planned_buckets']} buckets, graphed {b['graphed']}, losses "
             f"{b['losses']}, {zero.best.steps_per_s * 3:.3f} steps/s, best config "
-            f"{zero.best.config}")
-        if (a["graphed"], b["graphed"]) != (graphed, graphed):
+            f"{zero.best.config}; 1x1x1 (model size {c['model_size']}) "
+            f"{c['planned_buckets']} buckets, graphed {c['graphed']}, losses "
+            f"{c['losses']}")
+        if (a["graphed"], b["graphed"], c["graphed"]) != (graphed,) * 3:
             raise AssertionError(f"a candidate ran {'eagerly' if graphed else 'graphed'}")
         if a["losses"] != b["losses"] or a["planned_buckets"] != b["planned_buckets"]:
             raise AssertionError("ZeRO at 1x1 is not bit-equal to the flat candidate")
+        if c["losses"] != b["losses"] or c["model_size"] != 1 or \
+                c["planned_buckets"] != b["planned_buckets"]:
+            raise AssertionError("the 1x1x1 candidate is not bit-equal to 1x1")
         # Graphed: the warm-up and the capture run Python, the replays none.
         steps, what = (WARMUP_STEPS + 1, "warm-up and capture") if graphed \
             else (6, "2 calls of 3 steps")
-        for counts, r in zip(factory.counts, (a, b)):
-            hold_counts(f"{'ZeRO 1x1' if r['mesh_shape'] else 'flat'}, {what} "
+        for counts, r in zip(factory.counts, (a, b, c)):
+            hold_counts(f"{'ZeRO ' + r['mesh_shape'] if r['mesh_shape'] else 'flat'}, {what} "
                         f"({steps} steps)", counts,
                         {k: config.layers * steps for k in KERNELS})
         paths[f"22d: tune, ZeRO 1x1, {what}"] = factory.counts[1]
+        paths[f"22d: tune, ZeRO 1x1x1, {what}"] = factory.counts[2]
         log(f"  memory allocated before {before / 1e9:.3f} GB, after "
-            f"{after / 1e9:.3f} GB; peaks {a['peak_bytes'] / 1e9:.3f} (flat) and "
-            f"{b['peak_bytes'] / 1e9:.3f} GB (ZeRO 1x1)")
+            f"{after / 1e9:.3f} GB; peaks {a['peak_bytes'] / 1e9:.3f} (flat), "
+            f"{b['peak_bytes'] / 1e9:.3f} (ZeRO 1x1) and "
+            f"{c['peak_bytes'] / 1e9:.3f} GB (ZeRO 1x1x1)")
         if graphed and abs(after - before) > TUNE_LEAK:
             raise AssertionError(f"22d kept {after - before} B allocated")
         basics.shutdown()
@@ -3518,8 +3629,8 @@ def tuning_phase(torch, fa, rf, basics, train_mod, card, dev, paths) -> None:
     basics.shutdown()
     gc.collect()
     torch.cuda.empty_cache()
-    log("  (22d) tune(mesh_shapes=('1x1',)) through ZeRO against the flat "
-        "candidate, 3 steps a call, graphed and all eager (graphed=False)")
+    log("  (22d) tune(mesh_shapes=('1x1', '1x1x1')) through ZeRO against the "
+        "flat candidate, 3 steps a call, graphed and all eager (graphed=False)")
     zero_tune(torch, fa, rf, basics, train_mod, dev, paths)
 
 
@@ -6028,14 +6139,16 @@ def main() -> int:
         f"and FSDP against the flat step, {SHARD_STEPS} steps each; graphed "
         f"(K = {GRAPH_K}) against eager and ZeRO graphed against phase 13's "
         f"graphed flat step")
-    sharded_phase(torch, fa, rf, basics, train_mod, card, dev, paths)
+    flat16 = sharded_phase(torch, fa, rf, basics, train_mod, card, dev, paths)
     graphed_sharded(torch, fa, rf, basics, train_mod, loop_mod, card, dev,
                     paths, flat_graph)
-    del flat_graph
 
-    log(f"[17] tensor parallelism: a model group of one against the flat step, "
-        f"{TP_STEPS} steps each; a virtual model group of {TP_N}")
-    tensor_parallel(torch, fa, rf, basics, train_mod, card, dev, paths)
+    log(f"[17] tensor parallelism through the trainer: a named model axis of "
+        f"one (sharded_groups(1, 1, 1)) against the flat setup, eager, graphed "
+        f"and with ZeRO; a virtual model group of {TP_N}")
+    tensor_parallel(torch, fa, rf, basics, train_mod, loop_mod, card, dev, paths,
+                    flat16, flat_graph)
+    del flat_graph, flat16
 
     log(f"[18] the full-width MoE TransformerLM, {MOE_EXPERTS} experts in every "
         f"{MOE_EVERY}nd block: {STEPS} steps; against dense attention; the layer")

@@ -213,7 +213,10 @@ def host_copy(state: Any, snapshot: bool = True) -> Any:
     caller's tensors do; without it a host tensor that owns exactly its
     storage is kept as it is (a device tensor is always copied). Raises
     ``TypeError`` on a leaf that ``torch.load(weights_only=True)`` would
-    refuse."""
+    refuse, and ``ValueError`` in a tensor-parallel world
+    (``_refuse_cut_model``)."""
+    _refuse_cut_model()
+
     def one(x, path):
         opt = _optimizer(x)
         if opt is not None:
@@ -237,6 +240,19 @@ def host_copy(state: Any, snapshot: bool = True) -> Any:
                         "not a tensor, a numpy number or a plain Python value")
 
     return _map(one, state)
+
+
+def _refuse_cut_model() -> None:
+    """Raise in a world that holds a model cut over a model group of more
+    than one rank (``basics.model_cut``): each rank's state is one slice
+    of the model, and a checkpoint holds whole tensors, as the JAX
+    package's does."""
+    if basics.model_cut():
+        raise ValueError(
+            "this world holds a tensor-parallel model (a model group of more "
+            "than one rank): each rank's state is one slice of it, and a "
+            "checkpoint holds whole tensors; the port does not checkpoint a "
+            "tensor-parallel job")
 
 
 def _fill(template, loaded, path: str = "", shard=None):
@@ -422,7 +438,9 @@ def save(path: str, state: Any, step: Optional[int] = None, force: bool = True) 
     of the world, or under HOROVOD_ELASTIC on a key of the rendezvous store
     (``_store_barrier``). Not initialized means a process of its own, which
     writes. ``force`` is accepted as the JAX package's is: a commit always
-    replaces the checkpoint at ``path``."""
+    replaces the checkpoint at ``path``. A tensor-parallel world raises on
+    every rank, before the commit (``_refuse_cut_model``)."""
+    _refuse_cut_model()
     if not basics.is_initialized() or basics.rank() == 0:
         save_local(path, state, step)
     if basics.is_initialized() and basics.size() > 1:
@@ -591,7 +609,10 @@ def save_sharded(path: str, state: Any, plan, step: Optional[int] = None,
     holds the CONSOLIDATED full leaves, with no pad (every shard rank's rows
     gathered over the shard group), so it does not depend on the mesh: it
     restores into any ('batch', 'shard') layout, or into the flat
-    data-parallel state with :func:`restore`. Every rank calls; rank 0 writes, as :func:`save`."""
+    data-parallel state with :func:`restore`. Every rank calls; rank 0
+    writes, as :func:`save`, and refuses a tensor-parallel world as it
+    does, before the gather."""
+    _refuse_cut_model()
     save(path, _consolidate(state, plan, layout), step)
 
 

@@ -93,6 +93,9 @@ class _State:
         # Engines attached in this world, so that each attach publishes the
         # coordinator under a store key of its own.
         self.engines_made = 0
+        # Whether this world built a model cut over a model group of more
+        # than one rank (``note_model_cut``).
+        self.model_cut = False
 
 
 _state = _State()
@@ -361,6 +364,7 @@ def shutdown(abort: bool = False) -> None:
             _state.topology = None
             _state.config = None
             _state.device = None
+            _state.model_cut = False
 
 
 def _coordinator_host() -> str:
@@ -458,6 +462,19 @@ def device() -> torch.device:
 def config() -> Config:
     _topo()
     return _state.config
+
+
+def note_model_cut() -> None:
+    """Record that this world holds a model cut over a model group of more
+    than one rank (``TransformerLM(tp_group=)``): a rank's state is then
+    one slice of the model, which ``checkpoint`` refuses to commit.
+    ``shutdown`` clears it."""
+    _state.model_cut = True
+
+
+def model_cut() -> bool:
+    """Whether ``note_model_cut`` was called in this world."""
+    return _state.model_cut
 
 
 def store() -> dist.Store:

@@ -44,7 +44,16 @@ reduce(attn_partial(x))`` then ``x + reduce(mlp_partial(x))``. A fused
 ``qkv`` is cut by heads within each of q, k and v, not into contiguous
 columns: ``tp_state_dict`` cuts a full state dict into rank r's, and
 ``tp_merge_state_dicts`` puts the ranks' back together. ``tp_size``
-without a group builds rank-local shapes whose partials the caller sums.
+without a group builds rank-local shapes whose partials the caller sums
+(``tp_rank`` names the virtual rank). With fewer kv heads than ranks
+(``kv_heads < tp``, ``tp`` a multiple of ``kv_heads``) ``kv_proj`` stays
+whole on every rank, computed from the normed input outside
+``copy_to_model`` and its output passed through ``copy_to_model``, and
+each rank keeps the one kv head its q heads read: the flash kernels take
+the group ratio ``(heads / tp) : 1``, the backward sums the K/V cotangents
+over the group, and every replica of ``kv_proj`` gets the whole gradient.
+``return_hidden`` returns the normed hidden states, replicated over the
+model group; ``chunked_lm_loss(..., tp_group=)`` takes its head from them.
 
 ``moe_experts > 0`` turns block ``i``'s MLP into a switch-MoE
 (``models/moe.py``) where ``i % moe_every == moe_every - 1``; ``ep_group``
@@ -66,6 +75,7 @@ from torch.utils.checkpoint import checkpoint
 from ..ops.flash_attention import flash_attention
 from ..ops.ring_attention import ring_attention
 from ..ops.ring_flash import ring_flash_attention
+from ..common import basics
 from ..parallel.tensor import copy_to_model, model_size, reduce_from_model
 from .moe import MoEMLP
 
@@ -126,7 +136,8 @@ class Block(nn.Module):
                  kv_heads: Optional[int] = None, sp_group=None,
                  moe_experts: int = 0, tp_group=None,
                  tp_size: Optional[int] = None, ep_group=None,
-                 block_q: Optional[int] = None, block_k: Optional[int] = None):
+                 block_q: Optional[int] = None, block_k: Optional[int] = None,
+                 tp_rank: Optional[int] = None):
         super().__init__()
         if attention not in ("dense", "flash"):
             raise ValueError(
@@ -135,21 +146,29 @@ class Block(nn.Module):
         if kvh < 1 or heads % kvh:
             raise ValueError(f"kv_heads {kvh} must be >= 1 and divide heads {heads}")
         tp = _tp_size(tp_group, tp_size)
-        if heads % tp or kvh % tp:
-            raise ValueError(f"heads {heads} and kv_heads {kvh} must both "
-                             f"divide by the tensor-parallel size {tp}")
+        kv_whole = _kv_whole(kvh, tp)
+        if heads % tp:
+            raise ValueError(f"heads {heads} must divide by the tensor-parallel "
+                             f"size {tp}")
+        if kv_whole and (tp % kvh or sp_group is not None):
+            raise ValueError(
+                f"kv_heads {kvh} under the tensor-parallel size {tp}: either "
+                f"must divide the other, so that each rank reads one whole kv "
+                f"head, and the ring does not take a replicated kv_proj")
         self.dim, self.heads, self.kv_heads = dim, heads, kvh
         self.head_dim = dim // heads
         self.attention = attention
         self.block_q, self.block_k = block_q, block_k
         self.sp_group = sp_group
         self.tp_group, self.tp_size = tp_group, tp
+        self.kv_whole, self.virtual_rank = kv_whole, tp_rank
         self.norm1 = RMSNorm(dim, dtype)
         if kvh == heads:
             self.qkv = Dense(dim, 3 * dim // tp, dtype)
         else:
             self.q_proj = Dense(dim, dim // tp, dtype)
-            self.kv_proj = Dense(dim, 2 * kvh * self.head_dim // tp, dtype)
+            self.kv_proj = Dense(dim, 2 * kvh * self.head_dim //
+                                 (1 if kv_whole else tp), dtype)
         self.o_proj = Dense(dim // tp, dim, dtype)
         self.norm2 = RMSNorm(dim, dtype)
         self.moe = None
@@ -165,10 +184,22 @@ class Block(nn.Module):
         ``o_proj``'s partial product, which the model group sums."""
         b, t = x.shape[0], x.shape[1]
         hd, tp = self.head_dim, self.tp_size
-        h_local, kv_local = self.heads // tp, self.kv_heads // tp
-        h = copy_to_model(self.norm1(x), self.tp_group)
+        h_local = self.heads // tp
+        kv_local = 1 if self.kv_whole else self.kv_heads // tp
+        normed = self.norm1(x)
+        h = copy_to_model(normed, self.tp_group)
         if self.kv_heads == self.heads:
             q, k, v = self.qkv(h).chunk(3, dim=-1)
+        elif self.kv_whole:
+            # Every rank computes all kv heads from the replicated input and
+            # keeps the one its q heads read; copy_to_model sums the ranks'
+            # kv cotangents, so each replica of kv_proj gets the whole
+            # gradient and the input its whole kv share.
+            q = self.q_proj(h)
+            kv = copy_to_model(self.kv_proj(normed), self.tp_group)
+            j = self._kv_head()
+            k, v = (u.reshape(b, t, self.kv_heads, hd)[:, :, j:j + 1]
+                    for u in kv.chunk(2, dim=-1))
         else:
             q = self.q_proj(h)
             k, v = self.kv_proj(h).chunk(2, dim=-1)
@@ -190,6 +221,18 @@ class Block(nn.Module):
             attn = causal_attention(q, k, v)
         return self.o_proj(attn.reshape(b, t, h_local * hd))
 
+    def _kv_head(self) -> int:
+        """The kv head this rank's q heads read when kv_proj is whole: q
+        head ``i`` reads kv head ``i // (heads / kv_heads)``. A rank of a
+        virtual world (``tp_size`` without a group) reads
+        ``virtual_rank``'s."""
+        r = self.virtual_rank if self.tp_group is None else \
+            dist.get_rank(self.tp_group)
+        if r is None:
+            raise ValueError("a rank block of a virtual model group with a "
+                             "whole kv_proj needs its tp_rank")
+        return r * (self.heads // self.tp_size) // (self.heads // self.kv_heads)
+
     def mlp_partial(self, x):
         """This rank's share of the MLP sublayer's output (``mlp_out``'s
         partial product)."""
@@ -205,6 +248,13 @@ class Block(nn.Module):
         if self.moe is not None:
             return x + self.moe(self.norm2(x))
         return x + reduce_from_model(self.mlp_partial(x), self.tp_group)
+
+
+def _kv_whole(kv_heads: int, tp: int) -> bool:
+    """Whether tensor parallelism keeps ``kv_proj`` whole on every model
+    rank: when the kv heads do not cut into ``tp`` equal sets of heads
+    (``kv_heads < tp``)."""
+    return kv_heads % tp != 0
 
 
 def _tp_size(tp_group, tp_size: Optional[int]) -> int:
@@ -225,7 +275,8 @@ class TransformerLM(nn.Module):
                  logits_dtype: torch.dtype = torch.float32, sp_group=None,
                  remat: bool = False, moe_experts: int = 0, moe_every: int = 2,
                  tp_group=None, tp_size: Optional[int] = None, ep_group=None,
-                 block_q: Optional[int] = None, block_k: Optional[int] = None):
+                 block_q: Optional[int] = None, block_k: Optional[int] = None,
+                 tp_rank: Optional[int] = None):
         super().__init__()
         self.vocab, self.dim, self.dtype = vocab, dim, dtype
         self.remat = remat
@@ -234,11 +285,13 @@ class TransformerLM(nn.Module):
         self.blocks = nn.ModuleList(
             Block(dim, heads, mlp_ratio, dtype, attention, kv_heads, sp_group,
                   moe_experts if moe_experts > 0 and i % moe_every == moe_every - 1
-                  else 0, tp_group, tp_size, ep_group, block_q, block_k)
+                  else 0, tp_group, tp_size, ep_group, block_q, block_k, tp_rank)
             for i in range(layers))
         self.norm = RMSNorm(dim, dtype)
         self.lm_head = Dense(dim // self.tp_size, vocab, logits_dtype)
         self.moe_lb_losses: list = []
+        if tp_group is not None and self.tp_size > 1:
+            basics.note_model_cut()
 
     def head(self, x):
         """The LM head, row-parallel under tensor parallelism: this rank's
@@ -252,9 +305,6 @@ class TransformerLM(nn.Module):
         return reduce_from_model(self.lm_head(x), self.tp_group)
 
     def forward(self, tokens, positions=None, return_hidden: bool = False):
-        if return_hidden and self.tp_size > 1:
-            raise ValueError("return_hidden feeds chunked_lm_loss the whole "
-                             "head, which tensor parallelism cuts")
         if positions is None:
             positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
         x = self.embed(tokens).to(self.dtype)
@@ -328,24 +378,36 @@ def _fused(name: str) -> int:
     return 3 if "qkv" in parts else 2 if "kv_proj" in parts else 1
 
 
+def _whole_kv(name: str, kv_heads: Optional[int], tp: int) -> bool:
+    return "kv_proj" in name.split(".") and kv_heads is not None and \
+        _kv_whole(kv_heads, tp)
+
+
 def tp_param_specs(model: nn.Module) -> dict:
     """Parameter name -> the dim tensor parallelism cuts (see ``_tp_dim``),
     the port's form of ``tp_param_specs``: flax's ``P(None, tp)`` on an
     ``(in, out)`` kernel is dim 0 of the port's ``(out, in)`` weight,
-    ``P(tp, None)`` dim 1."""
-    return {name: _tp_dim(name, p.dim()) for name, p in model.named_parameters()}
+    ``P(tp, None)`` dim 1. A ``kv_proj`` that the model's tensor-parallel
+    size keeps whole (``kv_heads < tp``) is replicated, None."""
+    whole = {f"{n}.kv_proj.weight".lstrip(".") for n, m in model.named_modules()
+             if getattr(m, "kv_whole", False)}
+    return {name: None if name in whole else _tp_dim(name, p.dim())
+            for name, p in model.named_parameters()}
 
 
-def tp_state_dict(full: dict, tp: int, rank: int) -> dict:
+def tp_state_dict(full: dict, tp: int, rank: int,
+                  kv_heads: Optional[int] = None) -> dict:
     """Model rank ``rank``'s state dict of a TransformerLM built with a
     model group of size ``tp``, cut from a full one: each of q, k and v
     (and k, v of ``kv_proj``) by heads, ``mlp_in`` by rows, the
-    row-parallel weights by columns, the rest copied."""
+    row-parallel weights by columns, the rest copied. ``kv_heads`` (the
+    model's; None: a multiple of ``tp``) below ``tp`` keeps ``kv_proj``
+    whole, as the model does."""
     if not 0 <= rank < tp:
         raise ValueError(f"rank {rank} outside [0, {tp})")
     out = {}
     for name, t in full.items():
-        dim = _tp_dim(name, t.dim())
+        dim = None if _whole_kv(name, kv_heads, tp) else _tp_dim(name, t.dim())
         if dim is not None:
             parts = t.chunk(_fused(name), dim=dim)
             if any(p.shape[dim] % tp for p in parts):
@@ -356,13 +418,15 @@ def tp_state_dict(full: dict, tp: int, rank: int) -> dict:
     return out
 
 
-def tp_merge_state_dicts(locals_: list) -> dict:
+def tp_merge_state_dicts(locals_: list, kv_heads: Optional[int] = None) -> dict:
     """The inverse of :func:`tp_state_dict` over every model rank's dict
     (or gradients by name), in rank order: the full tensors, replicated
-    leaves taken from rank 0."""
+    leaves (a whole ``kv_proj`` too, ``kv_heads`` as there) taken from
+    rank 0."""
     out = {}
     for name, t in locals_[0].items():
-        dim = _tp_dim(name, t.dim())
+        dim = None if _whole_kv(name, kv_heads, len(locals_)) \
+            else _tp_dim(name, t.dim())
         if dim is None:
             out[name] = t
             continue
@@ -391,12 +455,27 @@ def lm_loss(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     return token_loss(logits, next_tokens(tokens))
 
 
-def _chunk_loss(hidden, weight, targets):
-    return token_loss(hidden.float() @ weight.t(), targets)
+def tp_partial_logits(hidden: torch.Tensor, weight: torch.Tensor,
+                      rank: int = 0) -> torch.Tensor:
+    """Model rank ``rank``'s partial logits of the row-parallel head, in
+    float32: its ``weight.shape[1]`` columns of the replicated ``hidden``
+    against its slice ``weight`` (``(vocab, dim / tp)``) of the head. The
+    ranks' partials sum to the logits; a whole head (``weight`` as wide as
+    ``hidden``) gives them."""
+    per = weight.shape[1]
+    if per != hidden.shape[-1]:
+        hidden = hidden[..., rank * per:(rank + 1) * per]
+    return hidden.float() @ weight.t()
+
+
+def _chunk_loss(hidden, weight, targets, tp_group=None, rank=0):
+    return token_loss(reduce_from_model(tp_partial_logits(hidden, weight, rank),
+                                        tp_group), targets)
 
 
 def chunked_lm_loss(hidden: torch.Tensor, head_weight: torch.Tensor,
-                    targets: torch.Tensor, chunk: int = 2048) -> torch.Tensor:
+                    targets: torch.Tensor, chunk: int = 2048,
+                    tp_group=None) -> torch.Tensor:
     """Next-token cross entropy without the whole ``(B, T, vocab)`` logits,
     the counterpart of ``horovod_tpu.models.transformer.chunked_lm_loss``:
     the head and the cross entropy run over sequence chunks, each chunk
@@ -408,6 +487,15 @@ def chunked_lm_loss(hidden: torch.Tensor, head_weight: torch.Tensor,
     flax kernel is its transpose, ``(dim, vocab)``). The head's product
     runs in float32, the hidden states upcast, as the JAX function does.
     Peak extra memory is one chunk's float32 logits, ``B * chunk * vocab``.
+
+    ``tp_group``: the model group of a tensor-parallel model, whose
+    ``lm_head`` holds this rank's ``dim / tp`` columns and whose hidden
+    states are replicated. Each chunk takes this rank's partial logits
+    (``tp_partial_logits``, from the hidden states passed through
+    ``copy_to_model``, whose backward completes their cotangent) and sums
+    them over the group in float32 (``reduce_from_model``) before the
+    cross entropy, as the row-parallel head of ``tp_param_specs``
+    (``P(tp, None)`` on the flax kernel) computes them.
     """
     b, t, _ = hidden.shape
     if chunk <= 0:
@@ -416,8 +504,12 @@ def chunked_lm_loss(hidden: torch.Tensor, head_weight: torch.Tensor,
     if t % chunk:
         raise ValueError(f"sequence {t} not divisible by loss chunk {chunk}")
     weight = head_weight.float()
+    rank = 0
+    if model_size(tp_group) > 1:
+        rank = dist.get_rank(tp_group)
+        hidden = copy_to_model(hidden, tp_group)
     losses = [checkpoint(_chunk_loss, hidden[:, i:i + chunk], weight,
-                         targets[:, i:i + chunk], use_reentrant=False,
-                         preserve_rng_state=False)
+                         targets[:, i:i + chunk], tp_group, rank,
+                         use_reentrant=False, preserve_rng_state=False)
               for i in range(0, t, chunk)]
     return torch.stack(losses).mean()

@@ -142,8 +142,10 @@ class DistributedOptimizer:
     empty the policy table for adaptive, else ``compression``) and
     ``dcn_threshold`` (None: HOROVOD_DCN_FUSION_THRESHOLD; 0 is no cap) set
     the DCN tier's wire dtype and bucket cap; ``wires`` holds each bucket's
-    (ICI, DCN) wire dtypes. ``op`` is the reduction, AVERAGE as in
-    Horovod.
+    (ICI, DCN) wire dtypes. The ladder spans the world, so with a
+    ``group`` (the model axis's batch group, a pp or sp layout's dp group)
+    it raises, whether the argument or the environment asks for it. ``op``
+    is the reduction, AVERAGE as in Horovod.
 
     ``sharded`` (None: HOROVOD_SHARD_PARAMS) puts the optimizer on the
     ZeRO exchange over ``layout`` (None: ``sharded_groups()``, built here,
@@ -267,6 +269,12 @@ class DistributedOptimizer:
             raise ValueError(
                 "named_parameters must list exactly the optimizer's parameters")
         self.hierarchical = _resolved_hierarchical(hierarchical, self.op)
+        if self.hierarchical and self.group is not None:
+            raise ValueError(
+                "the hierarchical ladder runs over the world's (dcn, ici) "
+                "groups; it does not take group= (a model axis, or a pp or sp "
+                "layout): pass hierarchical=False or unset "
+                "HOROVOD_HIERARCHICAL_ALLREDUCE")
         if self.hierarchical:
             basics.require_not_elastic("DistributedOptimizer(hierarchical=True)")
         self.groups, pad_to = None, 1
@@ -341,7 +349,7 @@ class DistributedOptimizer:
                        for i, p in enumerate(self.params) if p.requires_grad]
 
     def remove_hooks(self) -> None:
-        """Take this optimizer's gradient hooks off the parameters, before
+        """Take this optimizer's gradient hooks off the parameters, once
         another optimizer is built over them (``train.TrainRecapture``)."""
         for handle in self._hooks:
             handle.remove()

@@ -161,6 +161,16 @@ def _spec_names_model(spec: str) -> bool:
     return (spec or "").strip().lower().replace("×", "x").count("x") >= 2
 
 
+def mesh_model_axis(spec: Optional[str] = None) -> bool:
+    """Whether a ``HOROVOD_MESH`` spelling (None: the variable's, as
+    ``sharded_groups()`` reads it) lays out a model axis: three sizes, or
+    a model size above 1. ``sharded_groups`` of it has a model group."""
+    if spec is None:
+        spec = os.environ.get("HOROVOD_MESH", "")
+    return _spec_names_model(spec) or \
+        parse_mesh_spec(spec, dist.get_world_size())[2] != 1
+
+
 @dataclass(frozen=True)
 class ShardedLayout:
     """This rank's place in the ``('batch', 'shard'[, 'model'])`` layout.

@@ -38,6 +38,13 @@ with the same arithmetic per element: at ``shard = 1`` a sharded step is
 the data-parallel step bit for bit, graphed (both Adams ``capturable``) or
 eager.
 
+The model axis of ``HOROVOD_MESH`` (``"<batch>x<shard>x<model>"``) or of
+``setup(layout=sharded_groups(b, s, m))`` puts tensor parallelism into
+``setup``: the model is cut over the model group (``build_model(tp_group=)``),
+the exchange runs over the batch group (flat) or the ``('batch', 'shard')``
+groups of the model index (ZeRO), and the ranks of one model group draw
+one batch, the JAX package's ``('batch', 'shard', 'model')`` cube.
+
 ``setup_pipeline(config, pp, n_micro)`` builds the GPipe step of
 ``models/pipeline_lm.py`` on the ``('dp', 'pp')`` groups of
 ``training_groups``: each rank draws the whole model from the config's
@@ -82,7 +89,8 @@ from .models.transformer import (TransformerLM, chunked_lm_loss, init_weights,
                                  next_tokens, token_loss, tp_state_dict)
 from .parallel import fsdp
 from .parallel import sharded as sh
-from .parallel.mesh import (DpFsdp, DpSp, dp_sp_groups, hierarchical_groups,
+from .parallel.mesh import (DpFsdp, DpSp, ShardedLayout, dp_sp_groups,
+                            hierarchical_groups, mesh_model_axis,
                             parse_mesh_spec, sharded_groups, training_groups)
 from .parallel.pipeline import stage_of
 from .parallel.tensor import model_size
@@ -135,13 +143,26 @@ class TrainConfig:
 class TrainResult:
     losses: list = field(default_factory=list)       # per step, rank-averaged
     step_s: list = field(default_factory=list)       # host clock per step
-    tokens_per_step: int = 0                          # over all ranks
+    tokens_per_step: int = 0                          # over the data ranks
     num_buckets: int = 0
     params: int = 0
     # With steps_per_dispatch: per dispatch of K steps instead of per step.
     dispatch_losses: list = field(default_factory=list)   # mean, rank-averaged
     dispatch_s: list = field(default_factory=list)        # host clock
     capture_s: Optional[float] = None                     # warm-up + capture
+
+
+def model_kwargs(config: TrainConfig, **extra) -> dict:
+    """The ``TransformerLM`` arguments of the config's model (``extra``
+    adds or overrides some): ``build_model``'s, which a caller may give
+    ``tp_size`` to see one model rank's shapes (on the meta device, say)."""
+    return dict(vocab=config.vocab, dim=config.dim, heads=config.heads,
+                layers=config.layers, mlp_ratio=config.mlp_ratio,
+                dtype=getattr(torch, config.dtype), attention=config.attention,
+                kv_heads=config.kv_heads,
+                logits_dtype=getattr(torch, config.logits_dtype),
+                remat=config.remat, block_q=config.block_q,
+                block_k=config.block_k, **extra)
 
 
 def build_model(config: TrainConfig, device, sp_group=None, tp_group=None,
@@ -153,14 +174,8 @@ def build_model(config: TrainConfig, device, sp_group=None, tp_group=None,
     (``tp_state_dict``, ``ep_state_dict``), so the ranks of a group hold
     one model; ``moe_experts``/``moe_every`` as ``TransformerLM`` takes
     them."""
-    kw = dict(vocab=config.vocab, dim=config.dim, heads=config.heads,
-              layers=config.layers, mlp_ratio=config.mlp_ratio,
-              dtype=getattr(torch, config.dtype), attention=config.attention,
-              kv_heads=config.kv_heads,
-              logits_dtype=getattr(torch, config.logits_dtype),
-              sp_group=sp_group, remat=config.remat, moe_experts=moe_experts,
-              moe_every=moe_every, block_q=config.block_q,
-              block_k=config.block_k)
+    kw = model_kwargs(config, sp_group=sp_group, moe_experts=moe_experts,
+                      moe_every=moe_every)
     model = TransformerLM(**kw, tp_group=tp_group, ep_group=ep_group).to(device)
     gen = torch.Generator(device=device).manual_seed(config.seed)
     tp, ep = model_size(tp_group), model_size(ep_group)
@@ -172,7 +187,7 @@ def build_model(config: TrainConfig, device, sp_group=None, tp_group=None,
     state = full.state_dict()
     del full
     if tp > 1:
-        state = tp_state_dict(state, tp, dist.get_rank(tp_group))
+        state = tp_state_dict(state, tp, dist.get_rank(tp_group), config.kv_heads)
     if ep > 1:
         state = ep_state_dict(state, ep, dist.get_rank(ep_group))
     model.load_state_dict(state)
@@ -254,6 +269,13 @@ def make_cache(config: TrainConfig, sp: Optional[DpSp], device,
                        seed=config.seed, device=device)
 
 
+def setup_cache(config: TrainConfig, s: "Setup", device) -> DeviceCache:
+    """``make_cache`` for a ``setup``'s rank: its ring's shard with sp,
+    else the rows of its data index, so the ranks of one model group draw
+    the same batches."""
+    return make_cache(config, s.sp, device, None if s.sp else s.data_index)
+
+
 def make_train_step(model: TransformerLM, opt: hvd_opt.DistributedOptimizer,
                     positions: Optional[torch.Tensor] = None,
                     loss_chunk: int = 0):
@@ -275,7 +297,7 @@ def make_train_step(model: TransformerLM, opt: hvd_opt.DistributedOptimizer,
         if loss_chunk:
             hidden = model(tokens, positions, return_hidden=True)
             loss = chunked_lm_loss(hidden, model.lm_head.weight, targets,
-                                   loss_chunk)
+                                   loss_chunk, model.tp_group)
         else:
             loss = token_loss(model(tokens, positions), targets)
         loss.backward()
@@ -293,7 +315,9 @@ class Setup:
     opt: hvd_opt.DistributedOptimizer
     step: Callable
     sp: Optional[DpSp]
-    tokens_per_step: int                # over all ranks
+    tokens_per_step: int                # over the data ranks
+    layout: Optional[ShardedLayout] = None  # ZeRO's or the model axis's
+    data_index: int = 0                 # the batch this rank draws
 
 
 def adam(params, config: TrainConfig, capturable: bool = False):
@@ -307,6 +331,17 @@ def graphed_on_card(config: TrainConfig, device) -> bool:
     of the step is asked for (``config.steps_per_dispatch``) on the card."""
     return config.steps_per_dispatch is not None and \
         torch.device(device).type == "cuda"
+
+
+def data_index(sp: Optional[DpSp], layout: Optional[ShardedLayout]) -> int:
+    """The batch a rank draws: its ring's dp index with ``sp``, its data
+    rank ``batch_rank x shard_size + shard_rank`` on a layout (the ranks of
+    one model group share it), else its rank."""
+    if sp is not None:
+        return sp.dp_index
+    if layout is not None:
+        return layout.batch_rank * layout.shard_size + layout.shard_rank
+    return basics.rank()
 
 
 def setup(config: TrainConfig, device=None, *,
@@ -328,17 +363,51 @@ def setup(config: TrainConfig, device=None, *,
     HOROVOD_HIERARCHICAL_ALLREDUCE); ``compression`` is a
     HOROVOD_COMPRESSION name or spec, ``groups`` the ladder's
     ``Hierarchy``, and ``layout`` a ``ShardedLayout`` that puts the step
-    on ZeRO over it."""
+    on ZeRO over it.
+
+    The model axis: a layout whose model axis is named (``layout=
+    sharded_groups(b, s, m)``, or HOROVOD_MESH ``"<b>x<s>x<m>"``) cuts the
+    model over its model group (``build_model(tp_group=)``; the blocks'
+    and the head's allreduces run there) and trains on ZeRO when
+    ``config.sharded`` (None: HOROVOD_SHARD_PARAMS) says so: over the
+    ``('batch', 'shard')`` groups of this rank's model index, the shard
+    plan built from this rank's slices with ``model_size``. Otherwise the
+    exchange is the flat ``DistributedOptimizer(group=<batch group>)``,
+    and a shard size above 1 raises. The model axis issues no collective
+    in the exchange: the conjugate pairs have completed the gradients. The
+    ranks of one model group draw one batch (``data_index``), and
+    ``tokens_per_step`` counts the data ranks. No ``sp`` with a model
+    axis."""
     basics.init(device)
     dev = basics.device()
-    sharded = layout is not None or (basics.config().shard_params
-                                     if config.sharded is None else config.sharded)
+    if layout is not None and layout.model_group is None:
+        sharded = True
+    else:
+        sharded = basics.config().shard_params if config.sharded is None \
+            else config.sharded
     if sharded and config.sp is not None:
         raise ValueError("sharded training does not combine with sp yet")
+    if layout is None and (sharded or mesh_model_axis()):
+        layout = sharded_groups()
+    tp_group = None if layout is None else layout.model_group
+    if tp_group is not None:
+        if config.sp is not None:
+            raise ValueError("tensor parallelism (a model axis) does not "
+                             "combine with sp yet")
+        if not sharded and layout.shard_size > 1:
+            raise ValueError(
+                f"a mesh of shard size {layout.shard_size} under a model axis "
+                "trains with ZeRO: set sharded=True (TrainConfig(sharded=True) "
+                "or HOROVOD_SHARD_PARAMS=1), or lay the mesh out as "
+                "'<batch>x1x<model>'")
     sp = dp_sp_groups(config.sp) if config.sp is not None else None
-    model = build_model(config, dev, sp.group if sp else None)
+    model = build_model(config, dev, sp.group if sp else None, tp_group=tp_group)
     named = jax_ordered(model.named_parameters())
-    hvd_opt.broadcast_parameters(named, root_rank=0)
+    if tp_group is None:
+        hvd_opt.broadcast_parameters(named, root_rank=0)
+    else:       # each model index holds its own slices
+        hvd_opt.broadcast_parameters(named, 0, layout.batch_group)
+        hvd_opt.broadcast_parameters(named, 0, layout.shard_group)
     opt = build_optimizer(config, named, sharded, fusion_threshold=fusion_threshold,
                           num_buckets=num_buckets, compression=compression,
                           hierarchical=hierarchical, groups=groups,
@@ -347,9 +416,11 @@ def setup(config: TrainConfig, device=None, *,
     if sp is not None:
         _, positions = make_shard(config, sp, dev)
     tokens_local = config.batch * config.seq // (sp.sp_size if sp else 1)
+    model_ranks = layout.model_size if layout is not None else 1
     return Setup(model=model, opt=opt, sp=sp,
                  step=make_train_step(model, opt, positions, config.loss_chunk),
-                 tokens_per_step=tokens_local * basics.size())
+                 tokens_per_step=tokens_local * basics.size() // model_ranks,
+                 layout=layout, data_index=data_index(sp, layout))
 
 
 def build_optimizer(config: TrainConfig, named, sharded: bool, adam_opt=None, *,
@@ -360,7 +431,8 @@ def build_optimizer(config: TrainConfig, named, sharded: bool, adam_opt=None, *,
     ``named`` parameters, with the knobs ``setup`` takes, and its state
     broadcast from rank 0. ``adam_opt``, flat only: the running job's Adam
     over the parameters, kept with its state (which every rank already
-    shares) in place of a new one."""
+    shares) in place of a new one. Flat with a ``layout`` (a model axis):
+    the exchange and the broadcast run over its batch group."""
     wire = None if compression is None \
         else Compression.by_name(normalize(compression))
     graphed = graphed_on_card(config, named[0][1].device)
@@ -369,7 +441,8 @@ def build_optimizer(config: TrainConfig, named, sharded: bool, adam_opt=None, *,
         layout = layout if layout is not None else sharded_groups()
         plan = sh.build_shard_plan(params, layout.shard_size,
                                    hvd_opt._resolved_threshold(fusion_threshold),
-                                   hvd_opt._resolved_num_buckets(num_buckets))
+                                   hvd_opt._resolved_num_buckets(num_buckets),
+                                   model_size=layout.model_size)
         rows = sh.shard_params(params, plan, layout.shard_rank)
         opt = hvd_opt.DistributedOptimizer(
             adam(rows, config, graphed), named, compression=wire,
@@ -378,15 +451,16 @@ def build_optimizer(config: TrainConfig, named, sharded: bool, adam_opt=None, *,
             shard_plan=plan, layout=layout)
         hvd_opt.broadcast_sharded_state(opt)
         return opt
+    group = None if layout is None else layout.batch_group
     fresh = adam_opt is None
     if fresh:
         adam_opt = adam([p for _, p in named], config, graphed)
     opt = hvd_opt.DistributedOptimizer(
         adam_opt, named, compression=wire, fusion_threshold=fusion_threshold,
         num_buckets=num_buckets, hierarchical=hierarchical, groups=groups,
-        sharded=False)
+        sharded=False, group=group)
     if fresh:
-        hvd_opt.broadcast_optimizer_state(opt, root_rank=0)
+        hvd_opt.broadcast_optimizer_state(opt, 0, group)
     return opt
 
 
@@ -539,29 +613,29 @@ def setup_pipeline(config: TrainConfig, pp: int, n_micro: int,
 
 def train(config: TrainConfig, steps: int, device=None,
           around_step: Optional[Callable[[int], ContextManager]] = None,
-          ) -> TrainResult:
+          layout: Optional[ShardedLayout] = None) -> TrainResult:
     """init -> model -> broadcasts -> ``steps`` steps: on one repeated
     batch, or with ``config.steps_per_dispatch = K`` in ``steps / K``
     dispatches of the graphed loop over a ``DeviceCache``.
 
     ``around_step(i)``, if given, returns a context manager that step ``i``
     (dispatch ``i`` of a graphed run) runs inside (a profiler around it,
-    for example).
+    for example). ``layout`` is ``setup``'s (a model axis, or ZeRO).
     """
-    s = setup(config, device)
+    s = setup(config, device, layout=layout)
     dev = basics.device()
     result = TrainResult(tokens_per_step=s.tokens_per_step,
                          num_buckets=s.opt.plan.num_buckets,
                          params=sum(p.numel() for p in s.model.parameters()))
     k = config.steps_per_dispatch
     if k is None:
-        tokens = make_batch(config, basics.rank(), dev) if s.sp is None \
+        tokens = make_batch(config, s.data_index, dev) if s.sp is None \
             else make_shard(config, s.sp, dev)[0]
     else:
         if steps % k:
             raise ValueError(f"steps {steps} not a multiple of "
                              f"steps_per_dispatch {k}")
-        loop = make_scan_train_loop(s.step, make_cache(config, s.sp, dev), k,
+        loop = make_scan_train_loop(s.step, setup_cache(config, s, dev), k,
                                     optimizer=s.opt)
         if dev.type == "cuda":
             loop.capture()
@@ -601,9 +675,11 @@ class TuneStepFactory:
     then builds this one from the config's seed, so every candidate starts
     from the same weights and draws the same batches. ``mesh_shape`` None is
     the flat ``DistributedOptimizer``; a HOROVOD_MESH spec puts the step on
-    ZeRO over that layout's ``sharded_groups`` (the model axis must be 1;
-    the ladder has no ZeRO form, in either package, so ``hierarchical`` is
-    ignored there). With ``config.steps_per_dispatch = K`` every candidate,
+    ZeRO over that layout's ``sharded_groups`` (the ladder has no ZeRO
+    form, in either package, so ``hierarchical`` is ignored there), and a
+    three-axis spec (``"1x2x2"``) also cuts the model over its model group,
+    the JAX package's sixth tuning dimension; ``"BxSx1"`` trains as
+    ``"BxS"`` bit for bit. With ``config.steps_per_dispatch = K`` every candidate,
     flat or ZeRO, captures its step in a CUDA graph on a ``capturable``
     Adam, where the JAX package re-jits its compiled step, and ``run``
     replays it K times; a capture that fails raises. ``graphed=False``
@@ -612,8 +688,8 @@ class TuneStepFactory:
     eagerly on a plain Adam, whose update rounds otherwise than the
     capturable one's. ``sync`` fences at a window's end.
 
-    ``records`` holds one dict per candidate: its knobs, ``graphed``, the
-    plan's ``num_buckets``, each bucket's wire dtype (None: as it is), ``build_s`` (setup, warm-up and capture), the
+    ``records`` holds one dict per candidate: its knobs, its layout's
+    ``model_size``, ``graphed``, the plan's ``num_buckets``, each bucket's wire dtype (None: as it is), ``build_s`` (setup, warm-up and capture), the
     per-step ``losses`` of its first ``run`` and, on the card, its
     ``peak_bytes`` (``max_memory_allocated``, reset before the build).
     Those of the last candidate are filled in by ``close()``, which frees
@@ -635,14 +711,14 @@ class TuneStepFactory:
 
     def _layout(self, spec: str):
         """The ``ShardedLayout`` of a mesh spec, built once: groups are
-        created on every rank and a captured step must create none."""
+        created on every rank and a captured step must create none. The
+        candidates reach every rank in one order, so the ranks create the
+        groups in one order. ``"BxSxM"`` names the model axis (its model
+        group, of one rank at M = 1); ``"BxS"`` does not."""
         if spec not in self._layouts:
             batch, shard, model = parse_mesh_spec(spec, basics.size())
-            if model != 1:
-                raise ValueError(f"mesh {spec!r}: the trainer has no model "
-                                 "axis yet (tensor parallelism is not wired "
-                                 "through setup)")
-            self._layouts[spec] = sharded_groups(batch, shard, 1)
+            self._layouts[spec] = sharded_groups(
+                batch, shard, model if mesh_model_axis(spec) else None)
         return self._layouts[spec]
 
     def build(self, fusion_threshold: int, num_buckets: Optional[int] = None,
@@ -671,7 +747,8 @@ class TuneStepFactory:
         self.records.append({
             "fusion_threshold": fusion_threshold, "num_buckets": num_buckets,
             "compression": compression, "hierarchical": hierarchical,
-            "mesh_shape": mesh_shape, "planned_buckets": s.opt.plan.num_buckets,
+            "mesh_shape": mesh_shape, "model_size": 1 if layout is None
+            else layout.model_size, "planned_buckets": s.opt.plan.num_buckets,
             "wires": [None if w is None else str(w).removeprefix("torch.")
                       for w in (s.opt.wires if s.opt.sharded else s.opt.wires[0])],
             "graphed": config.steps_per_dispatch is not None,
@@ -682,7 +759,7 @@ class TuneStepFactory:
     def __call__(self, fusion_threshold: int, **knobs):
         s = self.build(fusion_threshold, **knobs)
         record, dev = self.records[-1], basics.device()
-        cache = make_cache(self.config, s.sp, dev)
+        cache = setup_cache(self.config, s, dev)
         k = self.config.steps_per_dispatch or 1
         if record["graphed"]:
             loop = make_scan_train_loop(s.step, cache, k, optimizer=s.opt)
@@ -764,7 +841,7 @@ class TrainRecapture:
                       "compression": knobs.get("compression") or
                       basics.config().compression,
                       "hierarchical": self.s.opt.hierarchical}
-        self.cache = make_cache(config, self.s.sp, self.dev)
+        self.cache = setup_cache(config, self.s, self.dev)
         self.recaptures: list[tuple[dict, float]] = []
         self.loop = self._capture(self.cache.counter())
 
@@ -789,11 +866,12 @@ class TrainRecapture:
         knobs = {**self.knobs, **change}
         counter = self.loop.counter.clone()
         old = self.s.opt
-        old.remove_hooks()
         named = jax_ordered(self.s.model.named_parameters())
         groups = old.groups if knobs["hierarchical"] else None
+        # A change the optimizer refuses leaves the job as it was.
         opt = build_optimizer(self.config, named, False, old.optimizer,
-                              groups=groups, **knobs)
+                              groups=groups, layout=self.s.layout, **knobs)
+        old.remove_hooks()
         positions = None if self.s.sp is None \
             else make_shard(self.config, self.s.sp, self.dev)[1]
         self.s = dataclasses.replace(self.s, opt=opt, step=make_train_step(

@@ -518,7 +518,8 @@ def _world(script: str, timeout: int, needs: int = 2, **env_extra):
             out, err = proc.communicate()
         outs.append(out)
         if proc.returncode != 0:
-            failures.append(f"rank {rank} exit {proc.returncode}:\n{err[-3000:]}")
+            failures.append(f"rank {rank} exit {proc.returncode}:\n{err[-3000:]}"
+                            f"\nits stdout's end:\n{out[-40000:]}")
     assert not failures, "\n".join(failures)
     cards = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -823,6 +824,28 @@ def test_tp_world_tensor_and_expert_parallel_match_one_rank(tp_world):
     n, out = tp_world
     print(out)
     assert f"ok tp world {n}" in out
+
+
+@pytest.fixture(scope="module")
+def tp_world_cube():
+    return _world("torch_port_cube_worker.py", 1500, needs=4, CUBE_MODE="cuda")
+
+
+def test_tp_world_cube_through_setup_matches_flat_dp(tp_world_cube):
+    """On four cards, the full-width flash TransformerLM through
+    ``train.setup`` at 1x1x4, 2x1x2, ZeRO 1x2x2, 1x1x4 with the chunked
+    loss and 1x1x4 with kv_heads 2, each in float32 and in bf16, graphed
+    (K = 4, 2 dispatches), against four-rank flat data parallelism graphed
+    on the same global batch and dtype: in float32 every step's loss
+    within 1e-5 relative and the updates within 1e-4 relative norm; in
+    bf16 the loss within 1e-2 and the updates no further
+    from the float32 flat run's than 1.5 x bf16 flat DP's; 1x1x4 with
+    remat against 1x1x4 within 1e-5 and 1e-4; every rank's parameter count
+    the analytic one and its B1-B3 launches those of the warm-up and the
+    capture (tests/torch_port_cube_worker.py sets the limits out)."""
+    n, out = tp_world_cube
+    print(out)
+    assert f"ok cube world {n}" in out
 
 
 # ------------------------------------------------------ pipeline parallelism

@@ -216,8 +216,11 @@ def test_state_dict_cuts_each_of_qkv_by_heads(kw):
 
 
 def test_tp_model_errors():
-    with pytest.raises(ValueError, match="divide by the tensor-parallel size 4"):
-        TransformerLM(vocab=64, dim=64, heads=8, kv_heads=2, layers=1, tp_size=4)
+    # kv_heads < tp keeps kv_proj whole (each rank reads one kv head), so
+    # it builds where tp is a multiple of kv_heads and raises elsewhere.
+    TransformerLM(vocab=64, dim=64, heads=8, kv_heads=2, layers=1, tp_size=4)
+    with pytest.raises(ValueError, match="either must divide the other"):
+        TransformerLM(vocab=64, dim=96, heads=12, kv_heads=4, layers=1, tp_size=6)
     with pytest.raises(ValueError, match="divide by the tensor-parallel size 3"):
         TransformerLM(vocab=64, dim=96, heads=4, layers=1, tp_size=3)
     model = TransformerLM(vocab=64, dim=64, heads=4, layers=1, tp_size=2,
